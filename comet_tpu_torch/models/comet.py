@@ -1,0 +1,154 @@
+"""COMET end to end: tracker + camera predictor, and its entry points.
+
+Counterpart of ``comet_tpu/models/comet.py`` (``COMET``,
+``decode_predictions``). The tracker branch serves the camera predictor and
+is frozen; this module is an inference path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..config import CometConfig
+from ..geometry.cameras import CameraSet
+from ..geometry.codecs import INTRINSICS_TABLE, decode_relative_uvz, decode_relative_xyz
+from ..ops.bilinear import resize_bilinear_align_corners
+from .blocks import init_params
+from .camera_predictor import CameraPredictor
+from .encoders import BasicEncoder, ShallowEncoder
+from .refine import refine_track
+from .tracker import BaseTracker
+
+
+class COMET(nn.Module):
+    def __init__(self, cfg: CometConfig):
+        super().__init__()
+        self.cfg = cfg
+        tc, dtype = cfg.tracker, cfg.dtype
+        if cfg.enable_track:
+            self.coarse_fnet = BasicEncoder(tc.coarse_latent_dim, tc.coarse_stride, dtype)
+            self.coarse_tracker = BaseTracker(
+                stride=tc.coarse_stride, corr_levels=tc.coarse_corr_levels,
+                corr_radius=tc.coarse_corr_radius, latent_dim=tc.coarse_latent_dim,
+                hidden_size=tc.coarse_hidden_size, use_space_attn=True,
+                depth=tc.coarse_depth, fine=False, predict_conf=tc.predict_conf,
+                dtype=dtype,
+            )
+            if cfg.fine_tracker:
+                psize = 2 * tc.fine_pradius + 1
+                # native-resolution fine features; the upsample to psize is
+                # folded into the fine tracker's correlation volumes
+                self.fine_fnet = ShallowEncoder(
+                    tc.fine_latent_dim, stride=1, dtype=dtype, resize_output=False
+                )
+                self.fine_tracker = BaseTracker(
+                    stride=1, corr_levels=tc.fine_corr_levels,
+                    corr_radius=tc.fine_corr_radius, latent_dim=tc.fine_latent_dim,
+                    hidden_size=tc.fine_hidden_size, use_space_attn=False,
+                    depth=tc.fine_depth, fine=True, dtype=dtype, corr_size=(psize, psize),
+                )
+        if cfg.enable_pose:
+            cc = cfg.camera
+            self.camera_predictor = CameraPredictor(
+                hidden_size=cc.hidden_size, num_heads=cc.num_heads, mlp_ratio=cc.mlp_ratio,
+                att_depth=cc.att_depth, trunk_depth=cc.trunk_depth, down_size=cc.down_size,
+                use_trajectory=cc.use_trajectory, use_time=cc.use_time, use_gapr=cc.use_gapr,
+                backbone_depth=cc.backbone_depth, backbone_dim=cc.backbone_dim,
+                backbone_heads=cc.backbone_heads, dtype=dtype,
+            )
+
+    def forward(
+        self,
+        images: torch.Tensor,  # [B, S, H, W, 3] ImageNet-normalized
+        queries: torch.Tensor,  # [B, N, 2] frame-0 query points (pixels)
+    ) -> Dict[str, torch.Tensor]:
+        cfg, tc, dtype = self.cfg, self.cfg.tracker, self.cfg.dtype
+        b, s, h, w, _ = images.shape
+        out: Dict[str, torch.Tensor] = {}
+        pred_track = track_confidence = None
+
+        if cfg.enable_track:
+            imgs_flat = images.reshape(b * s, h, w, 3)
+            if tc.coarse_down_ratio > 1:
+                imgs_flat = resize_bilinear_align_corners(
+                    imgs_flat, h // tc.coarse_down_ratio, w // tc.coarse_down_ratio
+                )
+            fmaps = self.coarse_fnet(imgs_flat.to(dtype))
+            fmaps = fmaps.reshape(b, s, *fmaps.shape[1:])
+            coarse_out = self.coarse_tracker(
+                queries, fmaps, iters=tc.coarse_iters, down_ratio=tc.coarse_down_ratio
+            )
+            coarse_pred = coarse_out.coord_preds[-1]  # [B, S, N, 2]
+
+            if cfg.fine_tracker:
+                refined, score = refine_track(
+                    images.to(dtype),
+                    self.fine_fnet,
+                    lambda q, f, iters: self.fine_tracker(q, f, iters=iters),
+                    coarse_pred,
+                    pradius=tc.fine_pradius,
+                    sradius=tc.fine_sradius,
+                    compute_score=True,
+                    iters=tc.fine_iters,
+                )
+                # confidence = normalized inverse heatmap std
+                inv = 1.0 / (score + 1e-6)
+                track_confidence = inv / inv.amax(dim=1, keepdim=True)
+            else:
+                refined = coarse_pred
+                track_confidence = torch.ones_like(coarse_out.vis)
+            pred_track = refined
+            out["coarse_track"] = coarse_pred
+            out["pred_track"] = pred_track
+            out["track_score"] = track_confidence
+            if coarse_out.vis is not None:
+                out["track_vis"] = coarse_out.vis
+
+        if cfg.enable_pose:
+            preds = self.camera_predictor(images, pred_track, track_confidence)
+            out["pred_pose_enc"] = preds.pred_pose_enc  # [B, S, 7]
+        return out
+
+
+def build_comet(
+    cfg: CometConfig, device: Optional[str] = None, seed: int = 0
+) -> COMET:
+    """COMET with random weights drawn from ``seed`` (the JAX package's
+    initializers), in eval mode on ``device``.
+
+    The default device is CUDA; without a card it raises rather than fall
+    back: pass ``device="cpu"`` explicitly. ``device="meta"`` builds the
+    parameter shapes only.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_comet: no CUDA device; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "meta":
+        with torch.device("meta"):
+            return COMET(cfg).eval()
+    model = COMET(cfg)
+    generator = torch.Generator().manual_seed(seed)
+    init_params(model, generator)
+    return model.to(device).eval()
+
+
+def decode_predictions(
+    cfg: CometConfig, pred_pose_enc: torch.Tensor, gt_cams: CameraSet
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Relative predictions -> absolute (quat, T_xyz), with the frame-0
+    camera of ``gt_cams`` as the reference. Batched camera sets
+    ([B, S, ...]) decode per sequence."""
+    if gt_cams.q.dim() == 3:
+        parts = [
+            decode_predictions(cfg, pred_pose_enc[i], CameraSet(*(f[i] for f in gt_cams)))
+            for i in range(gt_cams.q.shape[0])
+        ]
+        return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+    if cfg.camera.use_gapr:
+        return decode_relative_uvz(pred_pose_enc, gt_cams, INTRINSICS_TABLE[cfg.dataset])
+    return decode_relative_xyz(pred_pose_enc, gt_cams)

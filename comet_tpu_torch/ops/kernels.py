@@ -1,0 +1,114 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``comet_tpu_torch/csrc`` are compiled with ``nvcc`` for
+``sm_90a`` (one ``nvcc`` per source, all started together) and linked into
+one shared library with a plain C interface, which is loaded with ``ctypes``.
+The build runs at first use, from the checkout's sources only, into
+``comet_tpu_torch/_build/`` (listed in ``.gitignore``); the library's name
+carries a hash of the sources and flags, so an edited source is rebuilt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("attn.cu", "block.cu")
+HEADERS = ("mma.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "comet_attn_fwd": (
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+         ctypes.c_float, _P],
+        _I,
+    ),
+    "comet_attn_block_fwd": (
+        [_P] * 10 + [_I] * 5 + [_P],
+        _I,
+    ),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if the library for these sources is missing, and
+    return the library's path. The compiler's output is printed on failure."""
+    lib = BUILD_DIR / f"libcomet_kernels-{_digest()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in SOURCES:
+            obj = Path(tmp) / (src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode:
+                print(f"[nvcc {src}]\n{out}", flush=True)
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}")
+        tmp_lib = Path(tmp) / lib.name
+        subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)],
+            check=True,
+        )
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if a kernel's C entry point reported a failed launch."""
+    if rc == -1:
+        raise ValueError(f"{name}: the kernel does not take these arguments")
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
