@@ -2,27 +2,34 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                         # the check, about a minute
-    python3 chip_smoke.py --profile profile.txt   # + a torch.profiler table
+    python3 chip_smoke.py                         # the check, a few minutes
+    python3 chip_smoke.py --profile profile.txt   # + torch.profiler tables
 
 Phases, each of which makes the script exit nonzero when it fails:
 
 1. the card: its name, and its name and power limit from ``nvidia-smi``;
 2. the build of the hand-written kernels (K1 ``csrc/attn.cu``, K2
-   ``csrc/block.cu``) with ``nvcc`` for sm_90a, timed;
-3. every kernel at every shape the main path gives it, in bf16: the kernel
+   ``csrc/block.cu``, K3 ``csrc/short_attn.cu``, K4 ``csrc/cross_block.cu``,
+   K5 ``csrc/norm.cu``) with ``nvcc`` for sm_90a, timed;
+3. every kernel at every shape either route gives it, in bf16: the kernel
    against its plain PyTorch version run in f32 on the same bf16 inputs,
-   with the kernel's, the plain version's (bf16, on the card) and, for K1,
-   ``F.scaled_dot_product_attention``'s median times over 25 runs;
+   with the kernel's, the plain version's (bf16, on the card) and, where one
+   PyTorch call computes the same function (``F.scaled_dot_product_attention``
+   for K1 and K3, ``F.layer_norm`` for K5), that call's median device times
+   over 25 runs, and the host time to issue one call of the kernel's wrapper
+   (and of the library call);
 4. a reference check on small inputs: the full-width ``ours`` model's coarse
    and fine update-formers and its camera predictor, on the card in bf16
    (through the kernels) against the same weights in f32 on the CPU (plain
-   versions);
-5. the main path: ``build_comet(get_config("ours"))`` on the card at full
-   width (16 frames, 512 px, 512 tracks, bf16, random weights from seed 0)
-   answers 3 seeded requests through ``COMET.forward`` and
-   ``decode_predictions``; the kernels' launch counts are set to 0 just
-   before and read just after, and must rise by the per-forward counts.
+   versions), on the default route and on ``FUSED_ROUTE``;
+5. the main path, once per route: ``build_comet(get_config("ours"))`` on the
+   card at full width (16 frames, 512 px, 512 tracks, bf16, random weights
+   from seed 0) answers 3 seeded requests through ``COMET.forward`` and
+   ``decode_predictions`` on the default route (K1 and K2), then the same
+   model, switched with ``COMET.set_route(FUSED_ROUTE)``, answers 3 more
+   (K1, K3, K4 and K5); the kernels' launch counts are set to 0 just before
+   each route's requests and read just after, and must rise by that route's
+   per-forward counts at the expected shapes.
 
 The line before the last holds the kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -40,39 +47,86 @@ import sys
 import time
 from pathlib import Path
 
-# peaks of one H100 SXM (data sheet, dense): bf16 tensor cores, HBM3
+# peaks of one H100 SXM (data sheet, dense): bf16 tensor cores, f32 outside
+# them, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-# K1 at the main path's shapes: (where, B, Lq, Lk, C, heads, packed qkv, calls per forward)
+# K1 at the main path's shapes: (where, B, Lq, Lk, C, heads, packed qkv,
+# calls per forward on the default route, on FUSED_ROUTE)
 K1_SHAPES = [
-    ("vit self", 16, 581, 581, 768, 12, True, 12),
-    ("aggregator self", 16, 577, 577, 768, 8, True, 4),
-    ("aggregator cross to frame 0", 1, 8655, 577, 768, 8, False, 4),
-    ("update-former virtual<-point", 16, 64, 512, 384, 8, False, 24),
-    ("trajectory cross", 16, 1, 512, 768, 8, False, 4),
-    ("trunk self", 1, 16, 16, 768, 8, True, 4),
-    ("update-former point<-virtual", 16, 512, 64, 384, 8, False, 24),
+    ("vit self", 16, 581, 581, 768, 12, True, 12, 12),
+    ("aggregator self", 16, 577, 577, 768, 8, True, 4, 4),
+    ("aggregator cross to frame 0", 1, 8655, 577, 768, 8, False, 4, 4),
+    ("update-former virtual<-point", 16, 64, 512, 384, 8, False, 24, 0),
+    ("trajectory cross", 16, 1, 512, 768, 8, False, 4, 4),
+    ("trunk self", 1, 16, 16, 768, 8, True, 4, 4),
+    ("update-former point<-virtual", 16, 512, 64, 384, 8, False, 24, 0),
 ]
-# K2: (where, B, L, C, heads, hidden, calls per forward)
+# K2 (default route): (where, B, L, C, heads, hidden, calls per forward)
 K2_SHAPES = [
     ("coarse time blocks", 576, 16, 384, 8, 1536, 24),
     ("coarse virtual blocks", 16, 64, 384, 8, 1536, 24),
     ("fine time blocks", 512, 16, 256, 8, 1024, 24),
 ]
-K1_PER_FORWARD = sum(s[-1] for s in K1_SHAPES)  # 76
-K2_PER_FORWARD = sum(s[-1] for s in K2_SHAPES)  # 72
+# K3 (FUSED_ROUTE: the AttnBlocks above, unfused): (where, B, L, C, heads,
+# calls per forward); q, k, v are column slices of the qkv projection
+K3_SHAPES = [
+    ("coarse time blocks", 576, 16, 384, 8, 24),
+    ("coarse virtual blocks", 16, 64, 384, 8, 24),
+    ("fine time blocks", 512, 16, 256, 8, 24),
+]
+# K4 (FUSED_ROUTE: the coarse update-former's space cross blocks; the
+# camera's cross blocks miss the gate): (where, B, Lq, Lk, C, heads, hidden,
+# calls per forward)
+K4_SHAPES = [
+    ("virtual<-point", 16, 64, 512, 384, 8, 1536, 24),
+    ("point<-virtual", 16, 512, 64, 384, 8, 1536, 24),
+]
+# K5 (FUSED_ROUTE: every LayerNorm the forward reaches, bf16 throughout):
+# (where, rows, C, affine, calls per forward). Per forward: ViT 2 x 12 + 1;
+# camera input norm 1; aggregator 4 self blocks x 2 and 4 cross blocks x
+# (2 + norm_context); trajectory encoder 2; T_P 4 cross blocks x (2 +
+# norm_context); trunk 4 x 2; coarse 4 iterations x 6 x (time + virtual
+# block) x 2; fine 6 iterations x 4 time blocks x 2. The coarse space
+# cross blocks are inside K4.
+K5_SHAPES = [
+    ("ViT norm1, norm2, final norm", 16 * 581, 768, True, 25),
+    ("camera input norm", 16 * 576, 768, False, 1),
+    ("aggregator self blocks", 16 * 577, 768, False, 8),
+    ("aggregator cross norm1, norm2", 15 * 577, 768, False, 8),
+    ("aggregator cross norm_context", 577, 768, True, 4),
+    ("trajectory encoder ln1", 16 * 512, 256, True, 1),
+    ("trajectory encoder ln2, T_P norm_context", 16 * 512, 768, True, 5),
+    ("T_P cross norm1, norm2, trunk", 16, 768, False, 16),
+    ("coarse time blocks", 576 * 16, 384, False, 48),
+    ("coarse virtual blocks", 16 * 64, 384, False, 48),
+    ("fine time blocks", 512 * 16, 256, False, 48),
+]
+PER_FORWARD = {
+    "default": dict(K1=sum(s[-2] for s in K1_SHAPES), K2=sum(s[-1] for s in K2_SHAPES),
+                    K3=0, K4=0, K5=0),  # K1 76, K2 72
+    "fused": dict(K1=sum(s[-1] for s in K1_SHAPES), K2=0, K3=sum(s[-1] for s in K3_SHAPES),
+                  K4=sum(s[-1] for s in K4_SHAPES), K5=sum(s[-1] for s in K5_SHAPES)),
+    # K1 28, K3 72, K4 48, K5 212
+}
 K1_ATOL = 3e-2
-# K2's output and its residual stream are each rounded to bf16 at their own
-# magnitude (|y| reaches ~8, where one bf16 step is 0.0625): atol plus two
-# bf16 steps relative to the value.
+# K2's and K4's output and residual stream are each rounded to bf16 at their
+# own magnitude (|y| reaches ~8, where one bf16 step is 0.0625): atol plus
+# two bf16 steps relative to the value.
 K2_ATOL, K2_RTOL = 3e-2, 2.0 ** -6
+# K5: one bf16 rounding of the output (half a step, 2^-8 |y|, with room)
+K5_ATOL, K5_RTOL = 1e-3, 2.0 ** -7
 # bf16 on the card against f32 on the CPU, relative to the output's range:
 # a stack of 12 bf16 blocks drifts by ~1 % of it (0.9 % for PyTorch's own
 # bf16 of the same stack on the CPU), a wrong kernel by its whole size.
 REF_RTOL = 3e-2
 TIMING_RUNS = 25
+# ~25 ms of the card's clock: longer than the host takes to queue TIMING_RUNS calls
+SLEEP_CYCLES = 50_000_000
 REQUESTS = 3
+KERNELS = ("K1", "K2", "K3", "K4", "K5")
 
 
 class SmokeError(RuntimeError):
@@ -91,8 +145,13 @@ def _nvidia_smi() -> str:
 
 
 def _median_ms(torch, fn, runs=TIMING_RUNS):
+    """Median device time of one call of fn, in ms, with a warm L2. The runs
+    are queued behind a sleep kernel, so the events around each run time
+    the card and not the host's launch path (which is longer than the
+    smaller kernels themselves)."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     events = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -104,14 +163,28 @@ def _median_ms(torch, fn, runs=TIMING_RUNS):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def _bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def _host_us(torch, fn, runs=TIMING_RUNS):
+    """Host time to issue one call of fn, in us: the card is kept busy by a
+    sleep kernel, so no call waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host = (time.perf_counter() - t0) / runs * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_k1(torch, F, attn, dev, gen):
     rows = []
-    for where, b, lq, lk, c, h, packed, calls in K1_SHAPES:
+    for where, b, lq, lk, c, h, packed, calls, calls_fused in K1_SHAPES:
         d = c // h
         if packed:  # q, k, v are column slices of one qkv projection, as in the model
             qkv = torch.randn(b, lq, 3 * c, generator=gen, device=dev).bfloat16()
@@ -126,18 +199,22 @@ def check_k1(torch, F, attn, dev, gen):
         if out.shape != (b, lq, c) or not math.isfinite(err) or err > K1_ATOL:
             raise SmokeError(f"K1 {where}: max |kernel - plain f32| = {err} > {K1_ATOL}")
         ms = _median_ms(torch, lambda: attn.fused_attention(q, k, v, h))
+        host_us = _host_us(torch, lambda: attn.fused_attention(q, k, v, h))
         plain_ms = _median_ms(torch, lambda: attn.attention_reference(q, k, v, h, d ** -0.5))
         q4, k4, v4 = (t.view(b, t.shape[1], h, d).transpose(1, 2) for t in (q, k, v))
         library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        library_host_us = _host_us(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
         flops = 4 * b * h * lq * lk * d
         nbytes = 2 * (2 * b * lq * c + 2 * b * lk * c)  # q, k, v read once, out written once
         bound, bound_by = _bound_ms(flops, nbytes)
-        rows.append(dict(kernel="K1", where=where, shape=[b, lq, lk, c, h], calls=calls,
+        rows.append(dict(kernel="K1", where=where, shape=[b, lq, lk, c, h],
                          max_abs_err=err, tolerance=f"atol {K1_ATOL}", ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
+                         library_ms=library_ms, host_us=host_us,
+                         library_host_us=library_host_us, bound_ms=bound, bound_by=bound_by,
                          flops=flops, bytes=nbytes))
         print(f"K1 {where:32s} [B={b} Lq={lq} Lk={lk} C={c} H={h}] err {err:.3e} (atol {K1_ATOL}) "
-              f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by})",
+              f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
+              f"host us {host_us:.1f} (sdpa {library_host_us:.1f})",
               flush=True)
     return rows
 
@@ -164,18 +241,131 @@ def check_k2(torch, block, dev, gen):
                 f"K2 {where}: |kernel - plain f32| exceeds {K2_ATOL} + {K2_RTOL}|y| by {excess}"
             )
         ms = _median_ms(torch, lambda: block.fused_attn_block(x, *w, h))
+        host_us = _host_us(torch, lambda: block.fused_attn_block(x, *w, h))
         plain_ms = _median_ms(torch, lambda: block.block_reference(x, *w, h))
         rows_ = b * l
         flops = rows_ * 2 * c * (3 * c + c + 2 * hid) + 4 * rows_ * l * c
         nbytes = 2 * (2 * rows_ * c + 4 * c * c + 2 * c * hid + 4 * c + hid + c)
         bound, bound_by = _bound_ms(flops, nbytes)
-        rows.append(dict(kernel="K2", where=where, shape=[b, l, c, h, hid], calls=calls,
+        rows.append(dict(kernel="K2", where=where, shape=[b, l, c, h, hid],
                          max_abs_err=err, tolerance=f"atol {K2_ATOL} + {K2_RTOL} |y|",
-                         ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                         ms=ms, plain_ms=plain_ms, library_ms=None, host_us=host_us,
+                         library_host_us=None, bound_ms=bound,
                          bound_by=bound_by, flops=flops, bytes=nbytes))
         print(f"K2 {where:32s} [B={b} L={l} C={c} H={h} hidden={hid}] err {err:.3e} "
               f"(plain bf16 {plain_err:.3e}; atol {K2_ATOL} + {K2_RTOL:.4f}|y|, excess {excess:.3e}) "
-              f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by})", flush=True)
+              f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by}) host us {host_us:.1f}",
+              flush=True)
+    return rows
+
+
+def check_k3(torch, F, attn, dev, gen):
+    rows = []
+    for where, b, l, c, h, calls in K3_SHAPES:
+        d = c // h
+        q, k, v = torch.randn(b, l, 3 * c, generator=gen, device=dev).bfloat16().split(c, dim=-1)
+        out = attn.short_attention(q, k, v, h)
+        torch.cuda.synchronize()
+        want = attn.attention_reference(q.float(), k.float(), v.float(), h, d ** -0.5)
+        err = (out.float() - want).abs().max().item()
+        if out.shape != (b, l, c) or not math.isfinite(err) or err > K1_ATOL:
+            raise SmokeError(f"K3 {where}: max |kernel - plain f32| = {err} > {K1_ATOL}")
+        ms = _median_ms(torch, lambda: attn.short_attention(q, k, v, h))
+        host_us = _host_us(torch, lambda: attn.short_attention(q, k, v, h))
+        plain_ms = _median_ms(torch, lambda: attn.attention_reference(q, k, v, h, d ** -0.5))
+        q4, k4, v4 = (t.view(b, l, h, d).transpose(1, 2) for t in (q, k, v))
+        library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        library_host_us = _host_us(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        flops = 4 * b * h * l * l * d
+        nbytes = 2 * (3 * b * l * c + b * l * c)  # q, k, v read once, out written once
+        bound, bound_by = _bound_ms(flops, nbytes)
+        rows.append(dict(kernel="K3", where=where, shape=[b, l, l, c, h],
+                         max_abs_err=err, tolerance=f"atol {K1_ATOL}", ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, host_us=host_us,
+                         library_host_us=library_host_us, bound_ms=bound, bound_by=bound_by,
+                         flops=flops, bytes=nbytes))
+        print(f"K3 {where:32s} [B={b} L={l} C={c} H={h}] err {err:.3e} (atol {K1_ATOL}) "
+              f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
+              f"host us {host_us:.1f} (sdpa {library_host_us:.1f})",
+              flush=True)
+    return rows
+
+
+def check_k4(torch, block, dev, gen):
+    rows = []
+    for where, b, lq, lk, c, h, hid, calls in K4_SHAPES:
+        def rnd(*shape, std=1.0, mean=0.0):
+            return (mean + torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
+
+        # norm_context affine near (1, 0), lecun-normal-scale weights ([out, in]), small biases
+        w = [rnd(c, mean=1.0, std=0.1), rnd(c, std=0.1), rnd(c, c, std=c ** -0.5), rnd(c, std=0.02),
+             rnd(2 * c, c, std=c ** -0.5), rnd(2 * c, std=0.02), rnd(c, c, std=c ** -0.5),
+             rnd(c, std=0.02), rnd(hid, c, std=c ** -0.5), rnd(hid, std=0.02),
+             rnd(c, hid, std=hid ** -0.5), rnd(c, std=0.02)]
+        x, ctx = rnd(b, lq, c), rnd(b, lk, c)
+        out = block.fused_cross_block(x, ctx, *w, h)
+        torch.cuda.synchronize()
+        want = block.cross_block_reference(x.float(), ctx.float(), *(t.float() for t in w), h)
+        excess = ((out.float() - want).abs() - K2_RTOL * want.abs()).max().item()
+        err = (out.float() - want).abs().max().item()
+        plain_err = (block.cross_block_reference(x, ctx, *w, h).float() - want).abs().max().item()
+        if out.shape != x.shape or not math.isfinite(err) or excess > K2_ATOL:
+            raise SmokeError(
+                f"K4 {where}: |kernel - plain f32| exceeds {K2_ATOL} + {K2_RTOL}|y| by {excess}"
+            )
+        ms = _median_ms(torch, lambda: block.fused_cross_block(x, ctx, *w, h))
+        host_us = _host_us(torch, lambda: block.fused_cross_block(x, ctx, *w, h))
+        plain_ms = _median_ms(torch, lambda: block.cross_block_reference(x, ctx, *w, h))
+        rq, rk = b * lq, b * lk
+        flops = 2 * c * (rq * (2 * c + 2 * hid) + rk * 2 * c) + 4 * rq * lk * c
+        nbytes = 2 * (2 * rq * c + rk * c + 4 * c * c + 2 * c * hid)
+        bound, bound_by = _bound_ms(flops, nbytes)
+        rows.append(dict(kernel="K4", where=where, shape=[b, lq, lk, c, h, hid],
+                         max_abs_err=err, tolerance=f"atol {K2_ATOL} + {K2_RTOL} |y|",
+                         ms=ms, plain_ms=plain_ms, library_ms=None, host_us=host_us,
+                         library_host_us=None, bound_ms=bound,
+                         bound_by=bound_by, flops=flops, bytes=nbytes))
+        print(f"K4 {where:32s} [B={b} Lq={lq} Lk={lk} C={c} H={h} hidden={hid}] err {err:.3e} "
+              f"(plain bf16 {plain_err:.3e}; atol {K2_ATOL} + {K2_RTOL:.4f}|y|, excess {excess:.3e}) "
+              f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by}) host us {host_us:.1f}",
+              flush=True)
+    return rows
+
+
+def check_k5(torch, F, norm, dev, gen):
+    rows = []
+    for where, r, c, affine, calls in K5_SHAPES:
+        x = (torch.randn(r, c, generator=gen, device=dev) * 3 + 1).bfloat16()
+        s = torch.randn(c, generator=gen, device=dev) if affine else None
+        b = torch.randn(c, generator=gen, device=dev) if affine else None
+        out = norm.fused_layer_norm(x, s, b)
+        torch.cuda.synchronize()
+        want = norm.layer_norm_reference(x.float(), s, b)
+        excess = ((out.float() - want).abs() - K5_RTOL * want.abs()).max().item()
+        err = (out.float() - want).abs().max().item()
+        if out.shape != x.shape or out.dtype != x.dtype or not math.isfinite(err) or excess > K5_ATOL:
+            raise SmokeError(
+                f"K5 {where}: |kernel - plain f32| exceeds {K5_ATOL} + {K5_RTOL}|y| by {excess}"
+            )
+        ms = _median_ms(torch, lambda: norm.fused_layer_norm(x, s, b))
+        host_us = _host_us(torch, lambda: norm.fused_layer_norm(x, s, b))
+        plain_ms = _median_ms(torch, lambda: norm.layer_norm_reference(x, s, b))
+        s16, b16 = (t.bfloat16() if t is not None else None for t in (s, b))
+        library_ms = _median_ms(torch, lambda: F.layer_norm(x, (c,), s16, b16, 1e-6))
+        library_host_us = _host_us(torch, lambda: F.layer_norm(x, (c,), s16, b16, 1e-6))
+        flops = 8 * r * c  # sum, center, square, sum, scale by rstd, affine: f32, off the tensor cores
+        nbytes = 2 * (2 * r * c) + (8 * c if affine else 0)  # x in, y out (bf16), f32 scale and bias
+        bound, bound_by = _bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        rows.append(dict(kernel="K5", where=where, shape=[r, c, "bfloat16", affine],
+                         max_abs_err=err, tolerance=f"atol {K5_ATOL} + {K5_RTOL} |y|",
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, host_us=host_us,
+                         library_host_us=library_host_us, bound_ms=bound,
+                         bound_by=bound_by, flops=flops, bytes=nbytes))
+        print(f"K5 {where:42s} [rows={r} C={c} affine={affine}] err {err:.3e} "
+              f"(atol {K5_ATOL} + {K5_RTOL:.4f}|y|, excess {excess:.3e}) ms {ms:.4f} "
+              f"plain {plain_ms:.4f} F.layer_norm {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
+              f"host us {host_us:.1f} (F.layer_norm {library_host_us:.1f})",
+              flush=True)
     return rows
 
 
@@ -187,47 +377,84 @@ def _request(torch, cfg, seed, dev):
     return images, queries
 
 
-def reference_check(torch, tcfg, models, model, dev):
+def _reset(counters):
+    for fn in counters.values():
+        fn.launches = 0
+        fn.launch_shapes.clear()
+
+
+def _launches(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def reference_check(torch, tcfg, models, model, dev, counters):
     """The main path's modules at full width on small inputs: on the card in
     bf16 (through the kernels) against the same weights in f32 on the CPU
-    (plain versions), within REF_RTOL of the reference's largest value."""
+    (plain versions), within REF_RTOL of the reference's largest value, on
+    both routes."""
     cpu = models.build_comet(tcfg.get_config("ours").replace(compute_dtype="float32"),
                              device="cpu", seed=0)
     gen = torch.Generator().manual_seed(11)
     coarse_in = model.coarse_tracker.updateformer.input_transform.in_features
     fine_in = model.fine_tracker.updateformer.input_transform.in_features
     cases = [
-        # coarse update-former: K2 at L 16 (time) and 64 (virtual), K1 both ways
+        # coarse update-former: K2 at L 16 (time) and 64 (virtual), K1 both
+        # ways; on FUSED_ROUTE K3 at both, K4 with Lk 32 and Lq 32, K5
         ("coarse update-former [1, 32 tracks, 16 frames]", "coarse_tracker.updateformer",
          (torch.randn(1, 32, 16, coarse_in, generator=gen),)),
-        # fine update-former: K2 at C 256
+        # fine update-former: K2 at C 256; on FUSED_ROUTE K3 and K5
         ("fine update-former [32 tracks, 1, 16 frames]", "fine_tracker.updateformer",
          (torch.randn(32, 1, 16, fine_in, generator=gen),)),
-        # camera predictor: K1 in the ViT, the aggregator, T_P and the trunk
+        # camera predictor: K1 in the ViT, the aggregator, T_P and the trunk;
+        # on FUSED_ROUTE K5 at every LayerNorm
         ("camera predictor [1, 2 frames, 64 px, 32 tracks]", "camera_predictor",
          (torch.randn(1, 2, 64, 64, 3, generator=gen), torch.rand(1, 2, 32, 2, generator=gen) * 64,
           torch.rand(1, 2, 32, generator=gen))),
     ]
     worst = {}
-    for where, path, args in cases:
-        with torch.inference_mode():
-            got = model.get_submodule(path)(*(a.to(dev) for a in args))
-            want = cpu.get_submodule(path)(*args)
-        if path == "camera_predictor":
-            got, want = got.pred_pose_enc, want.pred_pose_enc
-        got = got.float().cpu()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        worst[where] = err / scale
-        print(f"reference check {where}: max |card bf16 - CPU f32| = {err:.3e}, "
-              f"max |reference| = {scale:.3f}, ratio {err / scale:.2e} (limit {REF_RTOL})",
-              flush=True)
-        if not torch.isfinite(got).all() or not err <= REF_RTOL * scale:
-            raise SmokeError(f"reference check {where}: max |diff| {err} > {REF_RTOL} * {scale}")
+    for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
+        model.set_route(route)
+        _reset(counters)
+        for where, path, args in cases:
+            with torch.inference_mode():
+                got = model.get_submodule(path)(*(a.to(dev) for a in args))
+                want = cpu.get_submodule(path)(*args)
+            if path == "camera_predictor":
+                got, want = got.pred_pose_enc, want.pred_pose_enc
+            got = got.float().cpu()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            worst[(route_name, where)] = err / scale
+            print(f"reference check, {route_name} route, {where}: max |card bf16 - CPU f32| = "
+                  f"{err:.3e}, max |reference| = {scale:.3f}, ratio {err / scale:.2e} "
+                  f"(limit {REF_RTOL})", flush=True)
+            if not torch.isfinite(got).all() or not err <= REF_RTOL * scale:
+                raise SmokeError(f"reference check {route_name} {where}: max |diff| {err} > "
+                                 f"{REF_RTOL} * {scale}")
+        used = _launches(counters)
+        print(f"reference check, {route_name} route: launches {used}", flush=True)
+        want_used = ("K1", "K2") if route_name == "default" else ("K1", "K3", "K4", "K5")
+        if any(used[k] == 0 for k in want_used):
+            raise SmokeError(f"reference check {route_name}: a kernel of the route never ran: {used}")
+    model.set_route(tcfg.KernelRoute())
     return worst
 
 
-def main_path(torch, cfg, model, models, geom, attn, block, dev, n_requests, card):
+def _want_shapes(route_name, n):
+    """The per-shape launch counts of n forwards on a route."""
+    want = {k: {} for k in KERNELS}
+    if route_name == "default":
+        want["K1"] = {tuple(r[1:6]): n * r[-2] for r in K1_SHAPES if r[-2]}
+        want["K2"] = {tuple(r[1:6]): n * r[-1] for r in K2_SHAPES}
+    else:
+        want["K1"] = {tuple(r[1:6]): n * r[-1] for r in K1_SHAPES if r[-1]}
+        want["K3"] = {(b, l, l, c, h): n * calls for _, b, l, c, h, calls in K3_SHAPES}
+        want["K4"] = {tuple(r[1:7]): n * r[-1] for r in K4_SHAPES}
+        want["K5"] = {(r, c, "bfloat16", affine): n * calls for _, r, c, affine, calls in K5_SHAPES}
+    return want
+
+
+def main_path(torch, cfg, model, models, geom, counters, route_name, dev, n_requests, card):
     s, n = cfg.seqlen, cfg.track_num
     requests = [_request(torch, cfg, 100 + i, dev) for i in range(n_requests)]
     gen = torch.Generator(device="cpu").manual_seed(5)
@@ -241,15 +468,13 @@ def main_path(torch, cfg, model, models, geom, attn, block, dev, n_requests, car
     t_ref = cams.t_uvz[0]
     t_ref_xyz = torch.stack([(t_ref[0] - intr.cx) * t_ref[2] / intr.fx,
                              (t_ref[1] - intr.cy) * t_ref[2] / intr.fy, t_ref[2]])
+    per_forward = PER_FORWARD[route_name]
 
     torch.cuda.reset_peak_memory_stats()
     times = []
-    attn.fused_attention.launches = 0
-    block.fused_attn_block.launches = 0
-    attn.fused_attention.launch_shapes.clear()
-    block.fused_attn_block.launch_shapes.clear()
+    _reset(counters)
     for i, (images, queries) in enumerate(requests):
-        k1_0, k2_0 = attn.fused_attention.launches, block.fused_attn_block.launches
+        before = _launches(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -257,7 +482,7 @@ def main_path(torch, cfg, model, models, geom, attn, block, dev, n_requests, car
             q_abs, t_abs = models.decode_predictions(cfg, out["pred_pose_enc"][0], cams)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        launches = (attn.fused_attention.launches - k1_0, block.fused_attn_block.launches - k2_0)
+        launches = {k: v - before[k] for k, v in _launches(counters).items()}
         want_shapes = dict(coarse_track=(1, s, n, 2), pred_track=(1, s, n, 2),
                            track_score=(1, s, n), track_vis=(1, s, n), pred_pose_enc=(1, s, 7))
         for key, shape in want_shapes.items():
@@ -274,28 +499,34 @@ def main_path(torch, cfg, model, models, geom, attn, block, dev, n_requests, car
         q_ref = torch.where(cams.q[0, :1] < 0, -cams.q[0], cams.q[0])
         if not (torch.allclose(q_abs[0], q_ref, atol=1e-5) and torch.allclose(t_abs[0], t_ref_xyz, rtol=1e-5)):
             raise SmokeError(f"request {i}: frame 0 does not decode to the reference camera")
-        if launches != (K1_PER_FORWARD, K2_PER_FORWARD):
-            raise SmokeError(f"request {i}: kernel launches {launches}, want "
-                             f"{(K1_PER_FORWARD, K2_PER_FORWARD)}")
-        print(f"request {i}: forward + decode {times[-1]:.1f} ms, launches K1 {launches[0]} "
-              f"K2 {launches[1]}, outputs finite, frame 0 pinned", flush=True)
-    total = (attn.fused_attention.launches, block.fused_attn_block.launches)
-    shapes = dict(attn.fused_attention.launch_shapes)
-    shapes.update(block.fused_attn_block.launch_shapes)
-    want = {tuple(r[1:6]): n_requests * r[-1] for r in K1_SHAPES}
-    want.update({tuple(r[1:6]): n_requests * r[-1] for r in K2_SHAPES})
+        if launches != per_forward:
+            raise SmokeError(f"{route_name} route, request {i}: kernel launches {launches}, "
+                             f"want {per_forward}")
+        print(f"{route_name} route, request {i}: forward + decode {times[-1]:.1f} ms, launches "
+              f"{' '.join(f'{k} {v}' for k, v in launches.items())}, outputs finite, "
+              f"frame 0 pinned", flush=True)
+    total = _launches(counters)
+    shapes = {k: dict(fn.launch_shapes) for k, fn in counters.items()}
+    want = _want_shapes(route_name, n_requests)
     if shapes != want:
-        raise SmokeError(f"main path launched the kernels at {shapes}, want {want}")
+        raise SmokeError(f"{route_name} route launched the kernels at {shapes}, want {want}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     med = statistics.median(times[1:]) if len(times) > 1 else times[0]
-    print(f"main path: {n_requests} requests, forward ms {['%.1f' % t for t in times]}, "
-          f"median of requests 2-{n_requests} {med:.1f} ms = {1e3 / med:.2f} sequences/s, "
-          f"peak memory {peak:.2f} GiB, on {card}", flush=True)
-    return dict(total=total, shapes=shapes, times=times, requests=requests)
+    print(f"main path, {route_name} route: {n_requests} requests, forward ms "
+          f"{['%.1f' % t for t in times]}, median of requests 2-{n_requests} {med:.1f} ms = "
+          f"{1e3 / med:.2f} sequences/s, peak memory {peak:.2f} GiB, on {card}", flush=True)
+    return dict(total=total, shapes=shapes, times=times, median_ms=med, peak_gib=peak,
+                requests=requests)
 
 
-def profile(torch, model, images, queries, path):
-    """torch.profiler over one warm forward: device time by operator."""
+# the port's kernel names in the profiler's table (namespace comet::), by kernel
+PROFILE_KEYS = dict(K1=("attn_fwd_kernel",), K2=("attn_block_kernel",), K3=("short_attn_kernel",),
+                    K4=("cross_kv_kernel", "cross_block_kernel"), K5=("layer_norm_kernel",))
+
+
+def profile(torch, model, images, queries, path, route_name, request_ms):
+    """torch.profiler over one warm forward: device time by operator, and the
+    device's idle share of the route's median request."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
@@ -310,21 +541,27 @@ def profile(torch, model, images, queries, path):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     device_us = sum(e.self_device_time_total for e in kernels)
-    k1_us = sum(e.self_device_time_total for e in kernels if "attn_fwd_kernel" in e.key)
-    k2_us = sum(e.self_device_time_total for e in kernels if "attn_block_kernel" in e.key)
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_text(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    print(f"profile: one forward, {wall:.1f} ms on the host clock (profiler on), "
+    by_kernel = {k: sum(e.self_device_time_total for e in kernels
+                        if "comet::" in e.key and any(n in e.key for n in names))
+                 for k, names in PROFILE_KEYS.items()}
+    out = Path(path)
+    out = out.with_name(f"{out.stem}_{route_name}{out.suffix}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    print(f"profile, {route_name} route: one forward, {wall:.1f} ms on the host clock (profiler on), "
           f"{device_us / 1e3:.1f} ms of device time in {sum(e.count for e in kernels)} kernel "
-          f"launches, of which K1 {k1_us / 1e3:.2f} ms and K2 {k2_us / 1e3:.2f} ms; "
-          f"table in {path}", flush=True)
+          f"launches, of which {', '.join(f'{k} {v / 1e3:.2f} ms' for k, v in by_kernel.items())}; "
+          f"idle share of the median request ({request_ms:.1f} ms): "
+          f"{1 - device_us / 1e3 / request_ms:.2f}; table in {out}", flush=True)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", metavar="PATH", help="write a torch.profiler table of one forward")
+    parser.add_argument("--profile", metavar="PATH",
+                        help="write a torch.profiler table of one forward per route "
+                             "(PATH with the route's name added)")
     parser.add_argument("--requests", type=int, default=REQUESTS,
-                        help=f"requests the main path answers (default {REQUESTS})")
+                        help=f"requests the main path answers on each route (default {REQUESTS})")
     args = parser.parse_args(argv)
 
     import torch
@@ -339,7 +576,7 @@ def main(argv=None) -> int:
         from comet_tpu_torch import config as tcfg
         from comet_tpu_torch import geometry as geom
         from comet_tpu_torch import models
-        from comet_tpu_torch.ops import attn, block, kernels
+        from comet_tpu_torch.ops import attn, block, kernels, norm
     except ImportError as exc:
         print(f"chip_smoke: the comet_tpu_torch package is not beside this script ({exc})",
               file=sys.stderr)
@@ -348,55 +585,70 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {name} was imported", file=sys.stderr)
         return 2
 
+    counters = dict(K1=attn.fused_attention, K2=block.fused_attn_block, K3=attn.short_attention,
+                    K4=block.fused_cross_block, K5=norm.fused_layer_norm)
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
           f"nvidia-smi: {smi}", flush=True)
+    runs = {}
     try:
         t0 = time.perf_counter()
         kernels.library()
         print(f"kernel build: {time.perf_counter() - t0:.1f} s "
               f"(nvcc {' '.join(kernels.NVCC_FLAGS[:2])}, {', '.join(kernels.SOURCES)})", flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
-        k1 = check_k1(torch, F, attn, dev, gen)
-        k2 = check_k2(torch, block, dev, gen)
+        checked = dict(K1=check_k1(torch, F, attn, dev, gen), K2=check_k2(torch, block, dev, gen),
+                       K3=check_k3(torch, F, attn, dev, gen), K4=check_k4(torch, block, dev, gen),
+                       K5=check_k5(torch, F, norm, dev, gen))
         cfg = tcfg.get_config("ours")
         t0 = time.perf_counter()
         model = models.build_comet(cfg, device=dev, seed=0)
         torch.cuda.synchronize()
         print(f"build_comet('ours') on {dev} in {time.perf_counter() - t0:.1f} s, "
               f"{sum(p.numel() for p in model.parameters())} parameters", flush=True)
-        reference_check(torch, tcfg, models, model, dev)
-        run = main_path(torch, cfg, model, models, geom, attn, block, dev, args.requests, smi)
-        if args.profile:
-            profile(torch, model, *run["requests"][0], args.profile)
+        reference_check(torch, tcfg, models, model, dev, counters)
+        for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
+            model.set_route(route)
+            runs[route_name] = main_path(torch, cfg, model, models, geom, counters, route_name,
+                                         dev, args.requests, smi)
+            if args.profile:
+                profile(torch, model, *runs[route_name]["requests"][0], args.profile, route_name,
+                        runs[route_name]["median_ms"])
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    k1_total, k2_total = run["total"]
-    if k1_total == 0 or k2_total == 0:
-        print("chip_smoke: FAILED: a kernel of the main path never launched", file=sys.stderr)
-        return 1
+    for route_name, run in runs.items():
+        missing = [k for k, n in PER_FORWARD[route_name].items() if n and run["total"][k] == 0]
+        if missing:
+            print(f"chip_smoke: FAILED: {missing} never launched on the {route_name} route",
+                  file=sys.stderr)
+            return 1
     record = []
-    for kernel, rows, source, replaces in (
-        ("K1", k1, "comet_tpu_torch/csrc/attn.cu",
-         "comet_tpu/ops/pallas_attn.py:106"),
-        ("K2", k2, "comet_tpu_torch/csrc/block.cu",
-         "comet_tpu/ops/pallas_block.py:150"),
+    for kernel, source, replaces in (
+        ("K1", "comet_tpu_torch/csrc/attn.cu", "comet_tpu/ops/pallas_attn.py:106"),
+        ("K2", "comet_tpu_torch/csrc/block.cu", "comet_tpu/ops/pallas_block.py:150"),
+        ("K3", "comet_tpu_torch/csrc/short_attn.cu", "comet_tpu/ops/pallas_attn.py:95"),
+        ("K4", "comet_tpu_torch/csrc/cross_block.cu", "comet_tpu/ops/pallas_block.py:298"),
+        ("K5", "comet_tpu_torch/csrc/norm.cu", "comet_tpu/ops/pallas_norm.py:43"),
     ):
-        for r in rows:
-            # launches: this kernel at this shape in the main path's run
+        for r in checked[kernel]:
+            # launches: this kernel at this shape in each route's main-path run
+            by_route = {rn: run["shapes"][kernel].get(tuple(r["shape"]), 0) for rn, run in runs.items()}
             record.append(dict(
                 name=f"{kernel} {r['where']} {r['shape']}", route="cuda", source=source,
-                replaces=replaces, launches=run["shapes"][tuple(r["shape"])],
+                replaces=replaces, launches=sum(by_route.values()), launches_by_route=by_route,
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-                tolerance=r["tolerance"],
+                host_us=r["host_us"], library_host_us=r["library_host_us"], tolerance=r["tolerance"],
             ))
-    print(f"main path launches over {args.requests} requests: K1 {k1_total} ({K1_PER_FORWARD}/forward), "
-          f"K2 {k2_total} ({K2_PER_FORWARD}/forward)", flush=True)
+    for route_name, run in runs.items():
+        print(f"main path, {route_name} route: launches over {args.requests} requests "
+              f"{run['total']} ({PER_FORWARD[route_name]} per forward); median request "
+              f"{run['median_ms']:.1f} ms = {1e3 / run['median_ms']:.2f} sequences/s, peak memory "
+              f"{run['peak_gib']:.2f} GiB", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,7 +2,8 @@
 
 Counterpart of ``comet_tpu/config.py``: the same frozen dataclasses, fields,
 defaults and five presets (ours, abl_all, abl_track, abl_time, abl_uvz),
-with a torch dtype for the compute type.
+with a torch dtype for the compute type, and :class:`KernelRoute`, the
+explicit form of the JAX package's kernel switches.
 """
 
 from __future__ import annotations
@@ -100,6 +101,28 @@ class CometConfig:
 
     def replace(self, **kw) -> "CometConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelRoute:
+    """Which hand-written kernels the forward takes where the JAX package
+    has a switch. The defaults are the JAX package's defaults. A route
+    changes no parameter: the same state_dict serves every route."""
+
+    fused_block: bool = True
+    """``COMET_FUSED_BLOCK``: an AttnBlock over short sequences (L <= 64,
+    rows >= 256) runs as one K2 launch; off, it runs unfused and its
+    attention goes to K3."""
+    fused_cross: bool = False
+    """``COMET_FUSED_CROSS``: a CrossAttnBlock with Lq <= 512, Lk <= 1024
+    and rows >= 256 runs as one K4 kernel."""
+    fused_ln: bool = False
+    """``COMET_FUSED_LN``: every LayerNorm (the JAX package's
+    FusedLayerNorm) runs as K5."""
+
+
+# The JAX package's other kernel route: block off, cross on, LayerNorm on.
+FUSED_ROUTE = KernelRoute(fused_block=False, fused_cross=True, fused_ln=True)
 
 
 def _preset(name: str, **camera_kw) -> CometConfig:

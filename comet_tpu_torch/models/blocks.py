@@ -9,9 +9,14 @@ the weight bridge loads them exactly. Reference quirks kept on purpose:
 - GELU is exact (erf) in f32 and the tanh form in bf16;
 - LayerNorm statistics are f32 whatever the compute dtype.
 
-Every mask-free attention goes through ``ops.attn.fused_attention`` (K1),
-and an AttnBlock over short sequences (L <= 64, rows >= 256) through
-``ops.block.fused_attn_block`` (K2), as on the JAX default path.
+Every mask-free attention goes through ``ops.attn.fused_attention`` (K1, or
+K3 for many short sequences). Where the JAX package has a kernel switch, a
+:class:`~comet_tpu_torch.config.KernelRoute` on the module chooses, with the
+JAX gates: an AttnBlock over short sequences (L <= 64, rows >= 256) runs as
+``ops.block.fused_attn_block`` (K2) under ``fused_block``; a CrossAttnBlock
+with Lq <= 512, Lk <= 1024 and rows >= 256 as ``ops.block.fused_cross_block``
+(K4) under ``fused_cross``; every LayerNorm as ``ops.norm.fused_layer_norm``
+(K5) under ``fused_ln``. :func:`set_route` sets the route on a whole model.
 """
 
 from __future__ import annotations
@@ -22,13 +27,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..config import KernelRoute
 from ..ops.attn import fused_attention
-from ..ops.block import fused_attn_block, gelu
+from ..ops.block import fused_attn_block, fused_cross_block, gelu
+from ..ops.norm import fused_layer_norm
 
 __all__ = [
     "AttnBlock", "Conv2d", "CrossAttnBlock", "GroupNorm1", "InstanceNorm", "LayerNorm",
     "Linear", "Mlp", "MultiHeadAttention", "ResidualBlock", "gelu", "init_params",
-    "lecun_normal_",
+    "lecun_normal_", "set_route",
 ]
 
 
@@ -84,11 +91,12 @@ class Conv2d(nn.Conv2d):
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with f32 statistics (the JAX package's
     FusedLayerNorm): the result is cast to the input dtype, then to
-    ``dtype``."""
+    ``dtype``. K5 under ``route.fused_ln``."""
 
     def __init__(self, dim: int, eps: float = 1e-6, affine: bool = True, dtype=torch.float32):
         super().__init__()
         self.dim, self.eps, self.compute_dtype = dim, eps, dtype
+        self.route = KernelRoute()
         if affine:
             self.weight = nn.Parameter(torch.ones(dim))
             self.bias = nn.Parameter(torch.zeros(dim))
@@ -102,6 +110,9 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
+        if self.route.fused_ln:
+            y = fused_layer_norm(x.contiguous(), self.weight, self.bias, self.eps)
+            return y.to(self.compute_dtype)
         y = F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, self.eps)
         return y.to(x.dtype).to(self.compute_dtype)
 
@@ -194,18 +205,23 @@ class MultiHeadAttention(nn.Module):
 class AttnBlock(nn.Module):
     """Self-attention block; the residual stream is re-based on the
     normalized input. Short sequences with many rows (L <= 64, rows >= 256:
-    the update-formers' time and virtual blocks) run as one K2 launch."""
+    the update-formers' time and virtual blocks) run as one K2 launch under
+    ``route.fused_block``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, dtype=torch.float32):
         super().__init__()
         self.num_heads, self.compute_dtype = num_heads, dtype
+        self.route = KernelRoute()
         self.norm1 = LayerNorm(dim, 1e-6, affine=False, dtype=dtype)
         self.attn = MultiHeadAttention(dim, num_heads, dtype)
         self.norm2 = LayerNorm(dim, 1e-6, affine=False, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x):
-        if x.dim() == 3 and x.shape[1] <= 64 and x.shape[0] * x.shape[1] >= 256:
+        if (
+            self.route.fused_block
+            and x.dim() == 3 and x.shape[1] <= 64 and x.shape[0] * x.shape[1] >= 256
+        ):
             dt = self.compute_dtype
             a, m = self.attn, self.mlp
             return fused_attn_block(
@@ -223,10 +239,14 @@ class AttnBlock(nn.Module):
 
 class CrossAttnBlock(nn.Module):
     """Cross-attention block with an affine ``norm_context``; the residual
-    stream is re-based on the normalized query."""
+    stream is re-based on the normalized query. Under ``route.fused_cross``
+    the JAX gate (Lq <= 512, Lk <= 1024, rows >= 256: the coarse
+    update-former's space blocks) sends it to one K4 kernel."""
 
     def __init__(self, dim: int, num_heads: int = 1, mlp_ratio: float = 4.0, dtype=torch.float32):
         super().__init__()
+        self.num_heads, self.compute_dtype = num_heads, dtype
+        self.route = KernelRoute()
         self.norm1 = LayerNorm(dim, 1e-6, affine=False, dtype=dtype)
         self.norm_context = LayerNorm(dim, 1e-6, affine=True, dtype=dtype)
         self.cross_attn = MultiHeadAttention(dim, num_heads, dtype)
@@ -234,10 +254,36 @@ class CrossAttnBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x, context):
+        if (
+            self.route.fused_cross
+            and x.dim() == 3 and context.dim() == 3
+            and x.shape[1] <= 512 and context.shape[1] <= 1024
+            and x.shape[0] * x.shape[1] >= 256
+        ):
+            dt, e = self.compute_dtype, x.shape[-1]
+            a, m, nc = self.cross_attn, self.mlp, self.norm_context
+            w, b = a.in_proj_weight.to(dt), a.in_proj_bias.to(dt)
+            return fused_cross_block(
+                x.to(dt).contiguous(), context.to(dt).contiguous(),
+                nc.weight.to(dt), nc.bias.to(dt),
+                w[:e], b[:e], w[e:], b[e:],
+                a.out_proj.weight.to(dt), a.out_proj.bias.to(dt),
+                m.fc1.weight.to(dt), m.fc1.bias.to(dt),
+                m.fc2.weight.to(dt), m.fc2.bias.to(dt),
+                self.num_heads,
+            )
         x = self.norm1(x)
         context = self.norm_context(context)
         x = x + self.cross_attn(x, context, context)
         return x + self.mlp(self.norm2(x))
+
+
+def set_route(module: nn.Module, route: KernelRoute) -> None:
+    """Set ``route`` on every AttnBlock, CrossAttnBlock and LayerNorm under
+    ``module``. Parameters are untouched: one state_dict serves every route."""
+    for m in module.modules():
+        if isinstance(m, (AttnBlock, CrossAttnBlock, LayerNorm)):
+            m.route = route
 
 
 class ResidualBlock(nn.Module):

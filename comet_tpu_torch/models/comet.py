@@ -12,11 +12,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..config import CometConfig
+from ..config import CometConfig, KernelRoute
 from ..geometry.cameras import CameraSet
 from ..geometry.codecs import INTRINSICS_TABLE, decode_relative_uvz, decode_relative_xyz
 from ..ops.bilinear import resize_bilinear_align_corners
-from .blocks import init_params
+from .blocks import init_params, set_route
 from .camera_predictor import CameraPredictor
 from .encoders import BasicEncoder, ShallowEncoder
 from .refine import refine_track
@@ -59,6 +59,12 @@ class COMET(nn.Module):
                 backbone_depth=cc.backbone_depth, backbone_dim=cc.backbone_dim,
                 backbone_heads=cc.backbone_heads, dtype=dtype,
             )
+
+    def set_route(self, route: KernelRoute) -> "COMET":
+        """Switch every block and LayerNorm to ``route``; no parameter
+        changes, so one built model serves every route."""
+        set_route(self, route)
+        return self
 
     def forward(
         self,
@@ -114,10 +120,12 @@ class COMET(nn.Module):
 
 
 def build_comet(
-    cfg: CometConfig, device: Optional[str] = None, seed: int = 0
+    cfg: CometConfig, device: Optional[str] = None, seed: int = 0,
+    route: KernelRoute = KernelRoute(),
 ) -> COMET:
     """COMET with random weights drawn from ``seed`` (the JAX package's
-    initializers), in eval mode on ``device``.
+    initializers), in eval mode on ``device``, taking the kernels of
+    ``route`` (default: the JAX package's defaults; see ``COMET.set_route``).
 
     The default device is CUDA; without a card it raises rather than fall
     back: pass ``device="cpu"`` explicitly. ``device="meta"`` builds the
@@ -130,8 +138,8 @@ def build_comet(
     device = torch.device(device)
     if device.type == "meta":
         with torch.device("meta"):
-            return COMET(cfg).eval()
-    model = COMET(cfg)
+            return COMET(cfg).set_route(route).eval()
+    model = COMET(cfg).set_route(route)
     generator = torch.Generator().manual_seed(seed)
     init_params(model, generator)
     return model.to(device).eval()

@@ -1,9 +1,10 @@
 """EfficientUpdateFormer: factorized time/space track-update transformer.
 
 Counterpart of ``comet_tpu/models/update_former.py``. Time attention runs
-over (B*N, T) sequences (K2); space attention over (B*T, N) through 64
-learnable virtual tracks, with cross-attention both ways (K1); the input
-tokens are added back before the flow head.
+over (B*N, T) sequences (K2, or K3 unfused); space attention over (B*T, N)
+through 64 learnable virtual tracks, with cross-attention both ways (K1, or
+K4 whole); the input tokens are added back before the flow head. The
+blocks' ``route`` chooses, as ``models/blocks.py`` says.
 """
 
 from __future__ import annotations

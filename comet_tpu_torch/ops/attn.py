@@ -1,9 +1,12 @@
-"""Multi-head attention on the [B, L, H*D] projection layout (K1).
+"""Multi-head attention on the [B, L, H*D] projection layout (K1 and K3).
 
-Counterpart of ``comet_tpu/ops/pallas_attn.py::fused_attention``. On a CUDA
-tensor every call launches the hand-written kernel ``csrc/attn.cu``; on a CPU
-tensor it runs :func:`attention_reference`, the plain PyTorch version of the
-same function. There is no shape gate: the TPU's gates were measured on a TPU.
+Counterpart of ``comet_tpu/ops/pallas_attn.py::fused_attention`` and its two
+regimes. On a CUDA tensor :func:`fused_attention` sends many short
+sequences (Lq <= 64, Lk <= 64 and B*Lq >= 256, the JAX packed regime) to
+K3, :func:`short_attention` (``csrc/short_attn.cu``), and every other call
+to K1 (``csrc/attn.cu``), including the shapes the JAX package sends to its
+reference. On a CPU tensor both run :func:`attention_reference`, the plain
+PyTorch version of the same function.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import torch
 from . import kernels
 
 SUPPORTED_HEAD_DIMS = (32, 48, 64, 96)
+# K3 takes sequences up to this long when there are at least this many rows
+SHORT_MAX_LEN = 64
+SHORT_MIN_ROWS = 256
 
 
 def attention_reference(
@@ -43,16 +49,73 @@ def _stride(t: torch.Tensor, dim: int) -> int:
 def _check_operand(name: str, t: torch.Tensor, length: int, c: int) -> None:
     if t.dtype != torch.bfloat16:
         if t.dtype == torch.float32:
-            raise NotImplementedError("fused_attention on CUDA takes bfloat16 only")
-        raise ValueError(f"fused_attention: {name} has dtype {t.dtype}")
+            raise NotImplementedError("attention on CUDA takes bfloat16 only")
+        raise ValueError(f"attention: {name} has dtype {t.dtype}")
     if t.device.type != "cuda":
-        raise ValueError(f"fused_attention: {name} is on {t.device}")
+        raise ValueError(f"attention: {name} is on {t.device}")
     if t.dim() != 3 or t.shape[1] != length or t.shape[2] != c:
-        raise ValueError(f"fused_attention: {name} has shape {tuple(t.shape)}")
+        raise ValueError(f"attention: {name} has shape {tuple(t.shape)}")
     if t.stride(2) != 1 or _stride(t, 1) % 8 or _stride(t, 0) % 8 or t.data_ptr() % 16:
         raise ValueError(
-            f"fused_attention: {name} needs unit column stride and 16-byte aligned rows"
+            f"attention: {name} needs unit column stride and 16-byte aligned rows"
         )
+
+
+def _launch(entry: str, q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+    """Check the operands and launch the kernel behind the C entry point
+    ``entry`` (no launch for an empty output)."""
+    b, lq, c = q.shape
+    lk = k.shape[1]
+    if c % num_heads or c // num_heads not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"attention: head dim {c / num_heads} not in {SUPPORTED_HEAD_DIMS}")
+    _check_operand("q", q, lq, c)
+    _check_operand("k", k, lk, c)
+    _check_operand("v", v, lk, c)
+    if k.shape[0] != b or v.shape[0] != b or k.device != q.device or v.device != q.device:
+        raise ValueError("attention: q, k, v disagree in batch or device")
+    out = torch.empty((b, lq, c), dtype=q.dtype, device=q.device)
+    if b == 0 or lq == 0:
+        return out
+    if lk == 0:
+        raise ValueError("attention: no keys")
+    rc = getattr(kernels.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, num_heads, c // num_heads, lq, lk,
+        _stride(q, 0), _stride(q, 1), _stride(k, 0), _stride(k, 1),
+        _stride(v, 0), _stride(v, 1),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch(rc, entry)
+    return out
+
+
+def is_short(b: int, lq: int, lk: int) -> bool:
+    """The JAX packed regime: many short sequences."""
+    return lq <= SHORT_MAX_LEN and lk <= SHORT_MAX_LEN and b * lq >= SHORT_MIN_ROWS
+
+
+def short_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K3: :func:`fused_attention` for Lq, Lk <= 64, one (sequence, head)
+    pair computed directly per warp. Same arguments and result."""
+    b, lq, c = q.shape
+    lk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / (c // num_heads) ** 0.5
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, num_heads, scale)
+    if lq > SHORT_MAX_LEN or lk > SHORT_MAX_LEN:
+        raise ValueError(f"short_attention: Lq {lq} and Lk {lk} must be <= {SHORT_MAX_LEN}")
+    out = _launch("comet_short_attn_fwd", q, k, v, num_heads, scale)
+    if out.numel():
+        short_attention.launches += 1
+        short_attention.launch_shapes[(b, lq, lk, c, num_heads)] += 1
+    return out
 
 
 def fused_attention(
@@ -66,41 +129,27 @@ def fused_attention(
 
     Returns [B, Lq, C] (before the output projection) in the input dtype.
     q, k and v may be column slices of one packed projection: only unit
-    column stride is required, rows and batches may be strided.
+    column stride is required, rows and batches may be strided. On CUDA,
+    the packed regime (:func:`is_short`) goes to K3 and the rest to K1;
+    ``fused_attention.launches`` counts K1's launches.
     """
     b, lq, c = q.shape
     lk = k.shape[1]
     if scale is None:
         scale = 1.0 / (c // num_heads) ** 0.5
+    if is_short(b, lq, lk):
+        return short_attention(q, k, v, num_heads, scale)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, num_heads, scale)
-    if c % num_heads or c // num_heads not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"fused_attention: head dim {c / num_heads} not in {SUPPORTED_HEAD_DIMS}"
-        )
-    _check_operand("q", q, lq, c)
-    _check_operand("k", k, lk, c)
-    _check_operand("v", v, lk, c)
-    if k.shape[0] != b or v.shape[0] != b or k.device != q.device or v.device != q.device:
-        raise ValueError("fused_attention: q, k, v disagree in batch or device")
-    out = torch.empty((b, lq, c), dtype=q.dtype, device=q.device)
-    if b == 0 or lq == 0:
-        return out
-    if lk == 0:
-        raise ValueError("fused_attention: no keys")
-    rc = kernels.library().comet_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, num_heads, c // num_heads, lq, lk,
-        _stride(q, 0), _stride(q, 1), _stride(k, 0), _stride(k, 1),
-        _stride(v, 0), _stride(v, 1),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    kernels.check_launch(rc, "fused_attention")
-    fused_attention.launches += 1
-    fused_attention.launch_shapes[(b, lq, lk, c, num_heads)] += 1
+    out = _launch("comet_attn_fwd", q, k, v, num_heads, scale)
+    if out.numel():
+        fused_attention.launches += 1
+        fused_attention.launch_shapes[(b, lq, lk, c, num_heads)] += 1
     return out
 
 
-# launches of the kernel, in all and by (B, Lq, Lk, C, heads)
+# launches of each kernel, in all and by (B, Lq, Lk, C, heads): K1, K3
 fused_attention.launches = 0
 fused_attention.launch_shapes = Counter()
+short_attention.launches = 0
+short_attention.launch_shapes = Counter()

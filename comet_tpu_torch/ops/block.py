@@ -1,9 +1,12 @@
-"""One whole self-attention block over many short sequences (K2).
+"""Whole transformer blocks as single kernels: self-attention over many
+short sequences (K2) and cross-attention (K4).
 
-Counterpart of ``comet_tpu/ops/pallas_block.py::fused_attn_block``. On a CUDA
-tensor every call launches the hand-written kernel ``csrc/block.cu``; on a
-CPU tensor it runs :func:`block_reference`, the plain PyTorch version with
-the kernel's rounding points. Weights are in the port's [out, in] layout.
+Counterparts of ``comet_tpu/ops/pallas_block.py::fused_attn_block`` and
+``fused_cross_block``. On a CUDA tensor every call launches the hand-written
+kernel (``csrc/block.cu``, ``csrc/cross_block.cu``) or raises; on a CPU
+tensor it runs :func:`block_reference` or :func:`cross_block_reference`, the
+plain PyTorch versions with the kernels' rounding points. Weights are in the
+port's [out, in] layout.
 """
 
 from __future__ import annotations
@@ -14,9 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
+from .attn import attention_reference
 
-# (C, num_heads) the kernel is compiled for: the coarse (384, 8) and fine
-# (256, 8) update-former time blocks.
+# (C, num_heads) K2 and K4 are compiled for: the coarse (384, 8) and fine
+# (256, 8) update-former widths.
 SUPPORTED_WIDTHS = ((384, 8), (256, 8))
 
 
@@ -50,17 +54,24 @@ def block_reference(
     return x1 + (torch.matmul(h, w2.t()).to(dt) + b2)
 
 
-def _check(name: str, t: torch.Tensor, shape) -> None:
+def _check(who: str, name: str, t: torch.Tensor, shape) -> None:
     if t.dtype != torch.bfloat16:
         if t.dtype == torch.float32:
-            raise NotImplementedError("fused_attn_block on CUDA takes bfloat16 only")
-        raise ValueError(f"fused_attn_block: {name} has dtype {t.dtype}")
+            raise NotImplementedError(f"{who} on CUDA takes bfloat16 only")
+        raise ValueError(f"{who}: {name} has dtype {t.dtype}")
     if t.device.type != "cuda":
-        raise ValueError(f"fused_attn_block: {name} is on {t.device}")
+        raise ValueError(f"{who}: {name} is on {t.device}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_attn_block: {name} has shape {tuple(t.shape)}, want {shape}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"fused_attn_block: {name} must be contiguous and 16-byte aligned")
+        raise ValueError(f"{who}: {name} must be contiguous and 16-byte aligned")
+
+
+def _check_all(who: str, device: torch.device, operands) -> None:
+    for name, t, shape in operands:
+        _check(who, name, t, shape)
+        if t.device != device:
+            raise ValueError(f"{who}: {name} is on {t.device}, x on {device}")
 
 
 def fused_attn_block(
@@ -85,14 +96,11 @@ def fused_attn_block(
         raise ValueError(f"fused_attn_block: (C, heads) = {(c, num_heads)} not compiled")
     if l < 1 or 64 % l or hidden % 128:
         raise ValueError(f"fused_attn_block: L {l} must divide 64, hidden {hidden} % 128 == 0")
-    for name, t, shape in (
+    _check_all("fused_attn_block", x.device, (
         ("x", x, (b, l, c)), ("wqkv", wqkv, (3 * c, c)), ("bqkv", bqkv, (3 * c,)),
         ("wout", wout, (c, c)), ("bout", bout, (c,)), ("w1", w1, (hidden, c)),
         ("b1", b1, (hidden,)), ("w2", w2, (c, hidden)), ("b2", b2, (c,)),
-    ):
-        _check(name, t, shape)
-        if t.device != x.device:
-            raise ValueError(f"fused_attn_block: {name} is on {t.device}, x on {x.device}")
+    ))
     out = torch.empty_like(x)
     if b == 0:
         return out
@@ -110,3 +118,84 @@ def fused_attn_block(
 # launches of the kernel, in all and by (B, L, C, heads, hidden)
 fused_attn_block.launches = 0
 fused_attn_block.launch_shapes = Counter()
+
+
+def cross_block_reference(
+    x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2, num_heads: int
+) -> torch.Tensor:
+    """CrossAttnBlock on [B, Lq, C] / [B, Lk, C] with K4's rounding points:
+    the context LN is cast to x's dtype before its affine, which runs in
+    that dtype (not the f32 affine of the unfused norm_context); each
+    matmul is rounded before its bias add; the residual is re-based on
+    ln1(x)."""
+    c = x.shape[-1]
+    dt = x.dtype
+    xn = layer_norm_plain(x)
+    cn = layer_norm_plain(ctx) * gamma + beta
+    q = torch.matmul(xn, wq.t()).to(dt) + bq
+    k, v = (torch.matmul(cn, wkv.t()).to(dt) + bkv).split(c, dim=-1)
+    a = attention_reference(q, k, v, num_heads, 1.0 / (c // num_heads) ** 0.5)
+    x1 = xn + (torch.matmul(a, wout.t()).to(dt) + bout)
+    y = layer_norm_plain(x1)
+    h = gelu(torch.matmul(y, w1.t()).to(dt) + b1)
+    return x1 + (torch.matmul(h, w2.t()).to(dt) + b2)
+
+
+def fused_cross_block(
+    x: torch.Tensor,  # [B, Lq, C] query stream, Lq % 16 == 0
+    ctx: torch.Tensor,  # [B, Lk, C] context (keys and values)
+    gamma: torch.Tensor,  # [C] norm_context scale
+    beta: torch.Tensor,  # [C] norm_context bias
+    wq: torch.Tensor,  # [C, C] query projection (in_proj[:C])
+    bq: torch.Tensor,  # [C]
+    wkv: torch.Tensor,  # [2C, C] packed kv projection (in_proj[C:])
+    bkv: torch.Tensor,  # [2C]
+    wout: torch.Tensor,  # [C, C]
+    bout: torch.Tensor,  # [C]
+    w1: torch.Tensor,  # [hidden, C]
+    b1: torch.Tensor,  # [hidden]
+    w2: torch.Tensor,  # [C, hidden]
+    b2: torch.Tensor,  # [C]
+    num_heads: int,
+) -> torch.Tensor:
+    """One CrossAttnBlock application: x1 = ln1(x) + attn(ln1(x),
+    norm_context(ctx)); out = x1 + mlp(ln2(x1)). Returns [B, Lq, C] in x's
+    dtype. On CUDA it takes the shapes it was compiled for or raises; the
+    caller's gate is the only gate."""
+    args = (x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return cross_block_reference(*args, num_heads)
+    b, lq, c = x.shape
+    lk = ctx.shape[1]
+    hidden = w1.shape[0]
+    if (c, num_heads) not in SUPPORTED_WIDTHS:
+        raise ValueError(f"fused_cross_block: (C, heads) = {(c, num_heads)} not compiled")
+    if lq % 16 or lk < 1 or hidden % 128:
+        raise ValueError(
+            f"fused_cross_block: Lq {lq} % 16 == 0, Lk {lk} >= 1, hidden {hidden} % 128 == 0"
+        )
+    _check_all("fused_cross_block", x.device, (
+        ("x", x, (b, lq, c)), ("ctx", ctx, (b, lk, c)), ("gamma", gamma, (c,)),
+        ("beta", beta, (c,)), ("wq", wq, (c, c)), ("bq", bq, (c,)), ("wkv", wkv, (2 * c, c)),
+        ("bkv", bkv, (2 * c,)), ("wout", wout, (c, c)), ("bout", bout, (c,)),
+        ("w1", w1, (hidden, c)), ("b1", b1, (hidden,)), ("w2", w2, (c, hidden)),
+        ("b2", b2, (c,)),
+    ))
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    kv = torch.empty((b * lk, 2 * c), dtype=x.dtype, device=x.device)  # K and V, bf16
+    rc = kernels.library().comet_cross_block_fwd(
+        *(t.data_ptr() for t in args), kv.data_ptr(), out.data_ptr(),
+        b, lq, lk, c, num_heads, hidden, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    kernels.check_launch(rc, "fused_cross_block")
+    fused_cross_block.launches += 1
+    fused_cross_block.launch_shapes[(b, lq, lk, c, num_heads, hidden)] += 1
+    return out
+
+
+# launches of the kernel (its two launches count once), in all and by
+# (B, Lq, Lk, C, heads, hidden)
+fused_cross_block.launches = 0
+fused_cross_block.launch_shapes = Counter()

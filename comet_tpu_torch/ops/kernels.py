@@ -21,8 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("attn.cu", "block.cu")
-HEADERS = ("mma.cuh",)
+SOURCES = ("attn.cu", "block.cu", "short_attn.cu", "cross_block.cu", "norm.cu")
+HEADERS = ("mma.cuh", "block_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -39,6 +39,19 @@ _SIGNATURES = {
     ),
     "comet_attn_block_fwd": (
         [_P] * 10 + [_I] * 5 + [_P],
+        _I,
+    ),
+    "comet_short_attn_fwd": (
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+         ctypes.c_float, _P],
+        _I,
+    ),
+    "comet_cross_block_fwd": (
+        [_P] * 16 + [_I] * 6 + [_P],
+        _I,
+    ),
+    "comet_layer_norm_fwd": (
+        [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
         _I,
     ),
 }

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2) against their plain versions, on the card.
+"""The port's CUDA kernels (K1 to K5) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and skip without one. The machine with the
 card has no JAX, so run them without the JAX-side conftest:
@@ -6,16 +6,21 @@ card has no JAX, so run them without the JAX-side conftest:
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
 Tolerances: the kernel in bf16 against the plain version in f32 on the same
-bf16 inputs, atol 3e-2 as tests/test_pallas_attn.py::test_bf16_inputs, and
-for K2 two bf16 steps relative to the value on top (its output and residual
-stream are rounded to bf16 at magnitudes up to ~8).
+bf16 inputs, atol 3e-2 as tests/test_pallas_attn.py::test_bf16_inputs (K1,
+K3), for K2 and K4 two bf16 steps relative to the value on top (their output
+and residual stream are rounded to bf16 at magnitudes up to ~8), and for K5
+atol 1e-3 plus one bf16 rounding of the output (2^-7 |y|); K5 in f32 is held
+to 1e-5.
 """
 
 import pytest
 import torch
 
-from comet_tpu_torch.ops.attn import attention_reference, fused_attention
-from comet_tpu_torch.ops.block import block_reference, fused_attn_block
+from comet_tpu_torch.ops.attn import attention_reference, fused_attention, short_attention
+from comet_tpu_torch.ops.block import (
+    block_reference, cross_block_reference, fused_attn_block, fused_cross_block,
+)
+from comet_tpu_torch.ops.norm import fused_layer_norm, layer_norm_reference
 
 
 @pytest.fixture
@@ -85,3 +90,82 @@ def test_k2_refuses_an_uncompiled_width(cuda_device):
          for s in ((3 * c, c), (3 * c,), (c, c), (c,), (hid, c), (hid,), (c, hid), (c,))]
     with pytest.raises(ValueError, match="not compiled"):
         fused_attn_block(x, *w, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,l,c,packed",
+    [(576, 16, 384, True), (16, 64, 384, True), (512, 16, 256, True), (40, 12, 384, False),
+     (300, 33, 256, False)],
+)
+def test_k3_cuda_matches_plain(cuda_device, b, l, c, packed):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    if packed:  # column slices of one qkv projection, as in the model
+        q, k, v = torch.randn(b, l, 3 * c, generator=g, device=cuda_device).bfloat16().split(c, -1)
+    else:
+        q, k, v = (torch.randn(b, l, c, generator=g, device=cuda_device).bfloat16()
+                   for _ in range(3))
+    before, k1_before = short_attention.launches, fused_attention.launches
+    got = fused_attention(q, k, v, 8)
+    assert short_attention.launches == before + 1 and fused_attention.launches == k1_before
+    want = attention_reference(q.float(), k.float(), v.float(), 8, (c // 8) ** -0.5)
+    torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
+
+
+def _cross_weights(g, dev, c, hid):
+    def rnd(*shape, s=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=g, device=dev) * s).bfloat16()
+
+    return [rnd(c, mean=1.0, s=0.1), rnd(c, s=0.1), rnd(c, c, s=c ** -0.5), rnd(c, s=0.02),
+            rnd(2 * c, c, s=c ** -0.5), rnd(2 * c, s=0.02), rnd(c, c, s=c ** -0.5),
+            rnd(c, s=0.02), rnd(hid, c, s=c ** -0.5), rnd(hid, s=0.02),
+            rnd(c, hid, s=hid ** -0.5), rnd(c, s=0.02)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,lq,lk,c",
+    [(16, 64, 512, 384), (16, 512, 64, 384), (8, 32, 70, 256), (37, 16, 48, 384)],
+)
+def test_k4_cuda_matches_plain(cuda_device, b, lq, lk, c):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    w = _cross_weights(g, cuda_device, c, 4 * c)
+    x = torch.randn(b, lq, c, generator=g, device=cuda_device).bfloat16()
+    ctx = torch.randn(b, lk, c, generator=g, device=cuda_device).bfloat16()
+    before = fused_cross_block.launches
+    got = fused_cross_block(x, ctx, *w, 8)
+    assert fused_cross_block.launches == before + 1
+    want = cross_block_reference(x.float(), ctx.float(), *(t.float() for t in w), 8)
+    torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=2.0 ** -6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "rows,c,dtype,affine",
+    [(9296, 768, torch.bfloat16, True), (9216, 384, torch.bfloat16, False),
+     (8192, 256, torch.float32, True), (7, 48, torch.float32, False), (300, 1024, torch.bfloat16, True)],
+)
+def test_k5_cuda_matches_plain(cuda_device, rows, c, dtype, affine):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (torch.randn(rows, c, generator=g, device=cuda_device) * 3 + 1).to(dtype)
+    scale = torch.randn(c, generator=g, device=cuda_device) if affine else None
+    bias = torch.randn(c, generator=g, device=cuda_device) if affine else None
+    before = fused_layer_norm.launches
+    got = fused_layer_norm(x, scale, bias)
+    assert fused_layer_norm.launches == before + 1 and got.dtype == dtype
+    want = layer_norm_reference(x.float(), scale, bias)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want, atol=1e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_k4_and_k5_refuse_what_they_do_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    w = _cross_weights(g, cuda_device, 384, 1536)
+    x = torch.zeros(16, 24, 384, device=cuda_device, dtype=torch.bfloat16)  # Lq % 16
+    with pytest.raises(ValueError, match="Lq"):
+        fused_cross_block(x, x, *w, 8)
+    with pytest.raises(ValueError, match="width"):
+        fused_layer_norm(torch.zeros(4, 1032, device=cuda_device))
