@@ -17,7 +17,10 @@ Phases, each of which makes the script exit nonzero when it fails:
    PyTorch call computes the same function (``F.scaled_dot_product_attention``
    for K1 and K3, ``F.layer_norm`` for K5), that call's median device times
    over 25 runs, and the host time to issue one call of the kernel's wrapper
-   (and of the library call);
+   (and of the library call); then, for correctness only, K1 and K2 at edge
+   shapes of their tilings (Lq and Lk of 1, 63, 65, 129 and 577, packed qkv
+   slices at D 48 and 96; block rows not a multiple of 64, L 16 and 64 at
+   both widths) against the same plain f32 versions and tolerances;
 4. a reference check on small inputs: the full-width ``ours`` model's coarse
    and fine update-formers and its camera predictor, on the card in bf16
    (through the kernels) against the same weights in f32 on the CPU (plain
@@ -104,6 +107,13 @@ K5_SHAPES = [
     ("coarse virtual blocks", 16 * 64, 384, False, 48),
     ("fine time blocks", 512 * 16, 256, False, 48),
 ]
+# correctness-only edge shapes of K1's and K2's tilings: K1 (B, Lq, Lk, C,
+# heads, packed qkv), packed meaning q, k, v are slices of one [B, L, 3C]
+# projection (Lq == Lk) or k, v of one [B, Lk, 2C]; K2 (B, L, C)
+K1_EDGE = ([(2, n, 577, 768, 8, False) for n in (1, 63, 65, 129, 577)]
+           + [(2, 577, n, 768, 8, True) for n in (1, 63, 65, 129)]
+           + [(3, 129, 129, 384, 8, True), (2, 65, 65, 768, 8, True), (4, 63, 63, 384, 8, True)])
+K2_EDGE = [(7, 16, 256), (20, 64, 384), (5, 16, 384), (3, 64, 256), (1, 1, 384), (9, 32, 256)]
 PER_FORWARD = {
     "default": dict(K1=sum(s[-2] for s in K1_SHAPES), K2=sum(s[-1] for s in K2_SHAPES),
                     K3=0, K4=0, K5=0),  # K1 76, K2 72
@@ -222,14 +232,7 @@ def check_k1(torch, F, attn, dev, gen):
 def check_k2(torch, block, dev, gen):
     rows = []
     for where, b, l, c, h, hid, calls in K2_SHAPES:
-        def rnd(*shape, std=1.0):
-            return (torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
-
-        # lecun-normal-scale weights ([out, in]) and small biases
-        w = [rnd(3 * c, c, std=c ** -0.5), rnd(3 * c, std=0.02), rnd(c, c, std=c ** -0.5),
-             rnd(c, std=0.02), rnd(hid, c, std=c ** -0.5), rnd(hid, std=0.02),
-             rnd(c, hid, std=hid ** -0.5), rnd(c, std=0.02)]
-        x = rnd(b, l, c)
+        x, w = _k2_inputs(torch, gen, dev, b, l, c, hid)
         out = block.fused_attn_block(x, *w, h)
         torch.cuda.synchronize()
         want = block.block_reference(x.float(), *(t.float() for t in w), h)
@@ -367,6 +370,48 @@ def check_k5(torch, F, norm, dev, gen):
               f"host us {host_us:.1f} (F.layer_norm {library_host_us:.1f})",
               flush=True)
     return rows
+
+
+def _k2_inputs(torch, gen, dev, b, l, c, hid):
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
+
+    # lecun-normal-scale weights ([out, in]) and small biases
+    w = [rnd(3 * c, c, std=c ** -0.5), rnd(3 * c, std=0.02), rnd(c, c, std=c ** -0.5),
+         rnd(c, std=0.02), rnd(hid, c, std=c ** -0.5), rnd(hid, std=0.02),
+         rnd(c, hid, std=hid ** -0.5), rnd(c, std=0.02)]
+    return rnd(b, l, c), w
+
+
+def check_edges(torch, attn, block, dev, gen):
+    """K1 and K2 at the edge shapes of their tilings, correctness only."""
+    for b, lq, lk, c, h, packed in K1_EDGE:
+        d = c // h
+        if packed and lq == lk:
+            q, k, v = torch.randn(b, lq, 3 * c, generator=gen, device=dev).bfloat16().split(c, -1)
+        else:
+            q = torch.randn(b, lq, c, generator=gen, device=dev).bfloat16()
+            kv = torch.randn(b, lk, 2 * c, generator=gen, device=dev).bfloat16()
+            k, v = kv.split(c, dim=-1) if packed else (kv[..., :c].contiguous(), kv[..., c:].contiguous())
+        out = attn.fused_attention(q, k, v, h)
+        torch.cuda.synchronize()
+        want = attn.attention_reference(q.float(), k.float(), v.float(), h, d ** -0.5)
+        err = (out.float() - want).abs().max().item()
+        regime = attn.attention_plan(b, lq, lk, h).regime
+        print(f"K1 edge [B={b} Lq={lq} Lk={lk} C={c} H={h} packed={packed}] {regime}: err {err:.3e} "
+              f"(atol {K1_ATOL})", flush=True)
+        if out.shape != (b, lq, c) or not math.isfinite(err) or err > K1_ATOL:
+            raise SmokeError(f"K1 edge {(b, lq, lk, c, h)}: max |kernel - plain f32| = {err} > {K1_ATOL}")
+    for b, l, c in K2_EDGE:
+        x, w = _k2_inputs(torch, gen, dev, b, l, c, 4 * c)
+        out = block.fused_attn_block(x, *w, 8)
+        torch.cuda.synchronize()
+        want = block.block_reference(x.float(), *(t.float() for t in w), 8)
+        excess = ((out.float() - want).abs() - K2_RTOL * want.abs()).max().item()
+        print(f"K2 edge [B={b} L={l} C={c}]: err {(out.float() - want).abs().max().item():.3e}, "
+              f"excess over {K2_ATOL} + {K2_RTOL:.4f}|y| {excess:.3e}", flush=True)
+        if out.shape != x.shape or not math.isfinite(excess) or excess > K2_ATOL:
+            raise SmokeError(f"K2 edge {(b, l, c)}: exceeds {K2_ATOL} + {K2_RTOL}|y| by {excess}")
 
 
 def _request(torch, cfg, seed, dev):
@@ -520,8 +565,9 @@ def main_path(torch, cfg, model, models, geom, counters, route_name, dev, n_requ
 
 
 # the port's kernel names in the profiler's table (namespace comet::), by kernel
-PROFILE_KEYS = dict(K1=("attn_fwd_kernel",), K2=("attn_block_kernel",), K3=("short_attn_kernel",),
-                    K4=("cross_kv_kernel", "cross_block_kernel"), K5=("layer_norm_kernel",))
+PROFILE_KEYS = dict(K1=("attn_fwd_kernel", "attn_wgmma_kernel"), K2=("attn_block_kernel",),
+                    K3=("short_attn_kernel",), K4=("cross_kv_kernel", "cross_block_kernel"),
+                    K5=("layer_norm_kernel",))
 
 
 def profile(torch, model, images, queries, path, route_name, request_ms):
@@ -602,6 +648,7 @@ def main(argv=None) -> int:
         checked = dict(K1=check_k1(torch, F, attn, dev, gen), K2=check_k2(torch, block, dev, gen),
                        K3=check_k3(torch, F, attn, dev, gen), K4=check_k4(torch, block, dev, gen),
                        K5=check_k5(torch, F, norm, dev, gen))
+        check_edges(torch, attn, block, dev, gen)
         cfg = tcfg.get_config("ours")
         t0 = time.perf_counter()
         model = models.build_comet(cfg, device=dev, seed=0)

@@ -5,109 +5,259 @@
 // _lane_packed_attend and pallas_attn.py::_heads_attend). Same function and
 // the same bf16 rounding points as the TPU kernel: LayerNorms are scale-free
 // with eps 1e-6 and f32 statistics; each matmul accumulates in f32 and is
-// rounded to bf16 before its bias add; attention logits and softmax are f32
-// with a plain per-(sequence, head) softmax (the TPU's lane packing and its
-// 1e-30 denominator clamp were layout devices of that chip); GELU is the tanh
-// form on bf16 values; the residual stream is re-based on the normalized
-// input: x1 = ln1(x) + attn(ln1(x)); out = x1 + mlp(ln2(x1)).
+// rounded to bf16 before its bias add, and the sum is rounded again;
+// attention logits and softmax are f32 with a plain per-(sequence, head)
+// softmax (the TPU's lane packing and its 1e-30 denominator clamp were layout
+// devices of that chip); GELU is the tanh form on bf16 values; the residual
+// stream is re-based on the normalized input: x1 = ln1(x) + attn(ln1(x));
+// out = x1 + mlp(ln2(x1)).
 //
 // What bounds it on the H100: the matmuls. Per row it does 2*C*(3C + C + 8C)
 // FLOPs (33 GFLOP for the coarse time block's 9216 rows at C 384) against
 // 4*C bytes of activations in and out, so it is bound by tensor-core
-// operations as long as the weights (3.5 MB bf16 at C 384) come from L2.
+// operations; in practice a CTA of 64 rows also reads every weight (3.5 MB at
+// C 384) from L2, so L2 bandwidth is the next limit.
 //
-// What the design does about it: one CTA of 8 warps takes 64 rows (whole
-// sequences: 4 of 16 or 1 of 64) and keeps every intermediate on chip; only
-// x is read and the block's output written. The weights stream through L2
-// into a two-stage cp.async ring in shared memory in 32-column k-slices; all
-// products run on bf16 mma.sync with f32 accumulators. Attention is done one
-// head at a time (q, k, v of one head: 64 x 3D) and the MLP one 128-column
-// hidden chunk at a time, with the fc2 accumulators held in registers across
-// chunks, so the working set fits the 227 KB of shared memory.
+// What the design does about it: one CTA takes 64 rows (whole sequences: 4
+// of 16 or 1 of 64) and keeps every intermediate on chip; only x is read and
+// the block's output written. Two consumer warpgroups and a producer
+// warpgroup, whose registers move to the consumers (setmaxnreg 40 / 232): one
+// producer thread brings every weight tile by TMA (64-column k-tiles,
+// 128-byte swizzle) into a 4-stage mbarrier ring, in one fixed order in
+// which the tiles alternate between the two warpgroups; each warpgroup runs
+// its half of every product on wgmma with the activations (ln1(x), the
+// attention output, ln2(x1), one GELU'd MLP chunk) as K-major A operands in
+// shared memory, written by the kernel in the 128-byte swizzled layout. The
+// halves: for qkv and attention one head each (warpgroup w takes head 2p + w
+// of head pair p, N = 3D), for the out-projection and fc2 one half of the
+// output columns (two passes of N = C/4), for fc1 one half of each 128-wide
+// hidden chunk (N = 64); the fc2 accumulators stay in registers across
+// chunks. Attention within the block is
+// < 3 % of its FLOPs and stays on mma.sync, one warp per 16 query rows.
 #include <cmath>
 
 #include "block_common.cuh"
+#include "hopper.cuh"
 
 namespace comet {
 namespace {
 
-template <int C, int D>
-struct BlockSmem {
-  static constexpr int LDX = C + 8;
-  static constexpr int LDQ = D + 8;
-  static constexpr int x_elems = kRows * LDX;          // x -> ln1(x) -> x1
-  static constexpr int a_elems = kRows * LDX;          // attention out -> ln2(x1)
-  static constexpr int w_elems = 2 * C * kLDW;         // weight ring, N <= C rows
-  static constexpr int qkv_elems = 3 * kRows * LDQ;    // q, k, v of one head
-  static constexpr int h_elems = kRows * kLDH;         // one MLP hidden chunk
-  static constexpr int u_elems = qkv_elems > h_elems ? qkv_elems : h_elems;
-  static constexpr int bytes =
-      (x_elems + a_elems + w_elems + u_elems) * static_cast<int>(sizeof(bf16));
+constexpr int kBlkRows = 64;      // rows per CTA, whole sequences
+constexpr int kBlkThreads = 384;  // 2 consumer warpgroups + 1 producer warpgroup
+constexpr int kBlkStages = 4;     // weight ring depth
+constexpr int kHid = 128;         // MLP hidden columns per chunk (64 per warpgroup)
+constexpr int kTile = 64 * 64;    // elements of one 64 x 64 swizzled A k-tile
+
+// Element offset of (r, c) in a [K / 64][64 rows][64] buffer in the 128-byte
+// swizzled layout (the 16-byte chunk c / 8 of row r moves to chunk (c / 8) ^
+// (r % 8)), the K-major operand layout wgmma reads with a 128B descriptor.
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * kTile + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+}
+
+template <int C>
+struct BlockPlan {
+  static constexpr int D = C / 8;
+  static constexpr int NQKV = 3 * D;  // one head's q, k and v columns
+  static constexpr int NQ = C / 4;    // one pass of a warpgroup's output half
+  static constexpr int LDQ = D + 8;   // padded row of the per-head q/k/v scratch
+  static constexpr int x_bytes = kBlkRows * C * 2;
+  static constexpr int qkv_bytes = 2 * 3 * kBlkRows * LDQ * 2;
+  static constexpr int h_bytes = kBlkRows * kHid * 2;  // one GELU'd hidden chunk
+  static constexpr int u_bytes =
+      ((qkv_bytes > h_bytes ? qkv_bytes : h_bytes) + 1023) / 1024 * 1024;
+  static constexpr int stage_rows = NQKV > kHid / 2 ? NQKV : kHid / 2;
+  static_assert(stage_rows >= NQ, "a stage holds every tile of the ring");
+  static constexpr int stage_bytes = stage_rows * 128;
+  static constexpr int ring_offset = 2 * x_bytes + u_bytes;
+  static constexpr int bar_offset = ring_offset + kBlkStages * stage_bytes;
+  static constexpr int smem = 1024 + bar_offset + 2 * kBlkStages * 8;
 };
 
-template <int C, int D>
-__global__ void __launch_bounds__(kThreads, 1) attn_block_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ wqkv, const bf16* __restrict__ bqkv,
-    const bf16* __restrict__ wout, const bf16* __restrict__ bout, const bf16* __restrict__ w1,
-    const bf16* __restrict__ b1, const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-    bf16* __restrict__ out, int rows, int L, int hidden, float scale) {
-  using S = BlockSmem<C, D>;
-  constexpr int H = C / D;
-  constexpr int LDX = S::LDX, LDQ = S::LDQ;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sX = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sA = sX + S::x_elems;
-  bf16* sW = sA + S::a_elems;
-  bf16* sU = sW + S::w_elems;  // q/k/v of one head, later one MLP hidden chunk
-  bf16* sQ = sU;
-  bf16* sK = sU + kRows * LDQ;
-  bf16* sV = sU + 2 * kRows * LDQ;
-  bf16* sH = sU;
+template <int N>
+__device__ __forceinline__ void wgmma_kmajor(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, 1);
+  if constexpr (N == 96) wgmma_ss_n96(d, da, db, 1);
+  if constexpr (N == 144) wgmma_ss_n144(d, da, db, 1);
+}
+
+// acc[64 x N] += A[64 x 64] B^T over one k-tile: A a 64 x 64 swizzled tile,
+// B an N-row weight tile of the ring (both K-major, 128B swizzle).
+template <int N>
+__device__ __forceinline__ void ktile_product(float (&acc)[N / 2], const bf16* a, const bf16* b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_kmajor<N>(acc, make_desc<64>(a + kk * 16, 16, 1024), make_desc<64>(b + kk * 16, 16, 1024));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// Scale-free LayerNorm (eps 1e-6, f32 statistics) of 64 rows of width C by
+// the 8 consumer warps, 8 rows each. Source row r comes from load(r, col),
+// the result goes to dst in the swizzled layout.
+template <int C, typename Load>
+__device__ __forceinline__ void layer_norm_swizzled(Load load, bf16* dst) {
+  constexpr int PER = C / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
+    float v[PER];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      v[i] = load(r, lane + 32 * i);
+      s += v[i];
+    }
+    const float mu = warp_sum(s) * (1.f / C);
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      v[i] -= mu;
+      ss += v[i] * v[i];
+    }
+    const float rstd = rsqrtf(warp_sum(ss) * (1.f / C) + 1e-6f);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) dst[swz(r, lane + 32 * i)] = __float2bfloat16(v[i] * rstd);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
+    const __grid_constant__ CUtensorMap m_qkv, const __grid_constant__ CUtensorMap m_out,
+    const __grid_constant__ CUtensorMap m_w1, const __grid_constant__ CUtensorMap m_w2,
+    const bf16* __restrict__ x, const bf16* __restrict__ bqkv, const bf16* __restrict__ bout,
+    const bf16* __restrict__ b1, const bf16* __restrict__ b2, bf16* __restrict__ out, int rows,
+    int L, int hidden, float scale) {
+  using P = BlockPlan<C>;
+  constexpr int D = P::D, NQKV = P::NQKV, NQ = P::NQ, LDQ = P::LDQ, S = kBlkStages;
+  constexpr int KT = C / 64;  // k-tiles of a product over C
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* sX = reinterpret_cast<bf16*>(base);                 // ln1(x), then x1
+  bf16* sA = reinterpret_cast<bf16*>(base + P::x_bytes);    // attention out, then ln2(x1)
+  bf16* sU = reinterpret_cast<bf16*>(base + 2 * P::x_bytes);  // q/k/v scratch, later sH
+  bf16* ring = reinterpret_cast<bf16*>(base + P::ring_offset);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::bar_offset);
+  uint64_t* empty = full + S;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int row0 = blockIdx.x * kRows;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-
-  // x -> sX (rows past the end are zero), then ln1 in place.
-  for (int i = tid; i < kRows * (C / 8); i += kThreads) {
-    const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async16(sX + r * LDX + c, x + (ok ? (long long)(row0 + r) * C : 0) + c, ok);
+  const int row0 = blockIdx.x * kBlkRows;
+  const int nchunks = hidden / kHid;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);  // the owning warpgroup's 4 warps
+    }
+    mbar_init_fence();
   }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  layer_norm_rows<C>(sX, sX, LDX);
   __syncthreads();
 
-  // Attention, one head at a time; the result goes to sA[:, h*D:(h+1)*D].
-  for (int h = 0; h < H; ++h) {
-    {
-      constexpr int NT = 3 * D / 16;
-      float acc[NT][4];
-      zero_acc(acc);
-      gemm_awt<NT>(sX, LDX, C, wqkv, C, D, h * D, C + h * D, 2 * C + h * D, sW, acc);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = wn * NT * 8 + j * 8 + t2;
-        const int which = n / D, d = n % D;
-        const float bb0 = __bfloat162float(bqkv[which * C + h * D + d]);
-        const float bb1 = __bfloat162float(bqkv[which * C + h * D + d + 1]);
-        bf16* dst = sU + which * kRows * LDQ + d;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = wm * 16 + g + hr * 8;
-          *reinterpret_cast<__nv_bfloat162*>(dst + r * LDQ) = __floats2bfloat162_rn(
-              round_bf16(acc[j][2 * hr]) + bb0, round_bf16(acc[j][2 * hr + 1]) + bb1);
-        }
+  if (warp >= 8) {  // producer: one thread issues every weight tile, in the consumers' order
+    setmaxnreg_dec<40>();
+    if (warp == 8 && lane == 0) {
+      int i = 0;
+      auto acquire = [&](uint32_t bytes) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(empty + s, ((i / S) - 1) & 1);
+        mbar_expect_tx(full + s, bytes);
+        return s;
+      };
+      for (int p = 0; p < 4; ++p)
+        for (int kt = 0; kt < KT; ++kt)
+          for (int w = 0; w < 2; ++w, ++i) {
+            const int s = acquire(NQKV * 128);
+            for (int seg = 0; seg < 3; ++seg)
+              tma_load_2d(ring + s * (P::stage_bytes / 2) + seg * D * 64, &m_qkv, full + s,
+                          kt * 64, seg * C + (2 * p + w) * D);
+          }
+      for (int q = 0; q < 2; ++q)
+        for (int kt = 0; kt < KT; ++kt)
+          for (int w = 0; w < 2; ++w, ++i) {
+            const int s = acquire(NQ * 128);
+            tma_load_2d(ring + s * (P::stage_bytes / 2), &m_out, full + s, kt * 64,
+                        w * (C / 2) + q * NQ);
+          }
+      for (int c = 0; c < nchunks; ++c) {
+        for (int kt = 0; kt < KT; ++kt)
+          for (int w = 0; w < 2; ++w, ++i) {
+            const int s = acquire(kHid / 2 * 128);
+            tma_load_2d(ring + s * (P::stage_bytes / 2), &m_w1, full + s, kt * 64,
+                        c * kHid + w * (kHid / 2));
+          }
+        for (int kt = 0; kt < kHid / 64; ++kt)
+          for (int q = 0; q < 2; ++q)
+            for (int w = 0; w < 2; ++w, ++i) {
+              const int s = acquire(NQ * 128);
+              tma_load_2d(ring + s * (P::stage_bytes / 2), &m_w2, full + s, c * kHid + kt * 64,
+                          w * (C / 2) + q * NQ);
+            }
       }
     }
-    __syncthreads();
-    if (warp < 4) {
-      // Warp w: query rows 16w..16w+15 against the keys of their sequences.
+    return;
+  }
+
+  // consumers: warpgroup w, its warp lw owns rows 16 lw .. 16 lw + 15 of every
+  // 64-row accumulator
+  setmaxnreg_inc<232>();
+  const int w = warp >> 2, lw = warp & 3;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  int taken = 0;  // ring tiles this warpgroup has taken; tile i belongs to i % 2
+  auto take = [&]() -> const bf16* {
+    const int i = 2 * taken + w;
+    mbar_wait(full + i % S, (i / S) & 1);
+    return ring + (i % S) * (P::stage_bytes / 2);
+  };
+  auto release = [&]() {
+    if (lane == 0) mbar_arrive(empty + (2 * taken + w) % S);
+    ++taken;
+  };
+
+  // ln1(x) -> sX (rows past the end are zero and stay finite)
+  layer_norm_swizzled<C>(
+      [&](int r, int col) {
+        return row0 + r < rows ? __bfloat162float(x[(long long)(row0 + r) * C + col]) : 0.f;
+      },
+      sX);
+  fence_proxy_async();
+  named_barrier(1, 256);
+
+  // qkv and attention, warpgroup w on head 2p + w
+  bf16* sQ = sU + w * 3 * kBlkRows * LDQ;
+  bf16* sK = sQ + kBlkRows * LDQ;
+  bf16* sV = sK + kBlkRows * LDQ;
+  for (int p = 0; p < 4; ++p) {
+    const int h = 2 * p + w;
+    float acc[NQKV / 2];
+#pragma unroll
+    for (int i = 0; i < NQKV / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt) {
+      ktile_product<NQKV>(acc, sX + kt * kTile, take());
+      release();
+    }
+    named_barrier(2 + w, 128);  // the previous head's attention is done with the scratch
+#pragma unroll
+    for (int j = 0; j < NQKV / 8; ++j) {
+      const int n = j * 8 + t2;
+      const int which = n / D, d = n % D;
+      const float bb0 = __bfloat162float(bqkv[which * C + h * D + d]);
+      const float bb1 = __bfloat162float(bqkv[which * C + h * D + d + 1]);
+      bf16* dst = sQ + which * kBlkRows * LDQ + d;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = lw * 16 + g + hr * 8;
+        *reinterpret_cast<__nv_bfloat162*>(dst + r * LDQ) = __floats2bfloat162_rn(
+            round_bf16(acc[4 * j + 2 * hr]) + bb0, round_bf16(acc[4 * j + 2 * hr + 1]) + bb1);
+      }
+    }
+    named_barrier(2 + w, 128);
+
+    // Warp lw: query rows 16 lw .. 16 lw + 15 against the keys of their sequences.
+    {
       const int lr = L > 16 ? L : 16;  // key span that covers the 16 rows
-      const int ks = (warp * 16 / lr) * lr;
+      const int lsh = __ffs(L) - 1;    // L is a power of two (it divides 64)
+      const int ks = (lw * 16 / lr) * lr;
       const int nkt = lr / 8;
       float s[8][4];
 #pragma unroll
@@ -115,15 +265,15 @@ __global__ void __launch_bounds__(kThreads, 1) attn_block_kernel(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t a[4];
-        ldmatrix_x4(a, sQ + (warp * 16 + (lane & 15)) * LDQ + kk * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(a, sQ + (lw * 16 + (lane & 15)) * LDQ + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          if (2 * p < nkt) {
+        for (int pp = 0; pp < 4; ++pp) {
+          if (2 * pp < nkt) {
             uint32_t b[4];
-            ldmatrix_x4(b, sK + (ks + p * 16 + (lane & 7) + (lane >> 4) * 8) * LDQ + kk * 16 +
+            ldmatrix_x4(b, sK + (ks + pp * 16 + (lane & 7) + (lane >> 4) * 8) * LDQ + kk * 16 +
                                ((lane >> 3) & 1) * 8);
-            mma_bf16(s[2 * p], a, b[0], b[1]);
-            mma_bf16(s[2 * p + 1], a, b[2], b[3]);
+            mma_bf16(s[2 * pp], a, b[0], b[1]);
+            mma_bf16(s[2 * pp + 1], a, b[2], b[3]);
           }
         }
       }
@@ -133,8 +283,8 @@ __global__ void __launch_bounds__(kThreads, 1) attn_block_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = ks + j * 8 + t2 + (e & 1);
-          const int qrow = warp * 16 + g + (e >> 1) * 8;
-          const bool ok = j < nkt && key / L == qrow / L;
+          const int qrow = lw * 16 + g + (e >> 1) * 8;
+          const bool ok = j < nkt && (key >> lsh) == (qrow >> lsh);
           s[j][e] = ok ? s[j][e] * scale : -INFINITY;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
         }
@@ -172,54 +322,170 @@ __global__ void __launch_bounds__(kThreads, 1) attn_block_kernel(
           }
         }
       }
+      const int r = lw * 16 + g;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        bf16* dst = sA + h * D + j * 8 + t2;
-        const int r = warp * 16 + g;
-        *reinterpret_cast<__nv_bfloat162*>(dst + r * LDX) =
+        const int col = h * D + j * 8 + t2;
+        *reinterpret_cast<__nv_bfloat162*>(sA + swz(r, col)) =
             __floats2bfloat162_rn(o[j][0], o[j][1]);
-        *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * LDX) =
+        *reinterpret_cast<__nv_bfloat162*>(sA + swz(r + 8, col)) =
             __floats2bfloat162_rn(o[j][2], o[j][3]);
       }
     }
-    __syncthreads();
+  }
+  fence_proxy_async();
+  named_barrier(1, 256);
+
+  // x1 = ln1(x) + (round(a Wout^T) + bout), in place in sX; warpgroup w
+  // computes output columns w C/2 .. + C/2 in two passes of NQ.
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    float acc[NQ / 2];
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt) {
+      ktile_product<NQ>(acc, sA + kt * kTile, take());
+      release();
+    }
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j) {
+      const int n = w * (C / 2) + q * NQ + j * 8 + t2;
+      const float bb0 = __bfloat162float(bout[n]), bb1 = __bfloat162float(bout[n + 1]);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = lw * 16 + g + hr * 8;
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(sX + swz(r, n));
+        const float2 xn = __bfloat1622float2(*p);
+        const float y0 = round_bf16(round_bf16(acc[4 * j + 2 * hr]) + bb0);
+        const float y1 = round_bf16(round_bf16(acc[4 * j + 2 * hr + 1]) + bb1);
+        *p = __floats2bfloat162_rn(xn.x + y0, xn.y + y1);
+      }
+    }
+  }
+  named_barrier(1, 256);
+
+  // ln2(x1) -> sA
+  layer_norm_swizzled<C>([&](int r, int col) { return __bfloat162float(sX[swz(r, col)]); }, sA);
+  fence_proxy_async();
+  named_barrier(1, 256);
+
+  // MLP over hidden chunks of kHid; fc2 accumulates in registers across chunks.
+  float acc2[2][NQ / 2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) acc2[q][i] = 0.f;
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    bf16* sH = sU;  // [kHid / 64 k-tiles][64][64], swizzled
+    {
+      float acc1[kHid / 4];
+#pragma unroll
+      for (int i = 0; i < kHid / 4; ++i) acc1[i] = 0.f;
+      for (int kt = 0; kt < KT; ++kt) {
+        ktile_product<kHid / 2>(acc1, sA + kt * kTile, take());
+        release();
+      }
+      if (c > 0) named_barrier(1, 256);  // both warpgroups' fc2 is done with sH
+#pragma unroll
+      for (int j = 0; j < kHid / 16; ++j) {
+        const int n = w * (kHid / 2) + j * 8 + t2;  // column within the chunk
+        const float bb0 = __bfloat162float(b1[c * kHid + n]);
+        const float bb1 = __bfloat162float(b1[c * kHid + n + 1]);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = lw * 16 + g + hr * 8;
+          const float h0 = round_bf16(round_bf16(acc1[4 * j + 2 * hr]) + bb0);
+          const float h1 = round_bf16(round_bf16(acc1[4 * j + 2 * hr + 1]) + bb1);
+          *reinterpret_cast<__nv_bfloat162*>(sH + swz(r, n)) =
+              __floats2bfloat162_rn(gelu_tanh(h0), gelu_tanh(h1));
+        }
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1, 256);  // both halves of the chunk are in sH
+#pragma unroll
+    for (int kt = 0; kt < kHid / 64; ++kt) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        ktile_product<NQ>(acc2[q], sH + kt * kTile, take());
+        release();
+      }
+    }
   }
 
-  block_tail<C>(sX, sA, sW, sH, wout, bout, w1, b1, w2, b2, out, row0, rows, hidden);
+  // out = x1 + (round(h W2^T) + b2)
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j) {
+      const int n = w * (C / 2) + q * NQ + j * 8 + t2;
+      const float bb0 = __bfloat162float(b2[n]), bb1 = __bfloat162float(b2[n + 1]);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = lw * 16 + g + hr * 8;
+        if (row0 + r < rows) {
+          const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sX + swz(r, n)));
+          const float y0 = round_bf16(round_bf16(acc2[q][4 * j + 2 * hr]) + bb0);
+          const float y1 = round_bf16(round_bf16(acc2[q][4 * j + 2 * hr + 1]) + bb1);
+          *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row0 + r) * C + n) =
+              __floats2bfloat162_rn(x1.x + y0, x1.y + y1);
+        }
+      }
+    }
+  }
 }
 
-template <int C, int D>
+// A [rows_, cols] row-major bf16 weight as a 2D tensor map of 64-column,
+// box_rows-row boxes.
+bool weight_map(CUtensorMap* map, const bf16* w, int rows_, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows_)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  return make_tensor_map<64>(map, w, 2, dims, strides, box);
+}
+
+template <int C>
 int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* wout,
                  const bf16* bout, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
                  bf16* out, int rows, int L, int hidden, cudaStream_t stream) {
-  constexpr int smem = BlockSmem<C, D>::bytes;
+  using P = BlockPlan<C>;
+  CUtensorMap m_qkv, m_out, m_w1, m_w2;
+  if (!weight_map(&m_qkv, wqkv, 3 * C, C, P::D) || !weight_map(&m_out, wout, C, C, P::NQ) ||
+      !weight_map(&m_w1, w1, hidden, C, kHid / 2) || !weight_map(&m_w2, w2, C, hidden, P::NQ))
+    return -2;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_block_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        attn_block_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int grid = (rows + kRows - 1) / kRows;
-  attn_block_kernel<C, D><<<grid, kThreads, smem, stream>>>(
-      x, wqkv, bqkv, wout, bout, w1, b1, w2, b2, out, rows, L, hidden,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+  const int grid = (rows + kBlkRows - 1) / kBlkRows;
+  attn_block_kernel<C><<<grid, kBlkThreads, P::smem, stream>>>(
+      m_qkv, m_out, m_w1, m_w2, x, bqkv, bout, b1, b2, out, rows, L, hidden,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(P::D))));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace comet
 
-// Returns 0 on success, -1 for an unsupported (C, H, L, hidden), else the
+// Returns 0 on success, -1 for arguments the kernel does not take (C, H, L,
+// hidden, or a plan other than 64 rows per CTA and 128-column hidden chunks:
+// ops/block.py::block_plan), -2 if the driver refuses a tensor map, else the
 // CUDA error code of the launch. x and out are contiguous [rows, C]; weights
 // are in the [out_features, in_features] layout: wqkv [3C, C], wout [C, C],
 // w1 [hidden, C], w2 [C, hidden].
 extern "C" int comet_attn_block_fwd(const void* x, const void* wqkv, const void* bqkv,
                                     const void* wout, const void* bout, const void* w1,
                                     const void* b1, const void* w2, const void* b2, void* out,
-                                    int rows, int L, int C, int H, int hidden, void* stream) {
+                                    int rows, int L, int C, int H, int hidden, int rows_per_cta,
+                                    int hidden_chunk, void* stream) {
   using comet::bf16;
-  if (L < 1 || 64 % L != 0 || hidden % 128 != 0) return -1;
+  if (L < 1 || comet::kBlkRows % L != 0 || hidden % comet::kHid != 0 ||
+      rows_per_cta != comet::kBlkRows || hidden_chunk != comet::kHid)
+    return -1;
   const bf16* a[9] = {static_cast<const bf16*>(x),    static_cast<const bf16*>(wqkv),
                       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wout),
                       static_cast<const bf16*>(bout), static_cast<const bf16*>(w1),
@@ -228,10 +494,10 @@ extern "C" int comet_attn_block_fwd(const void* x, const void* wqkv, const void*
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 384 && H == 8)
-    return comet::launch_block<384, 48>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o,
-                                        rows, L, hidden, s);
+    return comet::launch_block<384>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o, rows,
+                                    L, hidden, s);
   if (C == 256 && H == 8)
-    return comet::launch_block<256, 32>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o,
-                                        rows, L, hidden, s);
+    return comet::launch_block<256>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o, rows,
+                                    L, hidden, s);
   return -1;
 }

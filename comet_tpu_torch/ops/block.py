@@ -12,6 +12,7 @@ port's [out, in] layout.
 from __future__ import annotations
 
 from collections import Counter
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +23,33 @@ from .attn import attention_reference
 # (C, num_heads) K2 and K4 are compiled for: the coarse (384, 8) and fine
 # (256, 8) update-former widths.
 SUPPORTED_WIDTHS = ((384, 8), (256, 8))
+# K2's compiled tiles: block rows per CTA (whole sequences) and MLP hidden
+# columns per chunk
+K2_ROWS_PER_CTA = 64
+K2_HIDDEN_CHUNK = 128
+
+
+@dataclass(frozen=True)
+class BlockPlan:
+    """How K2 covers one call: CTA i takes block rows [64 i, 64 i + 64) of
+    the flattened [B * L, C] input (whole sequences, since L divides 64) and
+    runs the MLP in ``hidden // hidden_chunk`` chunks."""
+
+    rows_per_cta: int
+    hidden_chunk: int
+    ctas: int
+
+
+def block_plan(b: int, l: int, hidden: int) -> BlockPlan:
+    """K2's plan for [B, L, C] with an MLP of width ``hidden``; raises for
+    what the kernel does not take (L must divide 64, hidden a multiple of
+    128)."""
+    if l < 1 or K2_ROWS_PER_CTA % l or hidden % K2_HIDDEN_CHUNK:
+        raise ValueError(
+            f"fused_attn_block: L {l} must divide {K2_ROWS_PER_CTA}, "
+            f"hidden {hidden} % {K2_HIDDEN_CHUNK} == 0"
+        )
+    return BlockPlan(K2_ROWS_PER_CTA, K2_HIDDEN_CHUNK, -(-b * l // K2_ROWS_PER_CTA))
 
 
 def layer_norm_plain(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -94,8 +122,7 @@ def fused_attn_block(
     hidden = w1.shape[0]
     if (c, num_heads) not in SUPPORTED_WIDTHS:
         raise ValueError(f"fused_attn_block: (C, heads) = {(c, num_heads)} not compiled")
-    if l < 1 or 64 % l or hidden % 128:
-        raise ValueError(f"fused_attn_block: L {l} must divide 64, hidden {hidden} % 128 == 0")
+    plan = block_plan(b, l, hidden)
     _check_all("fused_attn_block", x.device, (
         ("x", x, (b, l, c)), ("wqkv", wqkv, (3 * c, c)), ("bqkv", bqkv, (3 * c,)),
         ("wout", wout, (c, c)), ("bout", bout, (c,)), ("w1", w1, (hidden, c)),
@@ -107,7 +134,8 @@ def fused_attn_block(
     rc = kernels.library().comet_attn_block_fwd(
         x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        b * l, l, c, num_heads, hidden, torch.cuda.current_stream(x.device).cuda_stream,
+        b * l, l, c, num_heads, hidden, plan.rows_per_cta, plan.hidden_chunk,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check_launch(rc, "fused_attn_block")
     fused_attn_block.launches += 1

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("attn.cu", "block.cu", "short_attn.cu", "cross_block.cu", "norm.cu")
-HEADERS = ("mma.cuh", "block_common.cuh")
+HEADERS = ("mma.cuh", "block_common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -34,11 +34,11 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "comet_attn_fwd": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
-         ctypes.c_float, _P],
+         ctypes.c_float, _I, _I, _I, _P],
         _I,
     ),
     "comet_attn_block_fwd": (
-        [_P] * 10 + [_I] * 5 + [_P],
+        [_P] * 10 + [_I] * 7 + [_P],
         _I,
     ),
     "comet_short_attn_fwd": (
@@ -123,5 +123,7 @@ def check_launch(rc: int, name: str) -> None:
     """Raise if a kernel's C entry point reported a failed launch."""
     if rc == -1:
         raise ValueError(f"{name}: the kernel does not take these arguments")
+    if rc == -2:
+        raise RuntimeError(f"{name}: the driver refused a TMA tensor map")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

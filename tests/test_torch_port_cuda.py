@@ -16,7 +16,9 @@ to 1e-5.
 import pytest
 import torch
 
-from comet_tpu_torch.ops.attn import attention_reference, fused_attention, short_attention
+from comet_tpu_torch.ops.attn import (
+    attention_plan, attention_reference, fused_attention, short_attention,
+)
 from comet_tpu_torch.ops.block import (
     block_reference, cross_block_reference, fused_attn_block, fused_cross_block,
 )
@@ -46,8 +48,39 @@ def test_k1_cuda_matches_plain(cuda_device, b, lq, lk, c, h):
     torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
 
 
+# Edge shapes of K1's tilings (the same as chip_smoke.py's K1_EDGE): Lq and Lk
+# of 1, 63, 65, 129 and 577 around the 128-row query and 64-key tiles, and
+# packed qkv slices at D 48 and 96
+K1_EDGE = ([(2, n, 577, 768, 8, False) for n in (1, 63, 65, 129, 577)]
+           + [(2, 577, n, 768, 8, True) for n in (1, 63, 65, 129)]
+           + [(3, 129, 129, 384, 8, True), (2, 65, 65, 768, 8, True), (4, 63, 63, 384, 8, True)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,c", [(576, 16, 384), (16, 64, 384), (512, 16, 256), (7, 16, 256)])
+@pytest.mark.parametrize("b,lq,lk,c,h,packed", K1_EDGE)
+def test_k1_cuda_edge_shapes(cuda_device, b, lq, lk, c, h, packed):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    if packed and lq == lk:
+        q, k, v = torch.randn(b, lq, 3 * c, generator=g, device=cuda_device).bfloat16().split(c, -1)
+    else:
+        q = torch.randn(b, lq, c, generator=g, device=cuda_device).bfloat16()
+        kv = torch.randn(b, lk, 2 * c, generator=g, device=cuda_device).bfloat16()
+        k, v = kv.split(c, -1) if packed else (kv[..., :c].contiguous(), kv[..., c:].contiguous())
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, h)
+    assert fused_attention.launches == before + 1
+    assert attention_plan(b, lq, lk, h).regime == ("wgmma" if lq >= 64 else "short_query")
+    want = attention_reference(q.float(), k.float(), v.float(), h, (c // h) ** -0.5)
+    torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,l,c",
+    [(576, 16, 384), (16, 64, 384), (512, 16, 256), (7, 16, 256),
+     # rows not a multiple of 64, L 16 and 64 at both widths
+     (20, 64, 384), (5, 16, 384), (3, 64, 256), (1, 1, 384), (9, 32, 256)],
+)
 def test_k2_cuda_matches_plain(cuda_device, b, l, c):
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
