@@ -24,10 +24,12 @@
 //   that divides D, with the matching 128B / 64B / 32B swizzle), so no column
 //   of another head is read and no box is partial. S = Q K^T runs on wgmma
 //   with both operands in shared memory (D / 16 k-steps); the online softmax
-//   runs in f32 registers in the log2 domain; O += P V runs on wgmma with P
-//   from registers and V as an MN-major operand of N = D. The key tail is
-//   masked in registers. Each consumer warp releases a stage after its
-//   products have read it.
+//   runs in f32 registers in the log2 domain, overlapped with the products;
+//   O += P V runs on wgmma with P from registers and V as an MN-major
+//   operand of N = D. The softmax is the ALU's work between the products,
+//   so it is kept short: only the last key tile is masked, and the scale is
+//   folded into one FMA per exponent. Each consumer warp releases a stage
+//   after its products have read it.
 // - short query (Lq < 64), the mma.sync design: one CTA of 4 warps per
 //   (batch, head, 64 queries), each warp 16 query rows, K and V in 64-key
 //   tiles through a two-stage cp.async ring, QK^T and PV on mma.sync.
@@ -331,25 +333,31 @@ __global__ void __launch_bounds__(kWgThreads, 1) attn_wgmma_kernel(
   wgmma_wait<0>();
   fence_regs(sacc);
   for (int t = 0; t < ntiles; ++t) {
-    // Online softmax of tile t in the log2 domain; masked keys get -inf.
+    // Online softmax of tile t in the log2 domain. Only the last tile can
+    // hold keys past Lk (they get -inf); the running maximum is kept in
+    // unscaled logits and the scale is folded into one FMA per exponent.
+    if ((t + 1) * kWgKeys > Lk) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = t * kWgKeys + (i >> 2) * 8 + t4 * 2 + (i & 1);
+        if (key >= Lk) sacc[i] = -INFINITY;
+      }
+    }
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int key = t * kWgKeys + (i >> 2) * 8 + t4 * 2 + (i & 1);
-      sacc[i] = key < Lk ? sacc[i] * scale_log2 : -INFINITY;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
-    }
-    float alpha[2];
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+    float alpha[2], msc[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = quad_max(mx[r]);
-      alpha[r] = exp2f(m_run[r] - mx[r]);
+      alpha[r] = exp2f((m_run[r] - mx[r]) * scale_log2);
       m_run[r] = mx[r];
+      msc[r] = mx[r] * scale_log2;
       l_run[r] *= alpha[r];
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      sacc[i] = exp2f(sacc[i] - m_run[(i >> 1) & 1]);
+      sacc[i] = exp2f(fmaf(sacc[i], scale_log2, -msc[(i >> 1) & 1]));
       l_run[(i >> 1) & 1] += sacc[i];
     }
 
