@@ -456,8 +456,8 @@ int launch(int regime, const bf16* q, const bf16* k, const bf16* v, bf16* o, int
 }  // namespace comet
 
 // Returns 0 on success, -1 for arguments the kernels do not take (head
-// dimension, or a plan that does not match a compiled regime), -2 if the
-// driver refuses a tensor map, else the CUDA error code of the launch.
+// dimension, or a plan that does not match a compiled regime), -2 if
+// cuTensorMapEncodeTiled refuses a tensor map, else the CUDA error code of the launch.
 // Strides are in elements; the output is a contiguous [B, Lq, H*D] tensor.
 // The plan (ops/attn.py::attention_plan): regime 0 is the short-query
 // mma.sync kernel (64 query rows per CTA, 64-key tiles), regime 1 the wgmma

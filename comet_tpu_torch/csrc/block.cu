@@ -473,7 +473,7 @@ int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* 
 
 // Returns 0 on success, -1 for arguments the kernel does not take (C, H, L,
 // hidden, or a plan other than 64 rows per CTA and 128-column hidden chunks:
-// ops/block.py::block_plan), -2 if the driver refuses a tensor map, else the
+// ops/block.py::block_plan), -2 if cuTensorMapEncodeTiled refuses a tensor map, else the
 // CUDA error code of the launch. x and out are contiguous [rows, C]; weights
 // are in the [out_features, in_features] layout: wqkv [3C, C], wout [C, C],
 // w1 [hidden, C], w2 [C, hidden].

@@ -296,7 +296,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver the process already runs on (no
+// cuTensorMapEncodeTiled from the libcuda the process has already loaded (no
 // link against libcuda).
 inline EncodeTiledFn encode_tiled_fn() {
   static EncodeTiledFn fn = [] {
@@ -310,7 +310,7 @@ inline EncodeTiledFn encode_tiled_fn() {
 // A bf16 tensor map of `rank` (2 or 3) dimensions, innermost first; strides
 // in bytes for dimensions 1.. (multiples of 16), box in elements, box[0] = W
 // and the swizzle span W * 2 bytes. Out-of-range elements load as zero.
-// Returns false if the driver refuses it.
+// Returns false if the encoding is refused.
 template <int W>
 inline bool make_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                             const cuuint64_t* strides, const cuuint32_t* box) {

@@ -124,6 +124,6 @@ def check_launch(rc: int, name: str) -> None:
     if rc == -1:
         raise ValueError(f"{name}: the kernel does not take these arguments")
     if rc == -2:
-        raise RuntimeError(f"{name}: the driver refused a TMA tensor map")
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a TMA tensor map")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
