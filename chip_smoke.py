@@ -17,10 +17,13 @@ Phases, each of which makes the script exit nonzero when it fails:
    PyTorch call computes the same function (``F.scaled_dot_product_attention``
    for K1 and K3, ``F.layer_norm`` for K5), that call's median device times
    over 25 runs, and the host time to issue one call of the kernel's wrapper
-   (and of the library call); then, for correctness only, K1 and K2 at edge
-   shapes of their tilings (Lq and Lk of 1, 63, 65, 129 and 577, packed qkv
-   slices at D 48 and 96; block rows not a multiple of 64, L 16 and 64 at
-   both widths) against the same plain f32 versions and tolerances;
+   (and of the library call), and for K2 where its first CTA spends its
+   cycles (``fused_attn_block(clocks=...)``); then, for correctness only, K1
+   and K2 at edge shapes of their tilings (Lq and Lk of 1, 63, 65, 129 and
+   577, packed qkv slices at D 48 and 96, keys and values expanded over the
+   batch; block rows not a multiple of 64, L 16 and 64 at both widths,
+   cluster splits of 2 to 8) against the same plain f32 versions and
+   tolerances;
 4. a reference check on small inputs: the full-width ``ours`` model's coarse
    and fine update-formers and its camera predictor, on the card in bf16
    (through the kernels) against the same weights in f32 on the CPU (plain
@@ -108,12 +111,15 @@ K5_SHAPES = [
     ("fine time blocks", 512 * 16, 256, False, 48),
 ]
 # correctness-only edge shapes of K1's and K2's tilings: K1 (B, Lq, Lk, C,
-# heads, packed qkv), packed meaning q, k, v are slices of one [B, L, 3C]
-# projection (Lq == Lk) or k, v of one [B, Lk, 2C]; K2 (B, L, C)
-K1_EDGE = ([(2, n, 577, 768, 8, False) for n in (1, 63, 65, 129, 577)]
-           + [(2, 577, n, 768, 8, True) for n in (1, 63, 65, 129)]
-           + [(3, 129, 129, 384, 8, True), (2, 65, 65, 768, 8, True), (4, 63, 63, 384, 8, True)])
-K2_EDGE = [(7, 16, 256), (20, 64, 384), (5, 16, 384), (3, 64, 256), (1, 1, 384), (9, 32, 256)]
+# heads, layout), the layout "packed" meaning q, k, v are slices of one
+# [B, L, 3C] projection (Lq == Lk) or k, v of one [B, Lk, 2C], "expanded"
+# that k and v are one [1, Lk, C] each, expanded over the batch; K2 (B, L, C)
+K1_EDGE = ([(2, n, 577, 768, 8, "plain") for n in (1, 63, 65, 129, 577)]
+           + [(2, 577, n, 768, 8, "packed") for n in (1, 63, 65, 129)]
+           + [(3, 129, 129, 384, 8, "packed"), (2, 65, 65, 768, 8, "packed"),
+              (4, 63, 63, 384, 8, "packed"), (4, 100, 577, 768, 8, "expanded")])
+K2_EDGE = [(7, 16, 256), (20, 64, 384), (5, 16, 384), (3, 64, 256), (1, 1, 384), (9, 32, 256),
+           (30, 64, 384), (40, 64, 384), (50, 64, 256)]
 PER_FORWARD = {
     "default": dict(K1=sum(s[-2] for s in K1_SHAPES), K2=sum(s[-1] for s in K2_SHAPES),
                     K3=0, K4=0, K5=0),  # K1 76, K2 72
@@ -250,6 +256,8 @@ def check_k2(torch, block, dev, gen):
         flops = rows_ * 2 * c * (3 * c + c + 2 * hid) + 4 * rows_ * l * c
         nbytes = 2 * (2 * rows_ * c + 4 * c * c + 2 * c * hid + 4 * c + hid + c)
         bound, bound_by = _bound_ms(flops, nbytes)
+        split = block.block_split(rows_, hid, torch.cuda.get_device_properties(dev).multi_processor_count)
+        _print_k2_cycles(torch, block, where, split, x, w, h, dev)
         rows.append(dict(kernel="K2", where=where, shape=[b, l, c, h, hid],
                          max_abs_err=err, tolerance=f"atol {K2_ATOL} + {K2_RTOL} |y|",
                          ms=ms, plain_ms=plain_ms, library_ms=None, host_us=host_us,
@@ -260,6 +268,26 @@ def check_k2(torch, block, dev, gen):
               f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by}) host us {host_us:.1f}",
               flush=True)
     return rows
+
+
+def _print_k2_cycles(torch, block, where, split, x, w, h, dev):
+    """One more launch of K2 that records where its first CTA spends its
+    cycles (clock64, from the CTA's start): per consumer warpgroup the ends
+    of its phases and its waits for weight tiles, and the producer's waits
+    for a free ring stage."""
+    clocks = torch.zeros(18, dtype=torch.int64, device=dev)
+    block.fused_attn_block(x, *w, h, clocks=clocks)
+    t = clocks.tolist()
+    names = ("ln1", "qkv+attention", "out-proj", "ln2", "MLP", "output")
+    for wg in range(2):
+        ends = t[8 * wg:8 * wg + 6]
+        spans = [b - a for a, b in zip([0] + ends[:-1], ends)]
+        print(f"K2 {where:32s} split {split}, CTA 0 warpgroup {wg}: cycles "
+              f"{', '.join(f'{n} {v}' for n, v in zip(names, spans))}; total {ends[-1]}, of "
+              f"which waiting for weight tiles {t[8 * wg + 6]} ({t[8 * wg + 6] / ends[-1]:.2f}) "
+              f"over {t[8 * wg + 7]} tiles", flush=True)
+    print(f"K2 {where:32s} split {split}, CTA 0 producer: waits for a free stage {t[16]} cycles, "
+          f"last tile issued at {t[17]}", flush=True)
 
 
 def check_k3(torch, F, attn, dev, gen):
@@ -385,20 +413,24 @@ def _k2_inputs(torch, gen, dev, b, l, c, hid):
 
 def check_edges(torch, attn, block, dev, gen):
     """K1 and K2 at the edge shapes of their tilings, correctness only."""
-    for b, lq, lk, c, h, packed in K1_EDGE:
+    for b, lq, lk, c, h, layout in K1_EDGE:
         d = c // h
-        if packed and lq == lk:
+        if layout == "packed" and lq == lk:
             q, k, v = torch.randn(b, lq, 3 * c, generator=gen, device=dev).bfloat16().split(c, -1)
         else:
             q = torch.randn(b, lq, c, generator=gen, device=dev).bfloat16()
-            kv = torch.randn(b, lk, 2 * c, generator=gen, device=dev).bfloat16()
-            k, v = kv.split(c, dim=-1) if packed else (kv[..., :c].contiguous(), kv[..., c:].contiguous())
+            kv = torch.randn(1 if layout == "expanded" else b, lk, 2 * c, generator=gen,
+                             device=dev).bfloat16()
+            k, v = kv[..., :c].contiguous(), kv[..., c:].contiguous()
+            if layout == "packed":
+                k, v = kv.split(c, dim=-1)
+            elif layout == "expanded":
+                k, v = k.expand(b, lk, c), v.expand(b, lk, c)
         out = attn.fused_attention(q, k, v, h)
         torch.cuda.synchronize()
         want = attn.attention_reference(q.float(), k.float(), v.float(), h, d ** -0.5)
         err = (out.float() - want).abs().max().item()
-        regime = attn.attention_plan(b, lq, lk, h).regime
-        print(f"K1 edge [B={b} Lq={lq} Lk={lk} C={c} H={h} packed={packed}] {regime}: err {err:.3e} "
+        print(f"K1 edge [B={b} Lq={lq} Lk={lk} C={c} H={h} {layout}]: err {err:.3e} "
               f"(atol {K1_ATOL})", flush=True)
         if out.shape != (b, lq, c) or not math.isfinite(err) or err > K1_ATOL:
             raise SmokeError(f"K1 edge {(b, lq, lk, c, h)}: max |kernel - plain f32| = {err} > {K1_ATOL}")
@@ -408,7 +440,8 @@ def check_edges(torch, attn, block, dev, gen):
         torch.cuda.synchronize()
         want = block.block_reference(x.float(), *(t.float() for t in w), 8)
         excess = ((out.float() - want).abs() - K2_RTOL * want.abs()).max().item()
-        print(f"K2 edge [B={b} L={l} C={c}]: err {(out.float() - want).abs().max().item():.3e}, "
+        split = block.block_split(b * l, 4 * c, torch.cuda.get_device_properties(dev).multi_processor_count)
+        print(f"K2 edge [B={b} L={l} C={c}] split {split}: err {(out.float() - want).abs().max().item():.3e}, "
               f"excess over {K2_ATOL} + {K2_RTOL:.4f}|y| {excess:.3e}", flush=True)
         if out.shape != x.shape or not math.isfinite(excess) or excess > K2_ATOL:
             raise SmokeError(f"K2 edge {(b, l, c)}: exceeds {K2_ATOL} + {K2_RTOL}|y| by {excess}")
@@ -565,7 +598,7 @@ def main_path(torch, cfg, model, models, geom, counters, route_name, dev, n_requ
 
 
 # the port's kernel names in the profiler's table (namespace comet::), by kernel
-PROFILE_KEYS = dict(K1=("attn_fwd_kernel", "attn_wgmma_kernel"), K2=("attn_block_kernel",),
+PROFILE_KEYS = dict(K1=("attn_fwd_kernel",), K2=("attn_block_kernel",),
                     K3=("short_attn_kernel",), K4=("cross_kv_kernel", "cross_block_kernel"),
                     K5=("layer_norm_kernel",))
 

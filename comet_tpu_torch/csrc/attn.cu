@@ -12,27 +12,24 @@
 // bytes of Q and O, so the work is bound by tensor-core operations; the short
 // calls (trunk, trajectory cross) by launch and memory latency.
 //
-// Two regimes, chosen by shape in ops/attn.py::attention_plan and passed in:
-//
-// - wgmma (Lq >= 64), a FlashAttention-3-style forward. A CTA takes 128 query
-//   rows of one (batch, head): two consumer warpgroups of 64 rows each and one
-//   producer warp. The producer brings Q once and then K and V tiles of 64
-//   keys into a 4-stage mbarrier ring by TMA, from tensor maps over the
-//   strided [B, L, C] layout (a column slice of a packed projection is a base
-//   pointer and a row stride; rows past Lq or Lk load as zeros). A head of D
-//   columns is read as D / W boxes of W columns (W = 64, 32 or 16, the widest
-//   that divides D, with the matching 128B / 64B / 32B swizzle), so no column
-//   of another head is read and no box is partial. S = Q K^T runs on wgmma
-//   with both operands in shared memory (D / 16 k-steps); the online softmax
-//   runs in f32 registers in the log2 domain, overlapped with the products;
-//   O += P V runs on wgmma with P from registers and V as an MN-major
-//   operand of N = D. The softmax is the ALU's work between the products,
-//   so it is kept short: only the last key tile is masked, and the scale is
-//   folded into one FMA per exponent. Each consumer warp releases a stage
-//   after its products have read it.
-// - short query (Lq < 64), the mma.sync design: one CTA of 4 warps per
-//   (batch, head, 64 queries), each warp 16 query rows, K and V in 64-key
-//   tiles through a two-stage cp.async ring, QK^T and PV on mma.sync.
+// The design, a FlashAttention-3-style forward for every shape. A CTA takes
+// 128 query rows of one (batch, head): two consumer warpgroups of 64 rows
+// each and one producer warp; a warpgroup whose 64 rows all lie past Lq
+// (Lq <= 64, or a last query tile of <= 64 rows) leaves at once and the ring
+// waits only for the other. The producer brings Q once and then K and V
+// tiles of 64 keys into a 4-stage mbarrier ring by TMA, from tensor maps
+// over the strided [B, L, C] layout (a column slice of a packed projection
+// is a base pointer and a row stride; rows past Lq or Lk load as zeros). A
+// head of D columns is read as D / W boxes of W columns (W = 64, 32 or 16,
+// the widest that divides D, with the matching 128B / 64B / 32B swizzle), so
+// no column of another head is read and no box is partial. S = Q K^T runs on
+// wgmma with both operands in shared memory (D / 16 k-steps); the online
+// softmax runs in f32 registers in the log2 domain, overlapped with the
+// products; O += P V runs on wgmma with P from registers and V as an
+// MN-major operand of N = D. The softmax is the ALU's work between the
+// products, so it is kept short: only the last key tile is masked, and the
+// scale is folded into one FMA per exponent. Each consumer warp releases a
+// stage after its products have read it.
 #include <cmath>
 
 #include "hopper.cuh"
@@ -40,202 +37,20 @@
 namespace comet {
 namespace {
 
-// ---- short-query regime (mma.sync) -----------------------------------------
-
-constexpr int kBQ = 64;       // query rows per CTA
-constexpr int kBK = 64;       // keys per tile
-constexpr int kThreads = 128;  // 4 warps x 16 query rows
-
-template <int D>
-constexpr int attn_smem_bytes() {
-  return (kBQ + 4 * kBK) * (D + 8) * static_cast<int>(sizeof(bf16));
-}
+constexpr int kRows = 128;     // query rows per CTA: 2 consumer warpgroups x 64
+constexpr int kKeys = 64;      // keys per tile
+constexpr int kStages = 4;     // K/V ring depth
+constexpr int kThreads = 288;  // 2 consumer warpgroups + 1 producer warp
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int Lq, int Lk, int C, long long q_bs, long long q_rs,
-    long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale_log2) {
-  constexpr int LDS = D + 8;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  constexpr int KS = D / 16;  // k16 steps over the head dimension
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBQ * LDS;  // [2][kBK][LDS]
-  bf16* sV = sK + 2 * kBK * LDS;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* qg = q + b * q_bs + h * D;
-  const bf16* kg = k + b * k_bs + h * D;
-  const bf16* vg = v + b * v_bs + h * D;
-  const int q0 = qt * kBQ;
-  const int ntiles = (Lk + kBK - 1) / kBK;
-
-  for (int i = tid; i < kBQ * CPR; i += kThreads) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = q0 + r < Lq;
-    cp_async16(sQ + r * LDS + c, qg + (ok ? (long long)(q0 + r) * q_rs : 0) + c, ok);
-  }
-  auto load_kv = [&](int tile, int stage) {
-    bf16* dk = sK + stage * kBK * LDS;
-    bf16* dv = sV + stage * kBK * LDS;
-    for (int i = tid; i < kBK * CPR; i += kThreads) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const int key = tile * kBK + r;
-      const bool ok = key < Lk;
-      cp_async16(dk + r * LDS + c, kg + (ok ? (long long)key * k_rs : 0) + c, ok);
-      cp_async16(dv + r * LDS + c, vg + (ok ? (long long)key * v_rs : 0) + c, ok);
-    }
-  };
-  load_kv(0, 0);
-  cp_async_commit();
-
-  uint32_t qf[KS][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      load_kv(t + 1, (t + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
-    }
-    const bf16* cK = sK + (t & 1) * kBK * LDS;
-    const bf16* cV = sV + (t & 1) * kBK * LDS;
-
-    // S = Q K^T for this warp's 16 rows against 64 keys (8 tiles of 8).
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, cK + (p * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * p], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * p + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
-
-    // Online softmax in the log2 domain; masked keys get -inf.
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t * kBK + j * 8 + (lane & 3) * 2 + (e & 1);
-        s[j][e] = key < Lk ? s[j][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m_run[e >> 1]);
-        l_run[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V; P is reused from the S accumulators as A fragments.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const float inv0 = 1.f / quad_sum(l_run[0]);
-  const float inv1 = 1.f / quad_sum(l_run[1]);
-  const int r0 = q0 + warp * 16 + (lane >> 2);
-  bf16* og = o + (long long)b * Lq * C + h * D + (lane & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (r0 < Lq)
-      *reinterpret_cast<__nv_bfloat162*>(og + (long long)r0 * C + j * 8) =
-          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
-    if (r0 + 8 < Lq)
-      *reinterpret_cast<__nv_bfloat162*>(og + (long long)(r0 + 8) * C + j * 8) =
-          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
-  }
-}
-
-template <int D>
-int launch_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Lq,
-                int Lk, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                long long v_bs, long long v_rs, float scale, cudaStream_t stream) {
-  constexpr int smem = attn_smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  attn_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, Lq, Lk, H * D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-      scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- wgmma regime (TMA, mbarrier ring, warp-specialized) --------------------
-
-constexpr int kWgRows = 128;     // query rows per CTA: 2 consumer warpgroups x 64
-constexpr int kWgKeys = 64;      // keys per tile
-constexpr int kWgStages = 4;     // K/V ring depth
-constexpr int kWgThreads = 288;  // 2 consumer warpgroups + 1 producer warp
-
-template <int D>
-struct WgAttn {
+struct AttnTiles {
   static constexpr int W = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);  // box columns
   static constexpr int NCH = D / W;                                      // boxes per head
-  static constexpr int q_bytes = kWgRows * D * 2;
-  static constexpr int kv_bytes = kWgKeys * D * 2;  // one of K or V in one stage
-  static constexpr int bar_offset = q_bytes + 2 * kWgStages * kv_bytes;
+  static constexpr int q_bytes = kRows * D * 2;
+  static constexpr int kv_bytes = kKeys * D * 2;  // one of K or V in one stage
+  static constexpr int bar_offset = q_bytes + 2 * kStages * kv_bytes;
   // 1024 bytes of slack to align the tiles, then the barriers
-  static constexpr int smem = 1024 + bar_offset + (1 + 2 * kWgStages) * 8;
+  static constexpr int smem = 1024 + bar_offset + (1 + 2 * kStages) * 8;
 };
 
 template <int N>
@@ -247,32 +62,33 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1) attn_wgmma_kernel(
+__global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, int Lq, int Lk, int C,
     float scale_log2) {
-  using P = WgAttn<D>;
-  constexpr int W = P::W, NCH = P::NCH, S = kWgStages;
+  using P = AttnTiles<D>;
+  constexpr int W = P::W, NCH = P::NCH, S = kStages;
   constexpr uint32_t SBO = 8 * W * 2;  // bytes between 8-row groups of a box
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  bf16* sQ = reinterpret_cast<bf16*>(base);                // [NCH][kWgRows][W]
-  bf16* sK = reinterpret_cast<bf16*>(base + P::q_bytes);   // [S][NCH][kWgKeys][W]
-  bf16* sV = sK + S * kWgKeys * D;                         // [S][NCH][kWgKeys][W]
+  bf16* sQ = reinterpret_cast<bf16*>(base);                // [NCH][kRows][W]
+  bf16* sK = reinterpret_cast<bf16*>(base + P::q_bytes);   // [S][NCH][kKeys][W]
+  bf16* sV = sK + S * kKeys * D;                         // [S][NCH][kKeys][W]
   uint64_t* qbar = reinterpret_cast<uint64_t*>(base + P::bar_offset);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + S;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kWgRows;
-  const int ntiles = (Lk + kWgKeys - 1) / kWgKeys;
+  const int q0 = blockIdx.x * kRows;
+  const int ntiles = (Lk + kKeys - 1) / kKeys;
+  const int nwg = Lq - q0 > 64 ? 2 : 1;  // consumer warpgroups with a query row
   if (tid == 0) {
     mbar_init(qbar, 1);
     for (int s = 0; s < S; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, 8);  // one arrival per consumer warp
+      mbar_init(empty + s, 4 * nwg);  // one arrival per working consumer warp
     }
     mbar_init_fence();
   }
@@ -282,16 +98,16 @@ __global__ void __launch_bounds__(kWgThreads, 1) attn_wgmma_kernel(
     if (lane == 0) {
       mbar_expect_tx(qbar, P::q_bytes);
       for (int ch = 0; ch < NCH; ++ch)
-        tma_load_3d(sQ + ch * kWgRows * W, &mq, qbar, h * D + ch * W, q0, b);
+        tma_load_3d(sQ + ch * kRows * W, &mq, qbar, h * D + ch * W, q0, b);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % S;
         if (t >= S) mbar_wait(empty + s, ((t / S) - 1) & 1);
         mbar_expect_tx(full + s, 2 * P::kv_bytes);
-        bf16* dk = sK + s * kWgKeys * D;
-        bf16* dv = sV + s * kWgKeys * D;
+        bf16* dk = sK + s * kKeys * D;
+        bf16* dv = sV + s * kKeys * D;
         for (int ch = 0; ch < NCH; ++ch) {
-          tma_load_3d(dk + ch * kWgKeys * W, &mk, full + s, h * D + ch * W, t * kWgKeys, b);
-          tma_load_3d(dv + ch * kWgKeys * W, &mv, full + s, h * D + ch * W, t * kWgKeys, b);
+          tma_load_3d(dk + ch * kKeys * W, &mk, full + s, h * D + ch * W, t * kKeys, b);
+          tma_load_3d(dv + ch * kKeys * W, &mv, full + s, h * D + ch * W, t * kKeys, b);
         }
       }
     }
@@ -300,6 +116,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) attn_wgmma_kernel(
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
   const int wg = warp >> 2;
+  if (wg >= nwg) return;
   const int t4 = lane & 3;
   float oacc[D / 2];
 #pragma unroll
@@ -314,13 +131,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) attn_wgmma_kernel(
   auto issue_s = [&](int t) {
     const int s = t % S;
     mbar_wait(full + s, (t / S) & 1);
-    const bf16* cK = sK + s * kWgKeys * D;
+    const bf16* cK = sK + s * kKeys * D;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int ch = kk * 16 / W, off = kk * 16 % W;
-      wgmma_ss_n64(sacc, make_desc<W>(qw + ch * kWgRows * W + off, 16, SBO),
-                   make_desc<W>(cK + ch * kWgKeys * W + off, 16, SBO), kk > 0);
+      wgmma_ss_n64(sacc, make_desc<W>(qw + ch * kRows * W + off, 16, SBO),
+                   make_desc<W>(cK + ch * kKeys * W + off, 16, SBO), kk > 0);
     }
     wgmma_commit();
   };
@@ -336,10 +153,10 @@ __global__ void __launch_bounds__(kWgThreads, 1) attn_wgmma_kernel(
     // Online softmax of tile t in the log2 domain. Only the last tile can
     // hold keys past Lk (they get -inf); the running maximum is kept in
     // unscaled logits and the scale is folded into one FMA per exponent.
-    if ((t + 1) * kWgKeys > Lk) {
+    if ((t + 1) * kKeys > Lk) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        const int key = t * kWgKeys + (i >> 2) * 8 + t4 * 2 + (i & 1);
+        const int key = t * kKeys + (i >> 2) * 8 + t4 * 2 + (i & 1);
         if (key >= Lk) sacc[i] = -INFINITY;
       }
     }
@@ -377,11 +194,11 @@ __global__ void __launch_bounds__(kWgThreads, 1) attn_wgmma_kernel(
     if (t + 1 < ntiles) issue_s(t + 1);
     // O += P V: P from registers (the S layout is the A fragment layout),
     // V MN-major: N = D over NCH boxes, k-steps of 16 keys.
-    const bf16* cV = sV + (t % S) * kWgKeys * D;
+    const bf16* cV = sV + (t % S) * kKeys * D;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(oacc, pa[kk], make_desc<W>(cV + kk * 16 * W, kWgKeys * W * 2, SBO));
+      wgmma_pv<D>(oacc, pa[kk], make_desc<W>(cV + kk * 16 * W, kKeys * W * 2, SBO));
     wgmma_commit();
     wgmma_wait<1>();  // S of tile t + 1 (committed first) is done
     fence_regs(sacc);
@@ -405,7 +222,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) attn_wgmma_kernel(
 }
 
 // The tensor map of one operand: dims (C, L, B), rows of `rows` by W columns.
-// A size-1 dimension reports stride 0; any valid stride serves it.
+// A size-1 dimension may report stride 0; any valid stride serves it.
 template <int W>
 bool operand_map(CUtensorMap* map, const bf16* p, int B, int L, int C, long long bs,
                  long long rs, int rows) {
@@ -419,58 +236,47 @@ bool operand_map(CUtensorMap* map, const bf16* p, int B, int L, int C, long long
 }
 
 template <int D>
-int launch_attn_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Lq,
-                      int Lk, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                      long long v_bs, long long v_rs, float scale, cudaStream_t stream) {
-  using P = WgAttn<D>;
+int launch_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Lq,
+                int Lk, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+                long long v_bs, long long v_rs, float scale, cudaStream_t stream) {
+  using P = AttnTiles<D>;
   const int C = H * D;
+  // a stride of 0 on a dimension longer than 1 (an expanded tensor) would
+  // make the tensor map step past the allocation
+  if ((q_rs == 0 && Lq > 1) || ((k_rs == 0 || v_rs == 0) && Lk > 1) ||
+      ((q_bs == 0 || k_bs == 0 || v_bs == 0) && B > 1))
+    return -1;
   CUtensorMap mq, mk, mv;
-  if (!operand_map<P::W>(&mq, q, B, Lq, C, q_bs, q_rs, kWgRows) ||
-      !operand_map<P::W>(&mk, k, B, Lk, C, k_bs, k_rs, kWgKeys) ||
-      !operand_map<P::W>(&mv, v, B, Lk, C, v_bs, v_rs, kWgKeys))
+  if (!operand_map<P::W>(&mq, q, B, Lq, C, q_bs, q_rs, kRows) ||
+      !operand_map<P::W>(&mk, k, B, Lk, C, k_bs, k_rs, kKeys) ||
+      !operand_map<P::W>(&mv, v, B, Lk, C, v_bs, v_rs, kKeys))
     return -2;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
+        attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((Lq + kWgRows - 1) / kWgRows, H, B);
-  attn_wgmma_kernel<D><<<grid, kWgThreads, P::smem, stream>>>(mq, mk, mv, o, Lq, Lk, C,
-                                                               scale * 1.4426950408889634f);
+  const dim3 grid((Lq + kRows - 1) / kRows, H, B);
+  attn_fwd_kernel<D><<<grid, kThreads, P::smem, stream>>>(mq, mk, mv, o, Lq, Lk, C,
+                                                           scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch(int regime, const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Lq,
-           int Lk, long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-           long long v_rs, float scale, cudaStream_t s) {
-  if (regime == 1)
-    return launch_attn_wgmma<D>(q, k, v, o, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-                                scale, s);
-  return launch_attn<D>(q, k, v, o, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, s);
 }
 
 }  // namespace
 }  // namespace comet
 
-// Returns 0 on success, -1 for arguments the kernels do not take (head
-// dimension, or a plan that does not match a compiled regime), -2 if
-// cuTensorMapEncodeTiled refuses a tensor map, else the CUDA error code of the launch.
-// Strides are in elements; the output is a contiguous [B, Lq, H*D] tensor.
-// The plan (ops/attn.py::attention_plan): regime 0 is the short-query
-// mma.sync kernel (64 query rows per CTA, 64-key tiles), regime 1 the wgmma
-// kernel (128 query rows per CTA, 64-key tiles).
+// Returns 0 on success, -1 for arguments the kernel does not take (a head
+// dimension, or stride 0 on a dimension longer than 1: an expanded tensor),
+// -2 if cuTensorMapEncodeTiled refuses a tensor map, else the CUDA error code
+// of the launch. Strides are in elements; a dimension of size 1 may report
+// stride 0. The output is a contiguous [B, Lq, H*D] tensor.
 extern "C" int comet_attn_fwd(const void* q, const void* k, const void* v, void* o, int B,
                               int H, int D, int Lq, int Lk, long long q_bs, long long q_rs,
                               long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-                              float scale, int regime, int rows_per_cta, int key_tile,
-                              void* stream) {
+                              float scale, void* stream) {
   using comet::bf16;
-  if (!((regime == 0 && rows_per_cta == comet::kBQ && key_tile == comet::kBK) ||
-        (regime == 1 && rows_per_cta == comet::kWgRows && key_tile == comet::kWgKeys)))
-    return -1;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
@@ -478,17 +284,17 @@ extern "C" int comet_attn_fwd(const void* q, const void* k, const void* v, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return comet::launch<32>(regime, qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs,
-                               v_bs, v_rs, scale, s);
+      return comet::launch_attn<32>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs,
+                                    v_rs, scale, s);
     case 48:
-      return comet::launch<48>(regime, qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs,
-                               v_bs, v_rs, scale, s);
+      return comet::launch_attn<48>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs,
+                                    v_rs, scale, s);
     case 64:
-      return comet::launch<64>(regime, qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs,
-                               v_bs, v_rs, scale, s);
+      return comet::launch_attn<64>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs,
+                                    v_rs, scale, s);
     case 96:
-      return comet::launch<96>(regime, qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs,
-                               v_bs, v_rs, scale, s);
+      return comet::launch_attn<96>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs,
+                                    v_rs, scale, s);
     default:
       return -1;
   }

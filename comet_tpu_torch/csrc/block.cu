@@ -34,6 +34,16 @@
 // hidden chunk (N = 64); the fc2 accumulators stay in registers across
 // chunks. Attention within the block is
 // < 3 % of its FLOPs and stays on mma.sync, one warp per 16 query rows.
+//
+// Where too few 64-row tiles exist to fill the card (the coarse virtual
+// blocks: 16 tiles for 132 SMs), a cluster of `split` CTAs shares each tile
+// (ops/block.py::block_split): every CTA of the cluster runs the block up to
+// ln2(x1), then only the hidden chunks c with c % split == its rank; the
+// CTAs' f32 fc2 partial sums meet in distributed shared memory, where each
+// CTA adds up one slice of the tile (in rank order) and writes its output.
+//
+// Measurement: given a `clocks` buffer, CTA 0 records where its time goes
+// (clock64 cycles; see comet_attn_block_fwd).
 #include <cmath>
 
 #include "block_common.cuh"
@@ -72,6 +82,9 @@ struct BlockPlan {
   static constexpr int ring_offset = 2 * x_bytes + u_bytes;
   static constexpr int bar_offset = ring_offset + kBlkStages * stage_bytes;
   static constexpr int smem = 1024 + bar_offset + 2 * kBlkStages * 8;
+  // the f32 fc2 partial sums of a split tile, [64][LDR], over sU and the ring
+  static constexpr int LDR = C + 8;
+  static_assert(kBlkRows * LDR * 4 <= u_bytes + kBlkStages * stage_bytes, "partials fit");
 };
 
 template <int N>
@@ -128,7 +141,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     const __grid_constant__ CUtensorMap m_w1, const __grid_constant__ CUtensorMap m_w2,
     const bf16* __restrict__ x, const bf16* __restrict__ bqkv, const bf16* __restrict__ bout,
     const bf16* __restrict__ b1, const bf16* __restrict__ b2, bf16* __restrict__ out, int rows,
-    int L, int hidden, float scale) {
+    int L, int hidden, float scale, int split, long long* __restrict__ clocks) {
   using P = BlockPlan<C>;
   constexpr int D = P::D, NQKV = P::NQKV, NQ = P::NQ, LDQ = P::LDQ, S = kBlkStages;
   constexpr int KT = C / 64;  // k-tiles of a product over C
@@ -143,8 +156,10 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   uint64_t* empty = full + S;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * kBlkRows;
+  const int rank = blockIdx.x % split;  // rank in the cluster that shares the tile
+  const int row0 = blockIdx.x / split * kBlkRows;
   const int nchunks = hidden / kHid;
+  const bool timed = clocks != nullptr && blockIdx.x == 0;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full + s, 1);
@@ -153,14 +168,20 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     mbar_init_fence();
   }
   __syncthreads();
+  const long long t_start = clock64();
 
   if (warp >= 8) {  // producer: one thread issues every weight tile, in the consumers' order
     setmaxnreg_dec<40>();
     if (warp == 8 && lane == 0) {
       int i = 0;
+      long long waited = 0;  // cycles spent waiting for a free stage
       auto acquire = [&](uint32_t bytes) {
         const int s = i % S;
-        if (i >= S) mbar_wait(empty + s, ((i / S) - 1) & 1);
+        if (i >= S) {
+          const long long t0 = timed ? clock64() : 0;
+          mbar_wait(empty + s, ((i / S) - 1) & 1);
+          if (timed) waited += clock64() - t0;
+        }
         mbar_expect_tx(full + s, bytes);
         return s;
       };
@@ -179,7 +200,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
             tma_load_2d(ring + s * (P::stage_bytes / 2), &m_out, full + s, kt * 64,
                         w * (C / 2) + q * NQ);
           }
-      for (int c = 0; c < nchunks; ++c) {
+      for (int c = rank; c < nchunks; c += split) {
         for (int kt = 0; kt < KT; ++kt)
           for (int w = 0; w < 2; ++w, ++i) {
             const int s = acquire(kHid / 2 * 128);
@@ -194,6 +215,14 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
                           w * (C / 2) + q * NQ);
             }
       }
+      if (timed) {
+        clocks[16] = waited;
+        clocks[17] = clock64() - t_start;
+      }
+    }
+    if (split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
     }
     return;
   }
@@ -204,9 +233,16 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   const int w = warp >> 2, lw = warp & 3;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   int taken = 0;  // ring tiles this warpgroup has taken; tile i belongs to i % 2
+  long long waited = 0;  // cycles spent waiting for a weight tile
+  const bool stamps = timed && tid % 128 == 0;
+  auto stamp = [&](int at) {
+    if (stamps) clocks[8 * w + at] = clock64() - t_start;
+  };
   auto take = [&]() -> const bf16* {
     const int i = 2 * taken + w;
+    const long long t0 = timed ? clock64() : 0;
     mbar_wait(full + i % S, (i / S) & 1);
+    if (timed) waited += clock64() - t0;
     return ring + (i % S) * (P::stage_bytes / 2);
   };
   auto release = [&]() {
@@ -222,6 +258,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
       sX);
   fence_proxy_async();
   named_barrier(1, 256);
+  stamp(0);
 
   // qkv and attention, warpgroup w on head 2p + w
   bf16* sQ = sU + w * 3 * kBlkRows * LDQ;
@@ -335,6 +372,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   }
   fence_proxy_async();
   named_barrier(1, 256);
+  stamp(1);
 
   // x1 = ln1(x) + (round(a Wout^T) + bout), in place in sX; warpgroup w
   // computes output columns w C/2 .. + C/2 in two passes of NQ.
@@ -363,11 +401,13 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     }
   }
   named_barrier(1, 256);
+  stamp(2);
 
   // ln2(x1) -> sA
   layer_norm_swizzled<C>([&](int r, int col) { return __bfloat162float(sX[swz(r, col)]); }, sA);
   fence_proxy_async();
   named_barrier(1, 256);
+  stamp(3);
 
   // MLP over hidden chunks of kHid; fc2 accumulates in registers across chunks.
   float acc2[2][NQ / 2];
@@ -376,7 +416,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
 #pragma unroll
     for (int i = 0; i < NQ / 2; ++i) acc2[q][i] = 0.f;
   }
-  for (int c = 0; c < nchunks; ++c) {
+  for (int c = rank; c < nchunks; c += split) {
     bf16* sH = sU;  // [kHid / 64 k-tiles][64][64], swizzled
     {
       float acc1[kHid / 4];
@@ -386,7 +426,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
         ktile_product<kHid / 2>(acc1, sA + kt * kTile, take());
         release();
       }
-      if (c > 0) named_barrier(1, 256);  // both warpgroups' fc2 is done with sH
+      if (c > rank) named_barrier(1, 256);  // both warpgroups' fc2 is done with sH
 #pragma unroll
       for (int j = 0; j < kHid / 16; ++j) {
         const int n = w * (kHid / 2) + j * 8 + t2;  // column within the chunk
@@ -414,25 +454,76 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     }
   }
 
+  stamp(4);
+
   // out = x1 + (round(h W2^T) + b2)
+  if (split == 1) {
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < 2; ++q) {
 #pragma unroll
-    for (int j = 0; j < NQ / 8; ++j) {
-      const int n = w * (C / 2) + q * NQ + j * 8 + t2;
-      const float bb0 = __bfloat162float(b2[n]), bb1 = __bfloat162float(b2[n + 1]);
+      for (int j = 0; j < NQ / 8; ++j) {
+        const int n = w * (C / 2) + q * NQ + j * 8 + t2;
+        const float bb0 = __bfloat162float(b2[n]), bb1 = __bfloat162float(b2[n + 1]);
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = lw * 16 + g + hr * 8;
-        if (row0 + r < rows) {
-          const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sX + swz(r, n)));
-          const float y0 = round_bf16(round_bf16(acc2[q][4 * j + 2 * hr]) + bb0);
-          const float y1 = round_bf16(round_bf16(acc2[q][4 * j + 2 * hr + 1]) + bb1);
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row0 + r) * C + n) =
-              __floats2bfloat162_rn(x1.x + y0, x1.y + y1);
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = lw * 16 + g + hr * 8;
+          if (row0 + r < rows) {
+            const float2 x1 =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sX + swz(r, n)));
+            const float y0 = round_bf16(round_bf16(acc2[q][4 * j + 2 * hr]) + bb0);
+            const float y1 = round_bf16(round_bf16(acc2[q][4 * j + 2 * hr + 1]) + bb1);
+            *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row0 + r) * C + n) =
+                __floats2bfloat162_rn(x1.x + y0, x1.y + y1);
+          }
         }
       }
     }
+  } else {
+    // The partial sums go to shared memory (sU and the ring are free once
+    // both warpgroups are past their last product); after the cluster
+    // barrier each CTA adds up one slice of the tile's column pairs over
+    // the cluster, in rank order.
+    named_barrier(1, 256);
+    float* red = reinterpret_cast<float*>(sU);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j) {
+        const int n = w * (C / 2) + q * NQ + j * 8 + t2;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = lw * 16 + g + hr * 8;
+          *reinterpret_cast<float2*>(red + r * P::LDR + n) =
+              make_float2(acc2[q][4 * j + 2 * hr], acc2[q][4 * j + 2 * hr + 1]);
+        }
+      }
+    }
+    cluster_sync();
+    constexpr int kPairs = kBlkRows * C / 2;
+    const int per = (kPairs + split - 1) / split;
+    const int stop = min(kPairs, (rank + 1) * per);
+    for (int pr = rank * per + tid; pr < stop; pr += 256) {
+      const int r = pr / (C / 2), n = pr % (C / 2) * 2;
+      float2 sum = make_float2(0.f, 0.f);
+      for (int j = 0; j < split; ++j) {
+        const float2 v = ld_cluster_f2(red + r * P::LDR + n, j);
+        sum.x += v.x;
+        sum.y += v.y;
+      }
+      if (row0 + r < rows) {
+        const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sX + swz(r, n)));
+        const float y0 = round_bf16(round_bf16(sum.x) + __bfloat162float(b2[n]));
+        const float y1 = round_bf16(round_bf16(sum.y) + __bfloat162float(b2[n + 1]));
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row0 + r) * C + n) =
+            __floats2bfloat162_rn(x1.x + y0, x1.y + y1);
+      }
+    }
+    cluster_sync();  // no CTA leaves while another still reads its partials
+  }
+  stamp(5);
+  if (stamps) {
+    clocks[8 * w + 6] = waited;
+    clocks[8 * w + 7] = taken;
   }
 }
 
@@ -448,7 +539,8 @@ bool weight_map(CUtensorMap* map, const bf16* w, int rows_, int cols, int box_ro
 template <int C>
 int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* wout,
                  const bf16* bout, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
-                 bf16* out, int rows, int L, int hidden, cudaStream_t stream) {
+                 bf16* out, int rows, int L, int hidden, int split, long long* clocks,
+                 cudaStream_t stream) {
   using P = BlockPlan<C>;
   CUtensorMap m_qkv, m_out, m_w1, m_w2;
   if (!weight_map(&m_qkv, wqkv, 3 * C, C, P::D) || !weight_map(&m_out, wout, C, C, P::NQ) ||
@@ -461,30 +553,47 @@ int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* 
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int grid = (rows + kBlkRows - 1) / kBlkRows;
-  attn_block_kernel<C><<<grid, kBlkThreads, P::smem, stream>>>(
-      m_qkv, m_out, m_w1, m_w2, x, bqkv, bout, b1, b2, out, rows, L, hidden,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(P::D))));
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = split;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((rows + kBlkRows - 1) / kBlkRows * split);
+  cfg.blockDim = dim3(kBlkThreads);
+  cfg.dynamicSmemBytes = P::smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(P::D)));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, attn_block_kernel<C>, m_qkv, m_out, m_w1, m_w2,
+                                             x, bqkv, bout, b1, b2, out, rows, L, hidden, scale,
+                                             split, clocks));
 }
 
 }  // namespace
 }  // namespace comet
 
 // Returns 0 on success, -1 for arguments the kernel does not take (C, H, L,
-// hidden, or a plan other than 64 rows per CTA and 128-column hidden chunks:
-// ops/block.py::block_plan), -2 if cuTensorMapEncodeTiled refuses a tensor map, else the
-// CUDA error code of the launch. x and out are contiguous [rows, C]; weights
-// are in the [out_features, in_features] layout: wqkv [3C, C], wout [C, C],
-// w1 [hidden, C], w2 [C, hidden].
+// hidden, or a split that is not 1..8 or does not divide the hidden
+// chunks), -2 if cuTensorMapEncodeTiled refuses a tensor map, else the CUDA
+// error code of the launch. x and out are contiguous [rows, C]; weights are
+// in the [out_features, in_features] layout: wqkv [3C, C], wout [C, C], w1
+// [hidden, C], w2 [C, hidden]. `split` CTAs share each 64-row tile
+// (ops/block.py::block_split). `clocks` is null, or 18 int64 that receive
+// CTA 0's clock64 cycles since its start: for consumer warpgroup w at 8 w +
+// 0..5 the ends of ln1, qkv and attention, the out-projection, ln2, the MLP
+// and the output, at 8 w + 6 the cycles it waited for weight tiles and at
+// 8 w + 7 the tiles it took; at 16 the producer's cycles waiting for a free
+// stage and at 17 the end of its last issue.
 extern "C" int comet_attn_block_fwd(const void* x, const void* wqkv, const void* bqkv,
                                     const void* wout, const void* bout, const void* w1,
                                     const void* b1, const void* w2, const void* b2, void* out,
-                                    int rows, int L, int C, int H, int hidden, int rows_per_cta,
-                                    int hidden_chunk, void* stream) {
+                                    int rows, int L, int C, int H, int hidden, int split,
+                                    void* clocks, void* stream) {
   using comet::bf16;
-  if (L < 1 || comet::kBlkRows % L != 0 || hidden % comet::kHid != 0 ||
-      rows_per_cta != comet::kBlkRows || hidden_chunk != comet::kHid)
+  if (L < 1 || comet::kBlkRows % L != 0 || hidden % comet::kHid != 0 || split < 1 || split > 8 ||
+      (hidden / comet::kHid) % split != 0)
     return -1;
   const bf16* a[9] = {static_cast<const bf16*>(x),    static_cast<const bf16*>(wqkv),
                       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wout),
@@ -492,12 +601,13 @@ extern "C" int comet_attn_block_fwd(const void* x, const void* wqkv, const void*
                       static_cast<const bf16*>(b1),   static_cast<const bf16*>(w2),
                       static_cast<const bf16*>(b2)};
   bf16* o = static_cast<bf16*>(out);
+  long long* t = static_cast<long long*>(clocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 384 && H == 8)
     return comet::launch_block<384>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o, rows,
-                                    L, hidden, s);
+                                    L, hidden, split, t, s);
   if (C == 256 && H == 8)
     return comet::launch_block<256>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o, rows,
-                                    L, hidden, s);
+                                    L, hidden, split, t, s);
   return -1;
 }

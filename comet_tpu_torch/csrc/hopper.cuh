@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels, K1 (attn.cu)
 // and K2 (block.cu): mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and instructions, fences, named barriers, and the host side of
-// a TMA tensor map.
+// descriptors and instructions, fences, named and cluster barriers,
+// distributed shared memory reads, and the host side of a TMA tensor map.
 //
 // Tiles in shared memory are laid out as TMA writes them with a swizzle span
 // of W * 2 bytes (W = 16, 32 or 64 bf16 columns: the 32B, 64B and 128B
@@ -102,6 +102,27 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- clusters --------------------------------------------------------------
+
+// Barrier over every thread of the cluster: shared-memory writes before it
+// (release) are seen by reads after it (acquire), in any CTA of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The two floats at `p`'s shared-memory offset in the CTA of cluster rank
+// `rank` (distributed shared memory).
+__device__ __forceinline__ float2 ld_cluster_f2(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // ---- wgmma -----------------------------------------------------------------

@@ -5,15 +5,13 @@ regimes. On a CUDA tensor :func:`fused_attention` sends many short
 sequences (Lq <= 64, Lk <= 64 and B*Lq >= 256, the JAX packed regime) to
 K3, :func:`short_attention` (``csrc/short_attn.cu``), and every other call
 to K1 (``csrc/attn.cu``), including the shapes the JAX package sends to its
-reference; :func:`attention_plan` picks K1's regime by shape. On a CPU tensor
-both run :func:`attention_reference`, the plain PyTorch version of the same
-function.
+reference. On a CPU tensor both run :func:`attention_reference`, the plain
+PyTorch version of the same function.
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -24,34 +22,6 @@ SUPPORTED_HEAD_DIMS = (32, 48, 64, 96)
 # K3 takes sequences up to this long when there are at least this many rows
 SHORT_MAX_LEN = 64
 SHORT_MIN_ROWS = 256
-# K1 runs its wgmma regime from this many query rows up
-WGMMA_MIN_LQ = 64
-# the tiles each K1 regime is compiled for: (query rows per CTA, keys per tile)
-K1_TILES = {"short_query": (64, 64), "wgmma": (128, 64)}
-_K1_REGIME_CODE = {"short_query": 0, "wgmma": 1}
-
-
-@dataclass(frozen=True)
-class AttnPlan:
-    """How K1 covers one call: ``regime`` ("wgmma": TMA and wgmma, two
-    warpgroups of 64 query rows per CTA; "short_query": mma.sync, 4 warps of
-    16 query rows), ``grid`` = (query tiles, heads, batch), each CTA taking
-    ``rows_per_cta`` query rows of one (batch, head) against every key in
-    tiles of ``key_tile``."""
-
-    regime: str
-    rows_per_cta: int
-    key_tile: int
-    grid: tuple
-
-
-def attention_plan(b: int, lq: int, lk: int, num_heads: int) -> AttnPlan:
-    """K1's plan for one call: the wgmma regime for Lq >= WGMMA_MIN_LQ, where
-    a 64-row warpgroup tile is mostly full, and the short-query mma.sync
-    regime below it (the trunk's Lq 16, trajectory cross's Lq 1)."""
-    regime = "wgmma" if lq >= WGMMA_MIN_LQ else "short_query"
-    rows, keys = K1_TILES[regime]
-    return AttnPlan(regime, rows, keys, (-(-lq // rows), num_heads, b))
 
 
 def attention_reference(
@@ -76,6 +46,15 @@ def _stride(t: torch.Tensor, dim: int) -> int:
     return 0 if t.shape[dim] == 1 else t.stride(dim)
 
 
+def kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernels take it: t itself, or a contiguous copy when a
+    dimension longer than 1 has stride 0 (an ``expand``), since the kernels
+    step over every such dimension in memory."""
+    if any(n > 1 and s == 0 for n, s in zip(t.shape, t.stride())):
+        return t.contiguous()
+    return t
+
+
 def _check_operand(name: str, t: torch.Tensor, length: int, c: int) -> None:
     if t.dtype != torch.bfloat16:
         if t.dtype == torch.float32:
@@ -91,14 +70,14 @@ def _check_operand(name: str, t: torch.Tensor, length: int, c: int) -> None:
         )
 
 
-def _launch(entry: str, q, k, v, num_heads: int, scale: float, plan=()) -> torch.Tensor:
+def _launch(entry: str, q, k, v, num_heads: int, scale: float) -> torch.Tensor:
     """Check the operands and launch the kernel behind the C entry point
-    ``entry`` (no launch for an empty output); ``plan`` holds the entry's
-    plan arguments."""
+    ``entry`` (no launch for an empty output)."""
     b, lq, c = q.shape
     lk = k.shape[1]
     if c % num_heads or c // num_heads not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"attention: head dim {c / num_heads} not in {SUPPORTED_HEAD_DIMS}")
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
     _check_operand("q", q, lq, c)
     _check_operand("k", k, lk, c)
     _check_operand("v", v, lk, c)
@@ -114,7 +93,7 @@ def _launch(entry: str, q, k, v, num_heads: int, scale: float, plan=()) -> torch
         b, num_heads, c // num_heads, lq, lk,
         _stride(q, 0), _stride(q, 1), _stride(k, 0), _stride(k, 1),
         _stride(v, 0), _stride(v, 1),
-        float(scale), *plan, torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch(rc, entry)
     return out
@@ -172,9 +151,7 @@ def fused_attention(
         return short_attention(q, k, v, num_heads, scale)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, num_heads, scale)
-    plan = attention_plan(b, lq, lk, num_heads)
-    out = _launch("comet_attn_fwd", q, k, v, num_heads, scale,
-                  (_K1_REGIME_CODE[plan.regime], plan.rows_per_cta, plan.key_tile))
+    out = _launch("comet_attn_fwd", q, k, v, num_heads, scale)
     if out.numel():
         fused_attention.launches += 1
         fused_attention.launch_shapes[(b, lq, lk, c, num_heads)] += 1

@@ -11,8 +11,9 @@ port's [out, in] layout.
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
-from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,33 +24,29 @@ from .attn import attention_reference
 # (C, num_heads) K2 and K4 are compiled for: the coarse (384, 8) and fine
 # (256, 8) update-former widths.
 SUPPORTED_WIDTHS = ((384, 8), (256, 8))
-# K2's compiled tiles: block rows per CTA (whole sequences) and MLP hidden
-# columns per chunk
-K2_ROWS_PER_CTA = 64
-K2_HIDDEN_CHUNK = 128
+# K2's tiles, as compiled: 64 block rows per CTA (whole sequences) and MLP
+# hidden chunks of 128 columns; a tile is shared by at most 8 CTAs (the
+# portable cluster size)
+K2_ROWS = 64
+K2_CHUNK = 128
+K2_MAX_SPLIT = 8
 
 
-@dataclass(frozen=True)
-class BlockPlan:
-    """How K2 covers one call: CTA i takes block rows [64 i, 64 i + 64) of
-    the flattened [B * L, C] input (whole sequences, since L divides 64) and
-    runs the MLP in ``hidden // hidden_chunk`` chunks."""
+def block_split(rows: int, hidden: int, sms: int) -> int:
+    """K2's plan: how many CTAs, one cluster, share each 64-row tile of a
+    call with ``rows`` block rows, each running the MLP's hidden chunks c
+    with c % split == its rank. The largest split up to 8 that divides the
+    chunks evenly and keeps every CTA of the launch resident at once (tiles
+    * split <= sms); 1 when the tiles alone fill more than half the card."""
+    tiles = -(-rows // K2_ROWS)
+    chunks = hidden // K2_CHUNK
+    return max(n for n in range(1, K2_MAX_SPLIT + 1)
+               if chunks % n == 0 and (n == 1 or tiles * n <= sms))
 
-    rows_per_cta: int
-    hidden_chunk: int
-    ctas: int
 
-
-def block_plan(b: int, l: int, hidden: int) -> BlockPlan:
-    """K2's plan for [B, L, C] with an MLP of width ``hidden``; raises for
-    what the kernel does not take (L must divide 64, hidden a multiple of
-    128)."""
-    if l < 1 or K2_ROWS_PER_CTA % l or hidden % K2_HIDDEN_CHUNK:
-        raise ValueError(
-            f"fused_attn_block: L {l} must divide {K2_ROWS_PER_CTA}, "
-            f"hidden {hidden} % {K2_HIDDEN_CHUNK} == 0"
-        )
-    return BlockPlan(K2_ROWS_PER_CTA, K2_HIDDEN_CHUNK, -(-b * l // K2_ROWS_PER_CTA))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def layer_norm_plain(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -113,16 +110,28 @@ def fused_attn_block(
     w2: torch.Tensor,  # [C, hidden]
     b2: torch.Tensor,  # [C]
     num_heads: int,
+    *,
+    clocks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One AttnBlock application: x1 = ln1(x) + attn(ln1(x));
-    out = x1 + mlp(ln2(x1)). Returns [B, L, C] in x's dtype."""
+    out = x1 + mlp(ln2(x1)). Returns [B, L, C] in x's dtype.
+
+    ``clocks``, for measurement only: an int64 tensor of 18 on x's device
+    that receives where the kernel's first CTA spends its cycles (the
+    layout is ``comet_attn_block_fwd``'s in ``csrc/block.cu``)."""
     if x.device.type == "cpu":
         return block_reference(x, wqkv, bqkv, wout, bout, w1, b1, w2, b2, num_heads)
     b, l, c = x.shape
     hidden = w1.shape[0]
     if (c, num_heads) not in SUPPORTED_WIDTHS:
         raise ValueError(f"fused_attn_block: (C, heads) = {(c, num_heads)} not compiled")
-    plan = block_plan(b, l, hidden)
+    if l < 1 or K2_ROWS % l or hidden % K2_CHUNK:
+        raise ValueError(
+            f"fused_attn_block: L {l} must divide {K2_ROWS}, hidden {hidden} % {K2_CHUNK} == 0"
+        )
+    if clocks is not None and (clocks.dtype != torch.int64 or clocks.device != x.device
+                               or clocks.numel() < 18 or not clocks.is_contiguous()):
+        raise ValueError("fused_attn_block: clocks must be 18 contiguous int64 on x's device")
     _check_all("fused_attn_block", x.device, (
         ("x", x, (b, l, c)), ("wqkv", wqkv, (3 * c, c)), ("bqkv", bqkv, (3 * c,)),
         ("wout", wout, (c, c)), ("bout", bout, (c,)), ("w1", w1, (hidden, c)),
@@ -134,7 +143,8 @@ def fused_attn_block(
     rc = kernels.library().comet_attn_block_fwd(
         x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        b * l, l, c, num_heads, hidden, plan.rows_per_cta, plan.hidden_chunk,
+        b * l, l, c, num_heads, hidden, block_split(b * l, hidden, _sm_count(x.device.index)),
+        None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check_launch(rc, "fused_attn_block")

@@ -34,11 +34,11 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "comet_attn_fwd": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
-         ctypes.c_float, _I, _I, _I, _P],
+         ctypes.c_float, _P],
         _I,
     ),
     "comet_attn_block_fwd": (
-        [_P] * 10 + [_I] * 7 + [_P],
+        [_P] * 10 + [_I] * 6 + [_P, _P],
         _I,
     ),
     "comet_short_attn_fwd": (

@@ -16,9 +16,7 @@ to 1e-5.
 import pytest
 import torch
 
-from comet_tpu_torch.ops.attn import (
-    attention_plan, attention_reference, fused_attention, short_attention,
-)
+from comet_tpu_torch.ops.attn import attention_reference, fused_attention, short_attention
 from comet_tpu_torch.ops.block import (
     block_reference, cross_block_reference, fused_attn_block, fused_cross_block,
 )
@@ -69,18 +67,36 @@ def test_k1_cuda_edge_shapes(cuda_device, b, lq, lk, c, h, packed):
     before = fused_attention.launches
     got = fused_attention(q, k, v, h)
     assert fused_attention.launches == before + 1
-    assert attention_plan(b, lq, lk, h).regime == ("wgmma" if lq >= 64 else "short_query")
     want = attention_reference(q.float(), k.float(), v.float(), h, (c // h) ** -0.5)
     torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "b,l,c",
-    [(576, 16, 384), (16, 64, 384), (512, 16, 256), (7, 16, 256),
-     # rows not a multiple of 64, L 16 and 64 at both widths
-     (20, 64, 384), (5, 16, 384), (3, 64, 256), (1, 1, 384), (9, 32, 256)],
-)
+@pytest.mark.parametrize("b,lq,lk,expanded", [(4, 100, 577, "batch"), (3, 64, 70, "rows")])
+def test_k1_cuda_takes_expanded_keys_and_values(cuda_device, b, lq, lk, expanded):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    c, h = 768, 8
+    q = torch.randn(b, lq, c, generator=g, device=cuda_device).bfloat16()
+    if expanded == "batch":  # one set of keys for every sequence
+        k, v = (torch.randn(1, lk, c, generator=g, device=cuda_device).bfloat16().expand(b, lk, c)
+                for _ in range(2))
+    else:  # one key repeated over the sequence
+        k, v = (torch.randn(b, 1, c, generator=g, device=cuda_device).bfloat16().expand(b, lk, c)
+                for _ in range(2))
+    got = fused_attention(q, k, v, h)
+    want = attention_reference(q.float(), k.float(), v.float(), h, (c // h) ** -0.5)
+    torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
+
+
+# K2 at the main path's shapes, then rows not a multiple of 64, L 16 and 64
+# at both widths, and cluster splits of 2 to 8 (ops/block.py::block_split)
+K2_CUDA_CASES = [(576, 16, 384), (16, 64, 384), (512, 16, 256), (7, 16, 256), (20, 64, 384),
+                 (5, 16, 384), (3, 64, 256), (1, 1, 384), (9, 32, 256), (30, 64, 384),
+                 (40, 64, 384), (50, 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,c", K2_CUDA_CASES)
 def test_k2_cuda_matches_plain(cuda_device, b, l, c):
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
@@ -96,6 +112,24 @@ def test_k2_cuda_matches_plain(cuda_device, b, l, c):
     assert fused_attn_block.launches == before + 1
     want = block_reference(x.float(), *(t.float() for t in w), 8)
     torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=2.0 ** -6)
+
+
+@pytest.mark.cuda
+def test_k2_cuda_clocks_leave_the_result_alone(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    c, hid = 384, 1536
+    w = [(torch.randn(*s, generator=g, device=cuda_device) * 0.05).bfloat16()
+         for s in ((3 * c, c), (3 * c,), (c, c), (c,), (hid, c), (hid,), (c, hid), (c,))]
+    x = torch.randn(16, 64, c, generator=g, device=cuda_device).bfloat16()
+    clocks = torch.zeros(18, dtype=torch.int64, device=cuda_device)
+    got = fused_attn_block(x, *w, 8, clocks=clocks)
+    assert torch.equal(got, fused_attn_block(x, *w, 8))
+    t = clocks.tolist()
+    for wg in range(2):  # phase ends rise; waits fit inside the run
+        ends = t[8 * wg:8 * wg + 6]
+        assert all(0 < a <= b for a, b in zip(ends, ends[1:]))
+        assert 0 <= t[8 * wg + 6] <= ends[-1] and t[8 * wg + 7] > 0
+    assert 0 <= t[16] <= t[17]
 
 
 @pytest.mark.cuda

@@ -65,6 +65,19 @@ def test_k1_takes_column_slices_of_a_packed_projection():
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("b,lq,lk,c,h", [(4, 70, 100, 64, 4), (3, 1, 577, 96, 2)])
+def test_k1_takes_keys_and_values_expanded_over_the_batch(b, lq, lk, c, h):
+    # one set of keys and values for every sequence, as an expand (stride 0)
+    q, k, v = _qkv(b, lq, lk, c, seed=3)
+    k, v = k[:1], v[:1]
+    want = np.asarray(jax_fused_attention(
+        jnp.asarray(q), jnp.asarray(np.broadcast_to(k, (b, lk, c))),
+        jnp.asarray(np.broadcast_to(v, (b, lk, c))), h))
+    got = fused_attention(torch.from_numpy(q), torch.from_numpy(k).expand(b, lk, c),
+                          torch.from_numpy(v).expand(b, lk, c), h)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
 def _block_params(c, hidden, seed):
     rng = np.random.default_rng(seed)
     s = 0.1

@@ -1,94 +1,99 @@
-"""The host-side tile plans of K1 and K2, checked on the CPU.
+"""The host-side choices the port's CUDA wrappers make, checked on the CPU.
 
-``ops/attn.py::attention_plan`` and ``ops/block.py::block_plan`` decide how
-the CUDA kernels cover a call; their C entry points take the plan as
-arguments and refuse one they are not compiled for. Here, for every shape the
-main path gives the kernels and for the edge shapes the card checks, the plan
-must cover every query row, key and block row exactly once, never split a
-sequence across K2's CTAs, and pick K1's documented regime.
+``ops/block.py::block_split`` picks how many CTAs of one cluster share each
+64-row tile of K2, splitting the MLP's hidden chunks among them; the C entry
+point takes the split and refuses one it cannot run. ``ops/attn.py::
+kernel_operand`` decides which attention operands reach the kernels as they
+are and which are copied first (expanded ones, whose stride-0 dimensions
+the kernels' tensor maps cannot step over).
 """
 
 import pytest
+import torch
 
-from comet_tpu_torch.ops.attn import K1_TILES, WGMMA_MIN_LQ, attention_plan
-from comet_tpu_torch.ops.block import K2_HIDDEN_CHUNK, K2_ROWS_PER_CTA, block_plan
+from comet_tpu_torch.ops.attn import kernel_operand
+from comet_tpu_torch.ops.block import K2_CHUNK, K2_MAX_SPLIT, K2_ROWS, block_split
 
-# (B, Lq, Lk, heads, regime): the main path's K1 calls, then edge shapes
-K1_CASES = [
-    (16, 581, 581, 12, "wgmma"),  # ViT self
-    (16, 577, 577, 8, "wgmma"),  # aggregator self
-    (1, 8655, 577, 8, "wgmma"),  # aggregator cross to frame 0
-    (16, 64, 512, 8, "wgmma"),  # update-former virtual<-point
-    (16, 1, 512, 8, "short_query"),  # trajectory cross
-    (1, 16, 16, 8, "short_query"),  # trunk self
-    (16, 512, 64, 8, "wgmma"),  # update-former point<-virtual
-] + [(2, n, 577, 8, "wgmma" if n >= 64 else "short_query") for n in (1, 63, 65, 129, 577)] + [
-    (2, 577, n, 8, "wgmma") for n in (1, 63, 65, 129, 577)
-]
+H100_SMS = 132
 
-# (B, L, C, hidden): the main path's K2 calls, then edge shapes whose rows
-# are not a multiple of 64, at L 16 and 64 at both widths
+# (B, L, C, hidden, split on an H100): the main path's K2 calls, then the
+# edge shapes the card checks (rows not a multiple of 64, L 16 and 64 at both
+# widths, splits of 2 to 8)
 K2_CASES = [
-    (576, 16, 384, 1536),  # coarse time blocks
-    (16, 64, 384, 1536),  # coarse virtual blocks
-    (512, 16, 256, 1024),  # fine time blocks
-    (7, 16, 256, 1024),
-    (20, 64, 384, 1536),
-    (3, 64, 256, 1024),
-    (5, 16, 384, 1536),
-    (1, 1, 384, 1536),
-    (9, 32, 256, 1024),
+    (576, 16, 384, 1536, 1),  # coarse time blocks: 144 tiles
+    (16, 64, 384, 1536, 6),  # coarse virtual blocks: 16 tiles, 96 CTAs
+    (512, 16, 256, 1024, 1),  # fine time blocks: 128 tiles
+    (7, 16, 256, 1024, 8),
+    (20, 64, 384, 1536, 6),
+    (3, 64, 256, 1024, 8),
+    (5, 16, 384, 1536, 6),
+    (1, 1, 384, 1536, 6),
+    (9, 32, 256, 1024, 8),
+    (30, 64, 384, 1536, 4),
+    (40, 64, 384, 1536, 3),
+    (50, 64, 256, 1024, 2),
 ]
 
 
-def _tiles(count, size, n):
-    """The [start, stop) ranges of ``count`` tiles of ``size`` over n items."""
-    return [(i * size, min(n, (i + 1) * size)) for i in range(count)]
+def _ranks_of_chunks(split, chunks):
+    """The rank of the cluster that runs each hidden chunk (the kernel runs
+    chunk c on rank c % split)."""
+    return [c % split for c in range(chunks)]
 
 
-def _covers_once(tiles, n):
-    """The half-open ranges in ``tiles`` partition [0, n) in order."""
-    pos = 0
-    for start, stop in tiles:
-        if start != pos or stop <= start:
-            return False
-        pos = stop
-    return pos == n
-
-
-@pytest.mark.parametrize("b,lq,lk,h,regime", K1_CASES)
-def test_k1_plan_covers_every_query_and_key_once(b, lq, lk, h, regime):
-    plan = attention_plan(b, lq, lk, h)
-    assert plan.regime == regime
-    assert (plan.rows_per_cta, plan.key_tile) == K1_TILES[regime]
-    assert plan.grid[1:] == (h, b)
-    assert _covers_once(_tiles(plan.grid[0], plan.rows_per_cta, lq), lq)
-    # every CTA walks the keys in tiles of key_tile up to Lk
-    assert _covers_once(_tiles(-(-lk // plan.key_tile), plan.key_tile, lk), lk)
-    # no CTA is launched without a query row
-    assert (plan.grid[0] - 1) * plan.rows_per_cta < lq
-
-
-def test_k1_regime_threshold_is_a_full_warpgroup_tile():
-    assert WGMMA_MIN_LQ == 64
-    assert attention_plan(1, WGMMA_MIN_LQ - 1, 100, 8).regime == "short_query"
-    assert attention_plan(1, WGMMA_MIN_LQ, 100, 8).regime == "wgmma"
-
-
-@pytest.mark.parametrize("b,l,c,hidden", K2_CASES)
-def test_k2_plan_covers_every_row_once_in_whole_sequences(b, l, c, hidden):
-    plan = block_plan(b, l, hidden)
+@pytest.mark.parametrize("b,l,c,hidden,want", K2_CASES)
+def test_k2_split_on_an_h100(b, l, c, hidden, want):
     rows = b * l
-    tiles = _tiles(plan.ctas, plan.rows_per_cta, rows)
-    assert (plan.rows_per_cta, plan.hidden_chunk) == (K2_ROWS_PER_CTA, K2_HIDDEN_CHUNK)
-    assert len(tiles) == plan.ctas
-    assert _covers_once(tiles, rows)
-    # no tile splits a sequence: every tile starts and ends on a sequence edge
-    assert all(start % l == 0 and stop % l == 0 for start, stop in tiles)
-    assert hidden % plan.hidden_chunk == 0
+    split = block_split(rows, hidden, H100_SMS)
+    assert split == want
+    tiles = -(-rows // K2_ROWS)
+    # every CTA of the launch is resident at once
+    assert split == 1 or tiles * split <= H100_SMS
+    # each rank runs the same number of chunks, and each chunk runs once
+    ranks = _ranks_of_chunks(split, hidden // K2_CHUNK)
+    assert sorted(set(ranks)) == list(range(split))
+    assert len({ranks.count(r) for r in range(split)}) == 1
+    # a tile holds whole sequences
+    assert K2_ROWS % l == 0
 
 
-@pytest.mark.parametrize("l,hidden", [(24, 1536), (128, 1536), (16, 1000)])
-def test_k2_plan_refuses_what_the_kernel_does_not_take(l, hidden):
-    with pytest.raises(ValueError, match="must divide"):
-        block_plan(4, l, hidden)
+@pytest.mark.parametrize("sms", [1, 16, 78, 114, 132, 144])
+def test_k2_split_keeps_its_limits_on_any_card(sms):
+    for b, l, c, hidden, _ in K2_CASES:
+        rows, chunks = b * l, hidden // K2_CHUNK
+        split = block_split(rows, hidden, sms)
+        tiles = -(-rows // K2_ROWS)
+        assert 1 <= split <= K2_MAX_SPLIT and chunks % split == 0
+        assert split == 1 or tiles * split <= sms
+        # no larger split would also fit
+        assert not any(chunks % n == 0 and tiles * n <= sms
+                       for n in range(split + 1, K2_MAX_SPLIT + 1))
+
+
+def test_k2_split_is_one_where_the_tiles_fill_half_the_card():
+    assert block_split(67 * K2_ROWS, 1536, H100_SMS) == 1
+    assert block_split(66 * K2_ROWS, 1536, H100_SMS) == 2
+
+
+def _layouts():
+    base = torch.zeros(4, 10, 96)
+    packed = torch.zeros(4, 10, 3 * 96)
+    return {
+        "contiguous": (base, False),
+        "packed column slice": (packed[..., 96:192], False),
+        "size-1 dimensions of stride 0": (torch.zeros(96).expand(1, 1, 96), False),
+        "one row per sequence": (torch.zeros(4, 1, 96), False),
+        "expanded over the batch": (torch.zeros(1, 10, 96).expand(4, 10, 96), True),
+        "expanded over the rows": (torch.zeros(4, 1, 96).expand(4, 10, 96), True),
+        "expanded slice over the batch": (packed[:1, :, :96].expand(4, 10, 96), True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_layouts()))
+def test_kernel_operand_copies_only_expanded_tensors(name):
+    t, copied = _layouts()[name]
+    got = kernel_operand(t)
+    assert torch.equal(got, t)
+    assert (got.data_ptr() != t.data_ptr()) == copied
+    # what reaches a kernel steps over every dimension longer than 1
+    assert all(s != 0 for n, s in zip(got.shape, got.stride()) if n > 1)
