@@ -271,10 +271,10 @@ def check_k2(torch, block, dev, gen):
 
 
 def _print_k2_cycles(torch, block, where, split, x, w, h, dev):
-    """One more launch of K2 that records where its first CTA spends its
-    cycles (clock64, from the CTA's start): per consumer warpgroup the ends
-    of its phases and its waits for weight tiles, and the producer's waits
-    for a free ring stage."""
+    """One more launch of K2, its timed instance, that records where its
+    first CTA spends its SM clock cycles (from the CTA's start): per consumer
+    warpgroup the ends of its phases and its waits for weight tiles, and the
+    producer's waits for a free ring stage."""
     clocks = torch.zeros(18, dtype=torch.int64, device=dev)
     block.fused_attn_block(x, *w, h, clocks=clocks)
     t = clocks.tolist()

@@ -42,8 +42,9 @@
 // CTAs' f32 fc2 partial sums meet in distributed shared memory, where each
 // CTA adds up one slice of the tile (in rank order) and writes its output.
 //
-// Measurement: given a `clocks` buffer, CTA 0 records where its time goes
-// (clock64 cycles; see comet_attn_block_fwd).
+// Measurement: given a `clocks` buffer, a separate instantiation of the
+// kernel (kTimed) has CTA 0 record where its time goes, in SM clock cycles
+// (see comet_attn_block_fwd); the kernel the forward runs carries none of it.
 #include <cmath>
 
 #include "block_common.cuh"
@@ -135,7 +136,14 @@ __device__ __forceinline__ void layer_norm_swizzled(Load load, bf16* dst) {
   }
 }
 
-template <int C>
+// The SM's 32-bit cycle counter (differences are exact below 2^32 cycles).
+__device__ __forceinline__ uint32_t clock32() {
+  uint32_t c;
+  asm volatile("mov.u32 %0, %%clock;\n" : "=r"(c));
+  return c;
+}
+
+template <int C, bool kTimed>
 __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     const __grid_constant__ CUtensorMap m_qkv, const __grid_constant__ CUtensorMap m_out,
     const __grid_constant__ CUtensorMap m_w1, const __grid_constant__ CUtensorMap m_w2,
@@ -159,7 +167,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   const int rank = blockIdx.x % split;  // rank in the cluster that shares the tile
   const int row0 = blockIdx.x / split * kBlkRows;
   const int nchunks = hidden / kHid;
-  const bool timed = clocks != nullptr && blockIdx.x == 0;
+  const bool timed = kTimed && blockIdx.x == 0;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full + s, 1);
@@ -168,19 +176,19 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     mbar_init_fence();
   }
   __syncthreads();
-  const long long t_start = clock64();
+  const uint32_t t_start = kTimed ? clock32() : 0;
 
   if (warp >= 8) {  // producer: one thread issues every weight tile, in the consumers' order
     setmaxnreg_dec<40>();
     if (warp == 8 && lane == 0) {
       int i = 0;
-      long long waited = 0;  // cycles spent waiting for a free stage
+      uint32_t waited = 0;  // cycles spent waiting for a free stage
       auto acquire = [&](uint32_t bytes) {
         const int s = i % S;
         if (i >= S) {
-          const long long t0 = timed ? clock64() : 0;
+          const uint32_t t0 = timed ? clock32() : 0;
           mbar_wait(empty + s, ((i / S) - 1) & 1);
-          if (timed) waited += clock64() - t0;
+          if (timed) waited += clock32() - t0;
         }
         mbar_expect_tx(full + s, bytes);
         return s;
@@ -217,7 +225,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
       }
       if (timed) {
         clocks[16] = waited;
-        clocks[17] = clock64() - t_start;
+        clocks[17] = clock32() - t_start;
       }
     }
     if (split > 1) {  // the consumers' two cluster barriers
@@ -233,16 +241,16 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   const int w = warp >> 2, lw = warp & 3;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   int taken = 0;  // ring tiles this warpgroup has taken; tile i belongs to i % 2
-  long long waited = 0;  // cycles spent waiting for a weight tile
+  uint32_t waited = 0;  // cycles spent waiting for a weight tile
   const bool stamps = timed && tid % 128 == 0;
   auto stamp = [&](int at) {
-    if (stamps) clocks[8 * w + at] = clock64() - t_start;
+    if (stamps) clocks[8 * w + at] = clock32() - t_start;
   };
   auto take = [&]() -> const bf16* {
     const int i = 2 * taken + w;
-    const long long t0 = timed ? clock64() : 0;
+    const uint32_t t0 = timed ? clock32() : 0;
     mbar_wait(full + i % S, (i / S) & 1);
-    if (timed) waited += clock64() - t0;
+    if (timed) waited += clock32() - t0;
     return ring + (i % S) * (P::stage_bytes / 2);
   };
   auto release = [&]() {
@@ -542,15 +550,19 @@ int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* 
                  bf16* out, int rows, int L, int hidden, int split, long long* clocks,
                  cudaStream_t stream) {
   using P = BlockPlan<C>;
+  using Kernel = decltype(&attn_block_kernel<C, false>);
   CUtensorMap m_qkv, m_out, m_w1, m_w2;
   if (!weight_map(&m_qkv, wqkv, 3 * C, C, P::D) || !weight_map(&m_out, wout, C, C, P::NQ) ||
       !weight_map(&m_w1, w1, hidden, C, kHid / 2) || !weight_map(&m_w2, w2, C, hidden, P::NQ))
     return -2;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_block_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const Kernel kernels[2] = {&attn_block_kernel<C, false>, &attn_block_kernel<C, true>};
+    for (Kernel kernel : kernels) {
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     configured = true;
   }
   cudaLaunchAttribute cluster;
@@ -566,9 +578,9 @@ int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* 
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(P::D)));
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, attn_block_kernel<C>, m_qkv, m_out, m_w1, m_w2,
-                                             x, bqkv, bout, b1, b2, out, rows, L, hidden, scale,
-                                             split, clocks));
+  const Kernel kernel = clocks ? &attn_block_kernel<C, true> : &attn_block_kernel<C, false>;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, m_qkv, m_out, m_w1, m_w2, x, bqkv, bout,
+                                             b1, b2, out, rows, L, hidden, scale, split, clocks));
 }
 
 }  // namespace
@@ -580,8 +592,9 @@ int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* 
 // error code of the launch. x and out are contiguous [rows, C]; weights are
 // in the [out_features, in_features] layout: wqkv [3C, C], wout [C, C], w1
 // [hidden, C], w2 [C, hidden]. `split` CTAs share each 64-row tile
-// (ops/block.py::block_split). `clocks` is null, or 18 int64 that receive
-// CTA 0's clock64 cycles since its start: for consumer warpgroup w at 8 w +
+// (ops/block.py::block_split). `clocks` is null, or 18 int64 that receive,
+// from the timed instantiation, CTA 0's SM cycles since its start: for
+// consumer warpgroup w at 8 w +
 // 0..5 the ends of ln1, qkv and attention, the out-projection, ln2, the MLP
 // and the output, at 8 w + 6 the cycles it waited for weight tiles and at
 // 8 w + 7 the tiles it took; at 16 the producer's cycles waiting for a free

@@ -117,8 +117,9 @@ def fused_attn_block(
     out = x1 + mlp(ln2(x1)). Returns [B, L, C] in x's dtype.
 
     ``clocks``, for measurement only: an int64 tensor of 18 on x's device
-    that receives where the kernel's first CTA spends its cycles (the
-    layout is ``comet_attn_block_fwd``'s in ``csrc/block.cu``)."""
+    that receives where the kernel's first CTA spends its cycles, from a
+    separately compiled timed instance of the kernel (the layout is
+    ``comet_attn_block_fwd``'s in ``csrc/block.cu``)."""
     if x.device.type == "cpu":
         return block_reference(x, wqkv, bqkv, wout, bout, w1, b1, w2, b2, num_heads)
     b, l, c = x.shape
