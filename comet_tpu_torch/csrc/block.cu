@@ -42,9 +42,11 @@
 // CTAs' f32 fc2 partial sums meet in distributed shared memory, where each
 // CTA adds up one slice of the tile (in rank order) and writes its output.
 //
-// Measurement: given a `clocks` buffer, a separate instantiation of the
-// kernel (kTimed) has CTA 0 record where its time goes, in SM clock cycles
-// (see comet_attn_block_fwd); the kernel the forward runs carries none of it.
+// The kernel is instantiated three times per width: kSplit false for
+// split 1 (the split folds away), kSplit true for a cluster, and kTimed for
+// measurement: given a `clocks` buffer, CTA 0 records where its time goes,
+// in SM clock cycles (see comet_attn_block_fwd); the kernels the forward
+// runs carry none of it.
 #include <cmath>
 
 #include "block_common.cuh"
@@ -143,13 +145,13 @@ __device__ __forceinline__ uint32_t clock32() {
   return c;
 }
 
-template <int C, bool kTimed>
+template <int C, bool kSplit, bool kTimed>
 __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     const __grid_constant__ CUtensorMap m_qkv, const __grid_constant__ CUtensorMap m_out,
     const __grid_constant__ CUtensorMap m_w1, const __grid_constant__ CUtensorMap m_w2,
     const bf16* __restrict__ x, const bf16* __restrict__ bqkv, const bf16* __restrict__ bout,
     const bf16* __restrict__ b1, const bf16* __restrict__ b2, bf16* __restrict__ out, int rows,
-    int L, int hidden, float scale, int split, long long* __restrict__ clocks) {
+    int L, int hidden, float scale, int split_arg, long long* __restrict__ clocks) {
   using P = BlockPlan<C>;
   constexpr int D = P::D, NQKV = P::NQKV, NQ = P::NQ, LDQ = P::LDQ, S = kBlkStages;
   constexpr int KT = C / 64;  // k-tiles of a product over C
@@ -164,7 +166,8 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   uint64_t* empty = full + S;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rank = blockIdx.x % split;  // rank in the cluster that shares the tile
+  const int split = kSplit ? split_arg : 1;
+  const int rank = kSplit ? blockIdx.x % split : 0;  // rank in the cluster that shares the tile
   const int row0 = blockIdx.x / split * kBlkRows;
   const int nchunks = hidden / kHid;
   const bool timed = kTimed && blockIdx.x == 0;
@@ -550,14 +553,15 @@ int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* 
                  bf16* out, int rows, int L, int hidden, int split, long long* clocks,
                  cudaStream_t stream) {
   using P = BlockPlan<C>;
-  using Kernel = decltype(&attn_block_kernel<C, false>);
+  using Kernel = decltype(&attn_block_kernel<C, false, false>);
   CUtensorMap m_qkv, m_out, m_w1, m_w2;
   if (!weight_map(&m_qkv, wqkv, 3 * C, C, P::D) || !weight_map(&m_out, wout, C, C, P::NQ) ||
       !weight_map(&m_w1, w1, hidden, C, kHid / 2) || !weight_map(&m_w2, w2, C, hidden, P::NQ))
     return -2;
   static bool configured = false;
   if (!configured) {
-    const Kernel kernels[2] = {&attn_block_kernel<C, false>, &attn_block_kernel<C, true>};
+    const Kernel kernels[3] = {&attn_block_kernel<C, false, false>,
+                               &attn_block_kernel<C, true, false>, &attn_block_kernel<C, true, true>};
     for (Kernel kernel : kernels) {
       cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
@@ -578,7 +582,9 @@ int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* 
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(P::D)));
-  const Kernel kernel = clocks ? &attn_block_kernel<C, true> : &attn_block_kernel<C, false>;
+  const Kernel kernel = clocks      ? &attn_block_kernel<C, true, true>
+                       : split > 1 ? &attn_block_kernel<C, true, false>
+                                   : &attn_block_kernel<C, false, false>;
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, m_qkv, m_out, m_w1, m_w2, x, bqkv, bout,
                                              b1, b2, out, rows, L, hidden, scale, split, clocks));
 }

@@ -70,9 +70,10 @@ def test_k2_split_keeps_its_limits_on_any_card(sms):
                        for n in range(split + 1, K2_MAX_SPLIT + 1))
 
 
-def test_k2_split_is_one_where_the_tiles_fill_half_the_card():
-    assert block_split(67 * K2_ROWS, 1536, H100_SMS) == 1
-    assert block_split(66 * K2_ROWS, 1536, H100_SMS) == 2
+@pytest.mark.parametrize("hidden", [1536, 1024])
+def test_k2_split_is_one_where_the_tiles_fill_half_the_card(hidden):
+    assert block_split(67 * K2_ROWS, hidden, H100_SMS) == 1
+    assert block_split(66 * K2_ROWS, hidden, H100_SMS) == 2
 
 
 def _layouts():
@@ -86,6 +87,8 @@ def _layouts():
         "expanded over the batch": (torch.zeros(1, 10, 96).expand(4, 10, 96), True),
         "expanded over the rows": (torch.zeros(4, 1, 96).expand(4, 10, 96), True),
         "expanded slice over the batch": (packed[:1, :, :96].expand(4, 10, 96), True),
+        # left as it is, for the wrapper's stride check to refuse
+        "strided columns": (base.transpose(1, 2).contiguous().transpose(1, 2), False),
     }
 
 
