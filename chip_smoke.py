@@ -10,19 +10,24 @@ Phases, each of which makes the script exit nonzero when it fails:
 1. the card: its name, and its name and power limit from ``nvidia-smi``;
 2. the build of the hand-written kernels (K1 ``csrc/attn.cu``, K2
    ``csrc/block.cu``, K3 ``csrc/short_attn.cu``, K4 ``csrc/cross_block.cu``,
-   K5 ``csrc/norm.cu``) with ``nvcc`` for sm_90a, timed;
+   K5 ``csrc/norm.cu``) with ``nvcc`` for sm_90a, timed, with ptxas's
+   registers and spills of every kernel instance;
 3. every kernel at every shape either route gives it, in bf16: the kernel
    against its plain PyTorch version run in f32 on the same bf16 inputs,
    with the kernel's, the plain version's (bf16, on the card) and, where one
    PyTorch call computes the same function (``F.scaled_dot_product_attention``
    for K1 and K3, ``F.layer_norm`` for K5), that call's median device times
    over 25 runs, and the host time to issue one call of the kernel's wrapper
-   (and of the library call), and for K2 where its first CTA spends its
-   cycles (``fused_attn_block(clocks=...)``); then, for correctness only, K1
-   and K2 at edge shapes of their tilings (Lq and Lk of 1, 63, 65, 129 and
-   577, packed qkv slices at D 48 and 96, keys and values expanded over the
-   batch; block rows not a multiple of 64, L 16 and 64 at both widths,
-   cluster splits of 2 to 8) against the same plain f32 versions and
+   (and of the library call), and for K2 and K4 where their first CTAs
+   spend their cycles (``clocks=``, from separately compiled timed
+   instances; K4's timed output must equal the forward's bit for bit); K4
+   at both of its shapes also at every split of its query tiles (1, 2, 4,
+   8); then, for correctness only, K1, K2 and K4 at edge shapes of their
+   tilings (Lq and Lk of 1, 63, 65, 129 and 577, packed qkv slices at D 48
+   and 96, keys and values expanded over the batch; block rows not a
+   multiple of 64, L 16 and 64 at both widths, cluster splits of 2 to 8;
+   K4 at Lq 16, 32, 64 and 512 against Lk 1, 63, 65, 512 and 1024 at both
+   widths and splits 2, 4 and 8) against the same plain f32 versions and
    tolerances;
 4. a reference check on small inputs: the full-width ``ours`` model's coarse
    and fine update-formers and its camera predictor, on the card in bf16
@@ -120,6 +125,12 @@ K1_EDGE = ([(2, n, 577, 768, 8, "plain") for n in (1, 63, 65, 129, 577)]
               (4, 63, 63, 384, 8, "packed"), (4, 100, 577, 768, 8, "expanded")])
 K2_EDGE = [(7, 16, 256), (20, 64, 384), (5, 16, 384), (3, 64, 256), (1, 1, 384), (9, 32, 256),
            (30, 64, 384), (40, 64, 384), (50, 64, 256)]
+# K4 (B, Lq, Lk, C): Lq 16, 32, 64 and 512 (B * Lq not a multiple of 64 below
+# Lq 64) against Lk 1, 63, 65, 512 and 1024, at both widths; each at the
+# plan's split and at splits 2, 4 and 8
+K4_EDGE = [({16: 17, 32: 9, 64: 5, 512: 1}[lq], lq, lk, c)
+           for c in (384, 256) for lq in (16, 32, 64, 512) for lk in (1, 63, 65, 512, 1024)]
+K4_SPLITS = (1, 2, 4, 8)
 PER_FORWARD = {
     "default": dict(K1=sum(s[-2] for s in K1_SHAPES), K2=sum(s[-1] for s in K2_SHAPES),
                     K3=0, K4=0, K5=0),  # K1 76, K2 72
@@ -275,17 +286,13 @@ def _print_k2_cycles(torch, block, where, split, x, w, h, dev):
     first CTA spends its SM clock cycles (from the CTA's start): per consumer
     warpgroup the ends of its phases and its waits for weight tiles, and the
     producer's waits for a free ring stage."""
-    clocks = torch.zeros(18, dtype=torch.int64, device=dev)
+    clocks = torch.zeros(block.K2_CLOCKS, dtype=torch.int64, device=dev)
     block.fused_attn_block(x, *w, h, clocks=clocks)
     t = clocks.tolist()
     names = ("ln1", "qkv+attention", "out-proj", "ln2", "MLP", "output")
     for wg in range(2):
-        ends = t[8 * wg:8 * wg + 6]
-        spans = [b - a for a, b in zip([0] + ends[:-1], ends)]
-        print(f"K2 {where:32s} split {split}, CTA 0 warpgroup {wg}: cycles "
-              f"{', '.join(f'{n} {v}' for n, v in zip(names, spans))}; total {ends[-1]}, of "
-              f"which waiting for weight tiles {t[8 * wg + 6]} ({t[8 * wg + 6] / ends[-1]:.2f}) "
-              f"over {t[8 * wg + 7]} tiles", flush=True)
+        _print_cycles("K2", where, split, names, t[8 * wg:8 * wg + 6], t[8 * wg + 6],
+                      t[8 * wg + 7], f"CTA 0 warpgroup {wg}: ")
     print(f"K2 {where:32s} split {split}, CTA 0 producer: waits for a free stage {t[16]} cycles, "
           f"last tile issued at {t[17]}", flush=True)
 
@@ -322,28 +329,47 @@ def check_k3(torch, F, attn, dev, gen):
     return rows
 
 
+def _k4_inputs(torch, gen, dev, b, lq, lk, c, hid):
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
+
+    # norm_context affine near (1, 0), lecun-normal-scale weights ([out, in]), small biases
+    w = [rnd(c, mean=1.0, std=0.1), rnd(c, std=0.1), rnd(c, c, std=c ** -0.5), rnd(c, std=0.02),
+         rnd(2 * c, c, std=c ** -0.5), rnd(2 * c, std=0.02), rnd(c, c, std=c ** -0.5),
+         rnd(c, std=0.02), rnd(hid, c, std=c ** -0.5), rnd(hid, std=0.02),
+         rnd(c, hid, std=hid ** -0.5), rnd(c, std=0.02)]
+    return rnd(b, lq, c), rnd(b, lk, c), w
+
+
+def _k4_excess(torch, block, x, ctx, w, h, want, split=None):
+    """|kernel - plain f32| beyond K2_RTOL |y| (and the output) at a split."""
+    out = block.fused_cross_block(x, ctx, *w, h, split=split)
+    torch.cuda.synchronize()
+    if out.shape != x.shape or not torch.isfinite(out).all():
+        raise SmokeError(f"K4 {tuple(x.shape)} ctx {tuple(ctx.shape)} split {split}: "
+                         f"shape {tuple(out.shape)} or values not finite")
+    return ((out.float() - want).abs() - K2_RTOL * want.abs()).max().item(), out
+
+
 def check_k4(torch, block, dev, gen):
     rows = []
     for where, b, lq, lk, c, h, hid, calls in K4_SHAPES:
-        def rnd(*shape, std=1.0, mean=0.0):
-            return (mean + torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
-
-        # norm_context affine near (1, 0), lecun-normal-scale weights ([out, in]), small biases
-        w = [rnd(c, mean=1.0, std=0.1), rnd(c, std=0.1), rnd(c, c, std=c ** -0.5), rnd(c, std=0.02),
-             rnd(2 * c, c, std=c ** -0.5), rnd(2 * c, std=0.02), rnd(c, c, std=c ** -0.5),
-             rnd(c, std=0.02), rnd(hid, c, std=c ** -0.5), rnd(hid, std=0.02),
-             rnd(c, hid, std=hid ** -0.5), rnd(c, std=0.02)]
-        x, ctx = rnd(b, lq, c), rnd(b, lk, c)
-        out = block.fused_cross_block(x, ctx, *w, h)
-        torch.cuda.synchronize()
+        x, ctx, w = _k4_inputs(torch, gen, dev, b, lq, lk, c, hid)
         want = block.cross_block_reference(x.float(), ctx.float(), *(t.float() for t in w), h)
-        excess = ((out.float() - want).abs() - K2_RTOL * want.abs()).max().item()
+        excess, out = _k4_excess(torch, block, x, ctx, w, h, want)
         err = (out.float() - want).abs().max().item()
         plain_err = (block.cross_block_reference(x, ctx, *w, h).float() - want).abs().max().item()
-        if out.shape != x.shape or not math.isfinite(err) or excess > K2_ATOL:
+        if not math.isfinite(err) or excess > K2_ATOL:
             raise SmokeError(
                 f"K4 {where}: |kernel - plain f32| exceeds {K2_ATOL} + {K2_RTOL}|y| by {excess}"
             )
+        # every split of the query tiles, whatever the plan picks
+        for split in K4_SPLITS:
+            ex, _ = _k4_excess(torch, block, x, ctx, w, h, want, split)
+            print(f"K4 {where:32s} split {split}: excess over {K2_ATOL} + {K2_RTOL:.4f}|y| {ex:.3e}",
+                  flush=True)
+            if ex > K2_ATOL:
+                raise SmokeError(f"K4 {where} split {split}: exceeds {K2_ATOL} + {K2_RTOL}|y| by {ex}")
         ms = _median_ms(torch, lambda: block.fused_cross_block(x, ctx, *w, h))
         host_us = _host_us(torch, lambda: block.fused_cross_block(x, ctx, *w, h))
         plain_ms = _median_ms(torch, lambda: block.cross_block_reference(x, ctx, *w, h))
@@ -351,6 +377,7 @@ def check_k4(torch, block, dev, gen):
         flops = 2 * c * (rq * (2 * c + 2 * hid) + rk * 2 * c) + 4 * rq * lk * c
         nbytes = 2 * (2 * rq * c + rk * c + 4 * c * c + 2 * c * hid)
         bound, bound_by = _bound_ms(flops, nbytes)
+        _print_k4_cycles(torch, block, where, x, ctx, w, h, out, dev)
         rows.append(dict(kernel="K4", where=where, shape=[b, lq, lk, c, h, hid],
                          max_abs_err=err, tolerance=f"atol {K2_ATOL} + {K2_RTOL} |y|",
                          ms=ms, plain_ms=plain_ms, library_ms=None, host_us=host_us,
@@ -361,6 +388,40 @@ def check_k4(torch, block, dev, gen):
               f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by}) host us {host_us:.1f}",
               flush=True)
     return rows
+
+
+def _print_cycles(kernel, where, split, names, ends, waited, tiles, extra=""):
+    """One line of a timed instance's reading for one consumer warpgroup:
+    cycles per phase (from the ends of the phases), and its waits for ring
+    tiles."""
+    spans = [b - a for a, b in zip([0] + ends[:-1], ends)]
+    print(f"{kernel} {where:32s} split {split}, {extra}cycles "
+          f"{', '.join(f'{n} {v}' for n, v in zip(names, spans))}; total {ends[-1]}, of "
+          f"which waiting for ring tiles {waited} ({waited / ends[-1]:.2f}) over {tiles} tiles",
+          flush=True)
+
+
+def _print_k4_cycles(torch, block, where, x, ctx, w, h, out, dev):
+    """One more launch of K4, its timed instances, that records where the
+    first CTA of each launch spends its SM clock cycles; its output must be
+    the forward's, bit for bit."""
+    clocks = torch.zeros(block.K4_CLOCKS, dtype=torch.int64, device=dev)
+    timed = block.fused_cross_block(x, ctx, *w, h, clocks=clocks)
+    torch.cuda.synchronize()
+    if not torch.equal(timed, out):
+        raise SmokeError(f"K4 {where}: the timed instance's output differs from the forward's")
+    t = clocks.tolist()
+    b, lq, c = x.shape
+    split = block.card_cross_split(b * lq, h, c, dev.index)
+    names = ("ln1", "q+attention", "exchange", "out-proj", "ln2", "MLP", "output")
+    for wg in range(2):
+        _print_cycles("K4", where, split, names, t[12 * wg:12 * wg + 7], t[12 * wg + 8],
+                      t[12 * wg + 9], f"query side CTA 0 warpgroup {wg}: ")
+        print(f"K4 {where:32s} split {split}, warpgroup {wg}: exchange sent at "
+              f"{t[12 * wg + 7]}, waits for tiles in q+attention {t[12 * wg + 10]}", flush=True)
+    print(f"K4 {where:32s} producer: waits for a free stage {t[24]} cycles, last tile issued at "
+          f"{t[25]}; kv projection CTA 0: LN_ctx {t[26]}, total {t[27]}, of which warpgroup 0 "
+          f"waiting for weight tiles {t[28]} over {t[29]} tiles", flush=True)
 
 
 def check_k5(torch, F, norm, dev, gen):
@@ -412,7 +473,7 @@ def _k2_inputs(torch, gen, dev, b, l, c, hid):
 
 
 def check_edges(torch, attn, block, dev, gen):
-    """K1 and K2 at the edge shapes of their tilings, correctness only."""
+    """K1, K2 and K4 at the edge shapes of their tilings, correctness only."""
     for b, lq, lk, c, h, layout in K1_EDGE:
         d = c // h
         if layout == "packed" and lq == lk:
@@ -445,6 +506,24 @@ def check_edges(torch, attn, block, dev, gen):
               f"excess over {K2_ATOL} + {K2_RTOL:.4f}|y| {excess:.3e}", flush=True)
         if out.shape != x.shape or not math.isfinite(excess) or excess > K2_ATOL:
             raise SmokeError(f"K2 edge {(b, l, c)}: exceeds {K2_ATOL} + {K2_RTOL}|y| by {excess}")
+    for b, lq, lk, c in K4_EDGE:
+        x, ctx, w = _k4_inputs(torch, gen, dev, b, lq, lk, c, 4 * c)
+        want = block.cross_block_reference(x.float(), ctx.float(), *(t.float() for t in w), 8)
+        worst = {split: _k4_excess(torch, block, x, ctx, w, 8, want, split)[0]
+                 for split in (None, 2, 4, 8)}
+        # The plain version in bf16 has K4's rounding points; where it too
+        # misses the tolerance (with Lk 1 every row shares one attention
+        # output, so one rounding of each column reaches all Lq rows), the
+        # kernel is held to it instead: no further from f32 than the function
+        # it implements.
+        plain = block.cross_block_reference(x, ctx, *w, 8).float()
+        plain_excess = ((plain - want).abs() - K2_RTOL * want.abs()).max().item()
+        limit = max(K2_ATOL, plain_excess)
+        print(f"K4 edge [B={b} Lq={lq} Lk={lk} C={c}]: excess over {K2_ATOL} + {K2_RTOL:.4f}|y| "
+              f"by split (None: the plan's) {worst}; plain bf16 {plain_excess:.3e}", flush=True)
+        if not all(math.isfinite(e) and e <= limit for e in worst.values()):
+            raise SmokeError(f"K4 edge {(b, lq, lk, c)}: exceeds {K2_ATOL} + {K2_RTOL}|y| "
+                             f"(plain bf16: {plain_excess}): {worst}")
 
 
 def _request(torch, cfg, seed, dev):
@@ -677,6 +756,11 @@ def main(argv=None) -> int:
         kernels.library()
         print(f"kernel build: {time.perf_counter() - t0:.1f} s "
               f"(nvcc {' '.join(kernels.NVCC_FLAGS[:2])}, {', '.join(kernels.SOURCES)})", flush=True)
+        report = kernels.ptxas_report()
+        spilled = [name for name, _, stores, loads in report if stores or loads]
+        print(f"ptxas: {len(report)} kernel instances, registers "
+              f"{sorted({regs for _, regs, _, _ in report})}, spilling {spilled or 'none'}",
+              flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
         checked = dict(K1=check_k1(torch, F, attn, dev, gen), K2=check_k2(torch, block, dev, gen),
                        K3=check_k3(torch, F, attn, dev, gen), K4=check_k4(torch, block, dev, gen),

@@ -32,8 +32,12 @@
 // of head pair p, N = 3D), for the out-projection and fc2 one half of the
 // output columns (two passes of N = C/4), for fc1 one half of each 128-wide
 // hidden chunk (N = 64); the fc2 accumulators stay in registers across
-// chunks. Attention within the block is
-// < 3 % of its FLOPs and stays on mma.sync, one warp per 16 query rows.
+// chunks. Attention within the block is < 3 % of its FLOPs and stays on
+// mma.sync, one warp per 16 query rows. The weight ring, the product chain
+// and the block's second half (out-projection to output) are
+// block_common.cuh's, shared with K4; each warpgroup waits on every weight
+// tile's wgmma group before the next (with two groups in flight the 4-stage
+// ring runs dry and K2 was slower, PERF.md).
 //
 // Where too few 64-row tiles exist to fill the card (the coarse virtual
 // blocks: 16 tiles for 132 SMs), a cluster of `split` CTAs shares each tile
@@ -50,23 +54,17 @@
 #include <cmath>
 
 #include "block_common.cuh"
-#include "hopper.cuh"
 
 namespace comet {
 namespace {
 
-constexpr int kBlkRows = 64;      // rows per CTA, whole sequences
-constexpr int kBlkThreads = 384;  // 2 consumer warpgroups + 1 producer warpgroup
-constexpr int kBlkStages = 4;     // weight ring depth
-constexpr int kHid = 128;         // MLP hidden columns per chunk (64 per warpgroup)
-constexpr int kTile = 64 * 64;    // elements of one 64 x 64 swizzled A k-tile
-
-// Element offset of (r, c) in a [K / 64][64 rows][64] buffer in the 128-byte
-// swizzled layout (the 16-byte chunk c / 8 of row r moves to chunk (c / 8) ^
-// (r % 8)), the K-major operand layout wgmma reads with a 128B descriptor.
-__device__ __forceinline__ int swz(int r, int c) {
-  return (c >> 6) * kTile + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
-}
+constexpr int kBlkStages = 4;  // weight ring depth
+// wgmma groups in flight per warpgroup in the weight products (1 or 2; a
+// build switch for measurement)
+#ifndef COMET_K2_IN_FLIGHT
+#define COMET_K2_IN_FLIGHT 1
+#endif
+constexpr int kInFlight = COMET_K2_IN_FLIGHT;
 
 template <int C>
 struct BlockPlan {
@@ -85,65 +83,9 @@ struct BlockPlan {
   static constexpr int ring_offset = 2 * x_bytes + u_bytes;
   static constexpr int bar_offset = ring_offset + kBlkStages * stage_bytes;
   static constexpr int smem = 1024 + bar_offset + 2 * kBlkStages * 8;
-  // the f32 fc2 partial sums of a split tile, [64][LDR], over sU and the ring
-  static constexpr int LDR = C + 8;
-  static_assert(kBlkRows * LDR * 4 <= u_bytes + kBlkStages * stage_bytes, "partials fit");
+  // the f32 fc2 partial sums of a split tile, [64][C + 8], over sU and the ring
+  static_assert(kBlkRows * (C + 8) * 4 <= u_bytes + kBlkStages * stage_bytes, "partials fit");
 };
-
-template <int N>
-__device__ __forceinline__ void wgmma_kmajor(float (&d)[N / 2], uint64_t da, uint64_t db) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, 1);
-  if constexpr (N == 96) wgmma_ss_n96(d, da, db, 1);
-  if constexpr (N == 144) wgmma_ss_n144(d, da, db, 1);
-}
-
-// acc[64 x N] += A[64 x 64] B^T over one k-tile: A a 64 x 64 swizzled tile,
-// B an N-row weight tile of the ring (both K-major, 128B swizzle).
-template <int N>
-__device__ __forceinline__ void ktile_product(float (&acc)[N / 2], const bf16* a, const bf16* b) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_kmajor<N>(acc, make_desc<64>(a + kk * 16, 16, 1024), make_desc<64>(b + kk * 16, 16, 1024));
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-}
-
-// Scale-free LayerNorm (eps 1e-6, f32 statistics) of 64 rows of width C by
-// the 8 consumer warps, 8 rows each. Source row r comes from load(r, col),
-// the result goes to dst in the swizzled layout.
-template <int C, typename Load>
-__device__ __forceinline__ void layer_norm_swizzled(Load load, bf16* dst) {
-  constexpr int PER = C / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    float v[PER];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      v[i] = load(r, lane + 32 * i);
-      s += v[i];
-    }
-    const float mu = warp_sum(s) * (1.f / C);
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      v[i] -= mu;
-      ss += v[i] * v[i];
-    }
-    const float rstd = rsqrtf(warp_sum(ss) * (1.f / C) + 1e-6f);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) dst[swz(r, lane + 32 * i)] = __float2bfloat16(v[i] * rstd);
-  }
-}
-
-// The SM's 32-bit cycle counter (differences are exact below 2^32 cycles).
-__device__ __forceinline__ uint32_t clock32() {
-  uint32_t c;
-  asm volatile("mov.u32 %0, %%clock;\n" : "=r"(c));
-  return c;
-}
 
 template <int C, bool kSplit, bool kTimed>
 __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
@@ -153,7 +95,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     const bf16* __restrict__ b1, const bf16* __restrict__ b2, bf16* __restrict__ out, int rows,
     int L, int hidden, float scale, int split_arg, long long* __restrict__ clocks) {
   using P = BlockPlan<C>;
-  constexpr int D = P::D, NQKV = P::NQKV, NQ = P::NQ, LDQ = P::LDQ, S = kBlkStages;
+  constexpr int D = P::D, NQKV = P::NQKV, LDQ = P::LDQ, S = kBlkStages;
   constexpr int KT = C / 64;  // k-tiles of a product over C
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -184,50 +126,19 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   if (warp >= 8) {  // producer: one thread issues every weight tile, in the consumers' order
     setmaxnreg_dec<40>();
     if (warp == 8 && lane == 0) {
-      int i = 0;
-      uint32_t waited = 0;  // cycles spent waiting for a free stage
-      auto acquire = [&](uint32_t bytes) {
-        const int s = i % S;
-        if (i >= S) {
-          const uint32_t t0 = timed ? clock32() : 0;
-          mbar_wait(empty + s, ((i / S) - 1) & 1);
-          if (timed) waited += clock32() - t0;
-        }
-        mbar_expect_tx(full + s, bytes);
-        return s;
-      };
+      RingProducer<S> pr{ring, full, empty, P::stage_bytes / 2, 0, 0, timed};
+      uint64_t* bar;
       for (int p = 0; p < 4; ++p)
         for (int kt = 0; kt < KT; ++kt)
-          for (int w = 0; w < 2; ++w, ++i) {
-            const int s = acquire(NQKV * 128);
+          for (int w = 0; w < 2; ++w) {
+            bf16* dst = pr.acquire(NQKV * 128, &bar);
             for (int seg = 0; seg < 3; ++seg)
-              tma_load_2d(ring + s * (P::stage_bytes / 2) + seg * D * 64, &m_qkv, full + s,
-                          kt * 64, seg * C + (2 * p + w) * D);
+              tma_load_2d(dst + seg * D * 64, &m_qkv, bar, kt * 64, seg * C + (2 * p + w) * D);
           }
-      for (int q = 0; q < 2; ++q)
-        for (int kt = 0; kt < KT; ++kt)
-          for (int w = 0; w < 2; ++w, ++i) {
-            const int s = acquire(NQ * 128);
-            tma_load_2d(ring + s * (P::stage_bytes / 2), &m_out, full + s, kt * 64,
-                        w * (C / 2) + q * NQ);
-          }
-      for (int c = rank; c < nchunks; c += split) {
-        for (int kt = 0; kt < KT; ++kt)
-          for (int w = 0; w < 2; ++w, ++i) {
-            const int s = acquire(kHid / 2 * 128);
-            tma_load_2d(ring + s * (P::stage_bytes / 2), &m_w1, full + s, kt * 64,
-                        c * kHid + w * (kHid / 2));
-          }
-        for (int kt = 0; kt < kHid / 64; ++kt)
-          for (int q = 0; q < 2; ++q)
-            for (int w = 0; w < 2; ++w, ++i) {
-              const int s = acquire(NQ * 128);
-              tma_load_2d(ring + s * (P::stage_bytes / 2), &m_w2, full + s, c * kHid + kt * 64,
-                          w * (C / 2) + q * NQ);
-            }
-      }
+      produce_out_projection<C>(pr, &m_out);
+      produce_mlp<C>(pr, &m_w1, &m_w2, rank, split, nchunks);
       if (timed) {
-        clocks[16] = waited;
+        clocks[16] = pr.waited;
         clocks[17] = clock32() - t_start;
       }
     }
@@ -243,26 +154,14 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   setmaxnreg_inc<232>();
   const int w = warp >> 2, lw = warp & 3;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
-  int taken = 0;  // ring tiles this warpgroup has taken; tile i belongs to i % 2
-  uint32_t waited = 0;  // cycles spent waiting for a weight tile
+  RingConsumer<S> rc{ring, full, empty, P::stage_bytes / 2, w, w, 0, 0, timed};
   const bool stamps = timed && tid % 128 == 0;
   auto stamp = [&](int at) {
     if (stamps) clocks[8 * w + at] = clock32() - t_start;
   };
-  auto take = [&]() -> const bf16* {
-    const int i = 2 * taken + w;
-    const uint32_t t0 = timed ? clock32() : 0;
-    mbar_wait(full + i % S, (i / S) & 1);
-    if (timed) waited += clock32() - t0;
-    return ring + (i % S) * (P::stage_bytes / 2);
-  };
-  auto release = [&]() {
-    if (lane == 0) mbar_arrive(empty + (2 * taken + w) % S);
-    ++taken;
-  };
 
   // ln1(x) -> sX (rows past the end are zero and stay finite)
-  layer_norm_swizzled<C>(
+  layer_norm_swizzled<C, 4>(
       [&](int r, int col) {
         return row0 + r < rows ? __bfloat162float(x[(long long)(row0 + r) * C + col]) : 0.f;
       },
@@ -280,10 +179,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
     float acc[NQKV / 2];
 #pragma unroll
     for (int i = 0; i < NQKV / 2; ++i) acc[i] = 0.f;
-    for (int kt = 0; kt < KT; ++kt) {
-      ktile_product<NQKV>(acc, sX + kt * kTile, take());
-      release();
-    }
+    ring_product<NQKV, kInFlight>(acc, sX, KT, rc);
     named_barrier(2 + w, 128);  // the previous head's attention is done with the scratch
 #pragma unroll
     for (int j = 0; j < NQKV / 8; ++j) {
@@ -385,166 +281,20 @@ __global__ void __launch_bounds__(kBlkThreads, 1) attn_block_kernel(
   named_barrier(1, 256);
   stamp(1);
 
-  // x1 = ln1(x) + (round(a Wout^T) + bout), in place in sX; warpgroup w
-  // computes output columns w C/2 .. + C/2 in two passes of NQ.
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    float acc[NQ / 2];
-#pragma unroll
-    for (int i = 0; i < NQ / 2; ++i) acc[i] = 0.f;
-    for (int kt = 0; kt < KT; ++kt) {
-      ktile_product<NQ>(acc, sA + kt * kTile, take());
-      release();
-    }
-#pragma unroll
-    for (int j = 0; j < NQ / 8; ++j) {
-      const int n = w * (C / 2) + q * NQ + j * 8 + t2;
-      const float bb0 = __bfloat162float(bout[n]), bb1 = __bfloat162float(bout[n + 1]);
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = lw * 16 + g + hr * 8;
-        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(sX + swz(r, n));
-        const float2 xn = __bfloat1622float2(*p);
-        const float y0 = round_bf16(round_bf16(acc[4 * j + 2 * hr]) + bb0);
-        const float y1 = round_bf16(round_bf16(acc[4 * j + 2 * hr + 1]) + bb1);
-        *p = __floats2bfloat162_rn(xn.x + y0, xn.y + y1);
-      }
-    }
-  }
-  named_barrier(1, 256);
+  tail_out_projection<C, kInFlight>(sX, sA, bout, rc);
   stamp(2);
-
-  // ln2(x1) -> sA
-  layer_norm_swizzled<C>([&](int r, int col) { return __bfloat162float(sX[swz(r, col)]); }, sA);
-  fence_proxy_async();
-  named_barrier(1, 256);
+  tail_ln2<C>(sX, sA);
   stamp(3);
-
-  // MLP over hidden chunks of kHid; fc2 accumulates in registers across chunks.
-  float acc2[2][NQ / 2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-#pragma unroll
-    for (int i = 0; i < NQ / 2; ++i) acc2[q][i] = 0.f;
-  }
-  for (int c = rank; c < nchunks; c += split) {
-    bf16* sH = sU;  // [kHid / 64 k-tiles][64][64], swizzled
-    {
-      float acc1[kHid / 4];
-#pragma unroll
-      for (int i = 0; i < kHid / 4; ++i) acc1[i] = 0.f;
-      for (int kt = 0; kt < KT; ++kt) {
-        ktile_product<kHid / 2>(acc1, sA + kt * kTile, take());
-        release();
-      }
-      if (c > rank) named_barrier(1, 256);  // both warpgroups' fc2 is done with sH
-#pragma unroll
-      for (int j = 0; j < kHid / 16; ++j) {
-        const int n = w * (kHid / 2) + j * 8 + t2;  // column within the chunk
-        const float bb0 = __bfloat162float(b1[c * kHid + n]);
-        const float bb1 = __bfloat162float(b1[c * kHid + n + 1]);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = lw * 16 + g + hr * 8;
-          const float h0 = round_bf16(round_bf16(acc1[4 * j + 2 * hr]) + bb0);
-          const float h1 = round_bf16(round_bf16(acc1[4 * j + 2 * hr + 1]) + bb1);
-          *reinterpret_cast<__nv_bfloat162*>(sH + swz(r, n)) =
-              __floats2bfloat162_rn(gelu_tanh(h0), gelu_tanh(h1));
-        }
-      }
-    }
-    fence_proxy_async();
-    named_barrier(1, 256);  // both halves of the chunk are in sH
-#pragma unroll
-    for (int kt = 0; kt < kHid / 64; ++kt) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        ktile_product<NQ>(acc2[q], sH + kt * kTile, take());
-        release();
-      }
-    }
-  }
-
+  float acc2[2][C / 8];
+  tail_mlp<C, kInFlight>(sA, sU, b1, acc2, rank, split, nchunks, rc);
   stamp(4);
-
-  // out = x1 + (round(h W2^T) + b2)
-  if (split == 1) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-#pragma unroll
-      for (int j = 0; j < NQ / 8; ++j) {
-        const int n = w * (C / 2) + q * NQ + j * 8 + t2;
-        const float bb0 = __bfloat162float(b2[n]), bb1 = __bfloat162float(b2[n + 1]);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = lw * 16 + g + hr * 8;
-          if (row0 + r < rows) {
-            const float2 x1 =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sX + swz(r, n)));
-            const float y0 = round_bf16(round_bf16(acc2[q][4 * j + 2 * hr]) + bb0);
-            const float y1 = round_bf16(round_bf16(acc2[q][4 * j + 2 * hr + 1]) + bb1);
-            *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row0 + r) * C + n) =
-                __floats2bfloat162_rn(x1.x + y0, x1.y + y1);
-          }
-        }
-      }
-    }
-  } else {
-    // The partial sums go to shared memory (sU and the ring are free once
-    // both warpgroups are past their last product); after the cluster
-    // barrier each CTA adds up one slice of the tile's column pairs over
-    // the cluster, in rank order.
-    named_barrier(1, 256);
-    float* red = reinterpret_cast<float*>(sU);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-#pragma unroll
-      for (int j = 0; j < NQ / 8; ++j) {
-        const int n = w * (C / 2) + q * NQ + j * 8 + t2;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = lw * 16 + g + hr * 8;
-          *reinterpret_cast<float2*>(red + r * P::LDR + n) =
-              make_float2(acc2[q][4 * j + 2 * hr], acc2[q][4 * j + 2 * hr + 1]);
-        }
-      }
-    }
-    cluster_sync();
-    constexpr int kPairs = kBlkRows * C / 2;
-    const int per = (kPairs + split - 1) / split;
-    const int stop = min(kPairs, (rank + 1) * per);
-    for (int pr = rank * per + tid; pr < stop; pr += 256) {
-      const int r = pr / (C / 2), n = pr % (C / 2) * 2;
-      float2 sum = make_float2(0.f, 0.f);
-      for (int j = 0; j < split; ++j) {
-        const float2 v = ld_cluster_f2(red + r * P::LDR + n, j);
-        sum.x += v.x;
-        sum.y += v.y;
-      }
-      if (row0 + r < rows) {
-        const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sX + swz(r, n)));
-        const float y0 = round_bf16(round_bf16(sum.x) + __bfloat162float(b2[n]));
-        const float y1 = round_bf16(round_bf16(sum.y) + __bfloat162float(b2[n + 1]));
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row0 + r) * C + n) =
-            __floats2bfloat162_rn(x1.x + y0, x1.y + y1);
-      }
-    }
-    cluster_sync();  // no CTA leaves while another still reads its partials
-  }
+  tail_output<C, kSplit>(acc2, sX, reinterpret_cast<float*>(sU), b2, out, row0, rows, rank,
+                         split);
   stamp(5);
   if (stamps) {
-    clocks[8 * w + 6] = waited;
-    clocks[8 * w + 7] = taken;
+    clocks[8 * w + 6] = rc.waited;
+    clocks[8 * w + 7] = rc.taken;
   }
-}
-
-// A [rows_, cols] row-major bf16 weight as a 2D tensor map of 64-column,
-// box_rows-row boxes.
-bool weight_map(CUtensorMap* map, const bf16* w, int rows_, int cols, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows_)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  return make_tensor_map<64>(map, w, 2, dims, strides, box);
 }
 
 template <int C>
@@ -555,8 +305,8 @@ int launch_block(const bf16* x, const bf16* wqkv, const bf16* bqkv, const bf16* 
   using P = BlockPlan<C>;
   using Kernel = decltype(&attn_block_kernel<C, false, false>);
   CUtensorMap m_qkv, m_out, m_w1, m_w2;
-  if (!weight_map(&m_qkv, wqkv, 3 * C, C, P::D) || !weight_map(&m_out, wout, C, C, P::NQ) ||
-      !weight_map(&m_w1, w1, hidden, C, kHid / 2) || !weight_map(&m_w2, w2, C, hidden, P::NQ))
+  if (!matrix_map(&m_qkv, wqkv, 3 * C, C, P::D) || !matrix_map(&m_out, wout, C, C, P::NQ) ||
+      !matrix_map(&m_w1, w1, hidden, C, kHid / 2) || !matrix_map(&m_w2, w2, C, hidden, P::NQ))
     return -2;
   static bool configured = false;
   if (!configured) {

@@ -8,28 +8,58 @@
 // and the same bf16 rounding points as the TPU kernel: the context LN is
 // rounded to bf16 before its affine, and the affine runs in bf16
 // (cn = round(round(ln(ctx) * gamma) + beta)); each product is rounded to
-// bf16 before its bias add; logits and softmax are f32 with the scale on the
-// f32 logits; the residual is re-based on the normalized query; GELU is the
-// tanh form on bf16 values.
+// bf16 before its bias add, and the sum is rounded again; logits and softmax
+// are f32 with the scale on the f32 logits; the residual is re-based on the
+// normalized query; GELU is the tanh form on bf16 values.
 //
 // What bounds it on the H100: the matmuls. FLOPs = 2C*(Rq*(2C + 2*hidden) +
 // Rk*2C) + 4*Rq*Lk*C for Rq = B*Lq query rows and Rk = B*Lk context rows,
-// against 2*(2*Rq*C + Rk*C + 4C^2 + 2C*hidden) bytes.
+// against 2*(2*Rq*C + Rk*C + 4C^2 + 2C*hidden) bytes. At the update-former's
+// shapes a CTA's chain of wgmma groups sets the time, and at virtual<-point
+// (16 query tiles) so does the number of SMs the tiles can reach.
 //
-// What the design does about it: one sequence's normalized context (512 x
-// 384 bf16 = 384 KB for virtual<-point) does not fit the 227 KB of shared
-// memory, so the kernel runs in two launches on one stream:
-//  1. cross_kv_kernel: LN_ctx with its affine, then the kv projection, over
-//     64-row tiles of all context rows; K and V go to a bf16 [Rk, 2C]
-//     scratch in global memory (the TPU kernel's own rounding point). This
-//     also keeps point<-virtual from recomputing one sequence's 64-row kv
-//     projection in each of its 8 query CTAs.
-//  2. cross_block_kernel: per 64 query rows, K2's layout and weight ring
-//     (block_common.cuh): LN1, the q projection one head at a time,
-//     attention over 64-key K/V tiles streamed through a two-stage cp.async
-//     ring with an online f32 softmax, then K2's tail (out-projection plus
-//     residual, LN2, MLP, residual).
-// All products run on bf16 mma.sync m16n8k16 with f32 accumulators.
+// The design. One sequence's normalized context (512 x 384 bf16 = 384 KB
+// for virtual<-point) does not fit the 227 KB of shared memory, so the block
+// runs in two launches on one stream; both are built like K2 (block.cu): two
+// consumer warpgroups run every product on wgmma from a ring of tiles that
+// one producer thread fills by TMA, with the activations as 128-byte
+// swizzled K-major operands in shared memory.
+//  1. cross_kv_kernel: per 64 context rows (TMA), LN_ctx with its affine
+//     once, then K and V (N = 2C) in passes of C/4 columns; K and V go to a
+//     bf16 [Rk, 2C] scratch in global memory (the TPU kernel's own rounding
+//     point). Where the row tiles cannot fill the card, gridDim.y splits the
+//     passes into column groups (ops/block.py::cross_kv_groups), each of
+//     which recomputes the LN.
+//  2. cross_block_kernel: per 64 query rows (TMA), ln1; then per head the q
+//     projection (N = D) into registers, which are the A operand of S = Q K^T
+//     on wgmma over 64-key tiles brought by TMA from the kv scratch through a
+//     3D tensor map (columns, Lk, B: keys past Lk load as zero, in D / W
+//     boxes of W columns as K1 reads a head); the online f32 softmax in the
+//     log2 domain, masked only on the last key tile; P V on the register-A
+//     wgmma. The two warpgroups take one head each; then K2's tail
+//     (block_common.cuh). Weight and K/V tiles share one ring, in the order
+//     the consumers take them.
+// Where Lq < 64 or Lq % 64 != 0 a tile holds rows of several sequences: the
+// attention runs once per sequence in the tile over all 64 rows (every row
+// sees a valid key, so no row is all masked), and each row keeps the pass of
+// its own sequence; rows past B*Lq take the last sequence's and are not
+// written out.
+//
+// Where too few 64-row tiles exist to fill the card (virtual<-point: 16), a
+// cluster of `split` CTAs shares each tile (ops/block.py::cross_split):
+// rank r computes q and attention only for the heads h with h % split == r
+// (at split 8 one head, its keys halved between the warpgroups and the two
+// online-softmax states merged), and sends its attention columns into every
+// peer's sA through distributed shared memory (st.async, counted in bytes on
+// the peer's mbarrier); then every CTA runs the out-projection and ln2, and
+// only the hidden chunks c with c % split == r, the fc2 partial sums meeting
+// in distributed shared memory as in K2. The split is one whose clusters the
+// card holds all at once (at 214 KB of shared memory per CTA an H100 holds
+// 15 clusters of 8, so virtual<-point takes 4).
+//
+// Instances per width: launch 2 with kSplit false (split 1), kSplit true (a
+// cluster) and kTimed, which records where CTA 0 spends its cycles (see
+// comet_cross_block_fwd); the forward's instances carry no counters.
 #include <cmath>
 
 #include "block_common.cuh"
@@ -37,326 +67,673 @@
 namespace comet {
 namespace {
 
-constexpr int kBK = 64;  // keys per K/V tile
+constexpr int kKeys = 64;        // keys per K/V tile
+constexpr int kKvStages = 12;    // ring depth of launch 1
+constexpr int kCrossStages = 8;  // ring depth of launch 2
+// wgmma groups in flight per warpgroup in the weight products (1 or 2; a
+// build switch for measurement)
+#ifndef COMET_K4_IN_FLIGHT
+#define COMET_K4_IN_FLIGHT 2
+#endif
+constexpr int kInFlight = COMET_K4_IN_FLIGHT;
+// Where a cluster shares a tile, whether each rank computes only its
+// C / split columns of the out-projection and sends them to its peers (1),
+// or every rank all of them (0); a build switch for measurement
+#ifndef COMET_K4_OUT_SPLIT
+#define COMET_K4_OUT_SPLIT 1
+#endif
 
-// ---- launch 1: LN_ctx (affine) + kv projection ----------------------------
-
-template <int C>
-constexpr int kv_smem_bytes() {
-  return (kRows * (C + 8) + 2 * C * kLDW) * static_cast<int>(sizeof(bf16));
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db, 1);
+  if constexpr (N == 48) wgmma_rs_n48(d, a, db, 1);
 }
 
-// grid (ceil(Rk / 64), 2): blockIdx.y = 0 writes K, 1 writes V.
 template <int C>
-__global__ void __launch_bounds__(kThreads, 1) cross_kv_kernel(
-    const bf16* __restrict__ ctx, const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
-    const bf16* __restrict__ wkv, const bf16* __restrict__ bkv, bf16* __restrict__ kv, int rk) {
-  constexpr int LDX = C + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sX = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sW = sX + kRows * LDX;
+struct CrossPlan {
+  static constexpr int H = 8;
+  static constexpr int D = C / H;
+  static constexpr int NQ = C / 4;  // columns of one product pass
+  static constexpr int W = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);  // K/V box columns
+  static constexpr int NCH = D / W;                                      // boxes per head
+  static constexpr int x_bytes = kBlkRows * C * 2;
+  static constexpr int h_bytes = kBlkRows * kHid * 2;  // one GELU'd hidden chunk
+  static constexpr int kv_bytes = 2 * kKeys * D * 2;   // K and V of one head's key tile
+  static constexpr int stage_bytes = NQ * 128 > kv_bytes ? NQ * 128 : kv_bytes;
+  static_assert(stage_bytes % 1024 == 0 && D * 128 <= stage_bytes, "ring stages");
+  // launch 1: LN_ctx, then its ring
+  static constexpr int kv_bar_offset = x_bytes + kKvStages * stage_bytes;
+  static constexpr int kv_smem = 1024 + kv_bar_offset + (1 + 2 * kKvStages) * 8;
+  // launch 2: sX, sA, sH, then its ring
+  static constexpr int ring_offset = 2 * x_bytes + h_bytes;
+  static constexpr int bar_offset = ring_offset + kCrossStages * stage_bytes;
+  static constexpr int smem = 1024 + bar_offset + (3 + 2 * kCrossStages) * 8;
+  static_assert(kBlkRows * (C + 8) * 4 <= h_bytes + kCrossStages * stage_bytes, "partials fit");
+  static_assert(128 * (D / 2 + 4) * 4 <= h_bytes, "a warpgroup's softmax state fits sH");
+};
+
+// ---- launch 1: LN_ctx (affine) + kv projection -----------------------------
+
+// grid (ceil(Rk / 64), groups): CTA (x, y) takes context rows 64 x .. and the
+// passes y * 8 / groups .. of the 8 passes of C/4 columns that make up K and
+// V; warpgroup w takes every other one.
+template <int C, bool kTimed>
+__global__ void __launch_bounds__(kBlkThreads, 1) cross_kv_kernel(
+    const __grid_constant__ CUtensorMap m_ctx, const __grid_constant__ CUtensorMap m_wkv,
+    const bf16* __restrict__ gamma, const bf16* __restrict__ beta, const bf16* __restrict__ bkv,
+    bf16* __restrict__ kv, int rk, int groups, long long* __restrict__ clocks) {
+  using P = CrossPlan<C>;
+  constexpr int NQ = P::NQ, KT = C / 64, S = kKvStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* sA = reinterpret_cast<bf16*>(base);  // ctx, then LN_ctx(ctx)
+  bf16* ring = reinterpret_cast<bf16*>(base + P::x_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::kv_bar_offset);
+  uint64_t* empty = full + S;
+  uint64_t* xbar = empty + S;
+
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int row0 = blockIdx.x * kRows;
-  const int which = blockIdx.y;
-
-  for (int i = tid; i < kRows * (C / 8); i += kThreads) {
-    const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-    const bool ok = row0 + r < rk;
-    cp_async16(sX + r * LDX + c, ctx + (ok ? (long long)(row0 + r) * C : 0) + c, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  layer_norm_rows<C>(sX, sX, LDX);
-  __syncthreads();
-  // the affine in bf16, as the TPU kernel: round(round(ln * gamma) + beta)
-  for (int i = tid; i < kRows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    const float y = round_bf16(__bfloat162float(sX[r * LDX + c]) * __bfloat162float(gamma[c]));
-    sX[r * LDX + c] = __float2bfloat16(y + __bfloat162float(beta[c]));
-  }
-  __syncthreads();
-
-  constexpr int NT = C / 16;
-  float acc[NT][4];
-  zero_acc(acc);
-  gemm_awt<NT>(sX, LDX, C, wkv, C, C, which * C, 0, 0, sW, acc);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = wn * NT * 8 + j * 8 + t2;
-    const float bb0 = __bfloat162float(bkv[which * C + n]);
-    const float bb1 = __bfloat162float(bkv[which * C + n + 1]);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = wm * 16 + g + hr * 8;
-      if (row0 + r < rk)
-        *reinterpret_cast<__nv_bfloat162*>(kv + (long long)(row0 + r) * 2 * C + which * C + n) =
-            __floats2bfloat162_rn(round_bf16(acc[j][2 * hr]) + bb0,
-                                  round_bf16(acc[j][2 * hr + 1]) + bb1);
+  const int row0 = blockIdx.x * kBlkRows;
+  const int npass = 8 / groups, pass0 = blockIdx.y * npass;
+  const bool timed = kTimed && blockIdx.x == 0 && blockIdx.y == 0;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);
     }
+    mbar_init(xbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const uint32_t t_start = kTimed ? clock32() : 0;
+
+  if (warp >= 8) {
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(xbar, P::x_bytes);
+      for (int kt = 0; kt < KT; ++kt) tma_load_2d(sA + kt * kTile, &m_ctx, xbar, kt * 64, row0);
+      RingProducer<S> pr{ring, full, empty, P::stage_bytes / 2, 0, 0, false};
+      uint64_t* bar;
+      for (int p = 0; p < npass; p += 2)
+        for (int kt = 0; kt < KT; ++kt)
+          for (int w = 0; w < 2; ++w) {
+            bf16* dst = pr.acquire(NQ * 128, &bar);
+            tma_load_2d(dst, &m_wkv, bar, kt * 64, (pass0 + p + w) * NQ);
+          }
+    }
+    return;
+  }
+
+  const int w = warp >> 2, lw = warp & 3;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  RingConsumer<S> rc{ring, full, empty, P::stage_bytes / 2, w, w, 0, 0, timed};
+  mbar_wait(xbar, 0);
+  layer_norm_swizzled<C, 4>([&](int r, int col) { return __bfloat162float(sA[swz(r, col)]); }, sA,
+                         gamma, beta);
+  fence_proxy_async();
+  named_barrier(1, 256);
+  if (timed && tid == 0) clocks[26] = clock32() - t_start;
+
+  for (int p = w; p < npass; p += 2) {
+    float acc[NQ / 2];
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) acc[i] = 0.f;
+    ring_product<NQ, kInFlight>(acc, sA, KT, rc);
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j) {
+      const int n = (pass0 + p) * NQ + j * 8 + t2;
+      const float bb0 = __bfloat162float(bkv[n]), bb1 = __bfloat162float(bkv[n + 1]);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = lw * 16 + g + hr * 8;
+        if (row0 + r < rk)
+          *reinterpret_cast<__nv_bfloat162*>(kv + (long long)(row0 + r) * 2 * C + n) =
+              __floats2bfloat162_rn(round_bf16(acc[4 * j + 2 * hr]) + bb0,
+                                    round_bf16(acc[4 * j + 2 * hr + 1]) + bb1);
+      }
+    }
+  }
+  if (timed && tid == 0) {
+    clocks[27] = clock32() - t_start;
+    clocks[28] = rc.waited;
+    clocks[29] = rc.taken;
   }
 }
 
 // ---- launch 2: the query side and the rest of the block --------------------
 
-template <int C, int D>
-struct CrossSmem {
-  static constexpr int LDX = C + 8;
-  static constexpr int LDQ = D + 8;
-  static constexpr int x_elems = kRows * LDX;           // x -> ln1(x) -> x1
-  static constexpr int a_elems = kRows * LDX;           // attention out -> ln2(x1)
-  static constexpr int w_elems = 2 * C * kLDW;          // weight ring, N <= C rows
-  static constexpr int att_elems = (kRows + 4 * kBK) * LDQ;  // q of one head, K/V ring
-  static constexpr int h_elems = kRows * kLDH;          // one MLP hidden chunk
-  static constexpr int u_elems = att_elems > h_elems ? att_elems : h_elems;
-  static constexpr int bytes =
-      (x_elems + a_elems + w_elems + u_elems) * static_cast<int>(sizeof(bf16));
-};
+// x1 = xn + (round(a Wout^T) + bout) for columns col0 + w NS .. + NS of
+// warpgroup w, in place in sX.
+template <int C, int NS, int G, int S>
+__device__ __forceinline__ void out_projection_columns(bf16* sX, const bf16* sA,
+                                                       const bf16* __restrict__ bout, int col0,
+                                                       RingConsumer<S>& ring) {
+  const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  float acc[NS / 2];
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) acc[i] = 0.f;
+  ring_product<NS, G>(acc, sA, C / 64, ring);
+#pragma unroll
+  for (int j = 0; j < NS / 8; ++j) {
+    const int n = col0 + ring.w * NS + j * 8 + t2;
+    const float bb0 = __bfloat162float(bout[n]), bb1 = __bfloat162float(bout[n + 1]);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = lw * 16 + g + hr * 8;
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(sX + swz(r, n));
+      const float2 xn = __bfloat1622float2(*p);
+      const float y0 = round_bf16(round_bf16(acc[4 * j + 2 * hr]) + bb0);
+      const float y1 = round_bf16(round_bf16(acc[4 * j + 2 * hr + 1]) + bb1);
+      *p = __floats2bfloat162_rn(xn.x + y0, xn.y + y1);
+    }
+  }
+}
 
-template <int C, int D>
-__global__ void __launch_bounds__(kThreads, 1) cross_block_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16* __restrict__ wq,
-    const bf16* __restrict__ bq, const bf16* __restrict__ wout, const bf16* __restrict__ bout,
-    const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-    const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int Lq, int Lk, int hidden,
-    float scale_log2) {
-  using S = CrossSmem<C, D>;
-  constexpr int H = C / D;
-  constexpr int LDX = S::LDX, LDQ = S::LDQ;
-  constexpr int CPR = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sX = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sA = sX + S::x_elems;
-  bf16* sW = sA + S::a_elems;
-  bf16* sU = sW + S::w_elems;  // q of one head and the K/V ring, later an MLP chunk
-  bf16* sQ = sU;
-  bf16* sK = sQ + kRows * LDQ;  // [2][kBK][LDQ]
-  bf16* sV = sK + 2 * kBK * LDQ;
-  bf16* sH = sU;
+// The same for the D columns col0 .. at split 8: warpgroup w sums over
+// k-tiles w KT/2 .., and warpgroup 1's f32 sums reach warpgroup 0 through
+// `part` ([D / 2][128] f32), which adds them and writes x1.
+template <int C, int G, int S>
+__device__ __forceinline__ void out_projection_halves(bf16* sX, const bf16* sA,
+                                                      const bf16* __restrict__ bout, int col0,
+                                                      float* part, RingConsumer<S>& ring) {
+  constexpr int D = C / 8, KT = C / 64;
+  const int t = threadIdx.x & 127, lane = t & 31, lw = t >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  ring_product<D, G>(acc, sA + ring.w * (KT / 2) * kTile, KT / 2, ring);
+  if (ring.w == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) part[i * 128 + t] = acc[i];
+  }
+  named_barrier(1, 256);
+  if (ring.w == 1) return;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int n = col0 + j * 8 + t2;
+    const float bb0 = __bfloat162float(bout[n]), bb1 = __bfloat162float(bout[n + 1]);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = lw * 16 + g + hr * 8, i = 4 * j + 2 * hr;
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(sX + swz(r, n));
+      const float2 xn = __bfloat1622float2(*p);
+      const float y0 = round_bf16(round_bf16(acc[i] + part[i * 128 + t]) + bb0);
+      const float y1 = round_bf16(round_bf16(acc[i + 1] + part[(i + 1) * 128 + t]) + bb1);
+      *p = __floats2bfloat162_rn(xn.x + y0, xn.y + y1);
+    }
+  }
+}
+
+template <int C, bool kSplit, bool kTimed>
+__global__ void __launch_bounds__(kBlkThreads, 1) cross_block_kernel(
+    const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_kv,
+    const __grid_constant__ CUtensorMap m_q, const __grid_constant__ CUtensorMap m_out,
+    const __grid_constant__ CUtensorMap m_outd, const __grid_constant__ CUtensorMap m_w1,
+    const __grid_constant__ CUtensorMap m_w2, const bf16* __restrict__ bq,
+    const bf16* __restrict__ bout, const bf16* __restrict__ b1, const bf16* __restrict__ b2,
+    bf16* __restrict__ out, int rows, int Lq, int Lk, int hidden,
+    float scale_log2, int split_arg, long long* __restrict__ clocks) {
+  using P = CrossPlan<C>;
+  constexpr int D = P::D, H = P::H, W = P::W, NCH = P::NCH, KT = C / 64, S = kCrossStages;
+  constexpr uint32_t SBO = 8 * W * 2;  // bytes between 8-row groups of a K/V box
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* sX = reinterpret_cast<bf16*>(base);                   // x, ln1(x), then x1
+  bf16* sA = reinterpret_cast<bf16*>(base + P::x_bytes);      // attention out, then ln2(x1)
+  bf16* sH = reinterpret_cast<bf16*>(base + 2 * P::x_bytes);  // an MLP chunk
+  bf16* ring = reinterpret_cast<bf16*>(base + P::ring_offset);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::bar_offset);
+  uint64_t* empty = full + S;
+  uint64_t* xbar = empty + S;  // the x tile has landed
+  uint64_t* xchg = xbar + 1;   // the other ranks' attention columns have landed
+  uint64_t* xchg2 = xchg + 1;  // the other ranks' out-projection columns have landed
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int row0 = blockIdx.x * kRows;
-  const int ntiles = (Lk + kBK - 1) / kBK;
+  const int split = kSplit ? split_arg : 1;
+  const int rank = kSplit ? blockIdx.x % split : 0;  // rank in the cluster that shares the tile
+  const int row0 = blockIdx.x / split * kBlkRows;
+  const int nchunks = hidden / kHid;
+  const int ntiles = (Lk + kKeys - 1) / kKeys;
   const int seq_first = row0 / Lq;
-  const int seq_last = ((row0 + kRows < rows ? row0 + kRows : rows) - 1) / Lq;
-
-  // x -> sX (rows past the end are zero), then ln1 in place.
-  for (int i = tid; i < kRows * (C / 8); i += kThreads) {
-    const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async16(sX + r * LDX + c, x + (ok ? (long long)(row0 + r) * C : 0) + c, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  layer_norm_rows<C>(sX, sX, LDX);
-  __syncthreads();
-
-  for (int h = 0; h < H; ++h) {
-    // q of head h: round(ln1(x) Wq_h^T) + bq_h -> sQ
-    {
-      constexpr int NT = D / 16;
-      float acc[NT][4];
-      zero_acc(acc);
-      gemm_awt<NT>(sX, LDX, C, wq, C, D, h * D, 0, 0, sW, acc);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = wn * NT * 8 + j * 8 + t2;
-        const float bb0 = __bfloat162float(bq[h * D + n]);
-        const float bb1 = __bfloat162float(bq[h * D + n + 1]);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = wm * 16 + g + hr * 8;
-          *reinterpret_cast<__nv_bfloat162*>(sQ + r * LDQ + n) = __floats2bfloat162_rn(
-              round_bf16(acc[j][2 * hr]) + bb0, round_bf16(acc[j][2 * hr + 1]) + bb1);
-        }
-      }
+  const int seq_last = (min(row0 + kBlkRows, rows) - 1) / Lq;
+  // this rank's heads rank, rank + split, ...; with one head (split == H)
+  // both warpgroups take it, each one half of its key tiles
+  const int nh = H / split;
+  const bool halves = nh == 1;
+  const int half = (ntiles + 1) / 2;
+  const bool out_split = COMET_K4_OUT_SPLIT && split > 1;
+  const int out0 = rank * (C / split);  // this rank's out-projection columns, if split
+  const bool timed = kTimed && blockIdx.x == 0;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);  // the owning warpgroup's 4 warps
     }
-    __syncthreads();
+    mbar_init(xbar, 1);
+    if (split > 1) {  // the other ranks' heads: 64 rows x D columns each
+      mbar_init(xchg, 1);
+      mbar_expect_tx(xchg, (H - nh) * kBlkRows * D * 2);
+    }
+    if (out_split) {  // the other ranks' x1 columns
+      mbar_init(xchg2, 1);
+      mbar_expect_tx(xchg2, (C - C / split) * kBlkRows * 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (kSplit) cluster_sync();  // every CTA of the cluster has started, its barriers initialised
+  const uint32_t t_start = kTimed ? clock32() : 0;
 
-    // The CTA's rows cover one sequence or a few whole ones (Lq % 16 == 0,
-    // so each warp's 16 rows lie in one). For each sequence the whole CTA
-    // streams its K/V tiles; the warps whose rows belong to it attend.
-    for (int seq = seq_first; seq <= seq_last; ++seq) {
-      const int wrow = row0 + warp * 16;
-      const bool active = warp < 4 && wrow < rows && wrow / Lq == seq;
-      const bf16* kg = kv + (long long)seq * Lk * 2 * C + h * D;
-      const bf16* vg = kg + C;
-      auto load_kv = [&](int tile, int stage) {
-        bf16* dk = sK + stage * kBK * LDQ;
-        bf16* dv = sV + stage * kBK * LDQ;
-        for (int i = tid; i < kBK * CPR; i += kThreads) {
-          const int r = i / CPR, c = (i % CPR) * 8;
-          const int key = tile * kBK + r;
-          const bool ok = key < Lk;
-          const long long off = ok ? (long long)key * 2 * C : 0;
-          cp_async16(dk + r * LDQ + c, kg + off + c, ok);
-          cp_async16(dv + r * LDQ + c, vg + off + c, ok);
+  if (warp >= 8) {  // producer: one thread issues every tile, in the consumers' order
+    setmaxnreg_dec<40>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(xbar, P::x_bytes);
+      for (int kt = 0; kt < KT; ++kt) tma_load_2d(sX + kt * kTile, &m_x, xbar, kt * 64, row0);
+      RingProducer<S> pr{ring, full, empty, P::stage_bytes / 2, 0, 0, timed};
+      uint64_t* bar;
+      auto kv_tile = [&](int h, int seq, int t) {
+        bf16* dst = pr.acquire(P::kv_bytes, &bar);
+        for (int ch = 0; ch < NCH; ++ch) {
+          tma_load_3d(dst + ch * kKeys * W, &m_kv, bar, h * D + ch * W, t * kKeys, seq);
+          tma_load_3d(dst + kKeys * D + ch * kKeys * W, &m_kv, bar, C + h * D + ch * W,
+                      t * kKeys, seq);
         }
       };
-      load_kv(0, 0);
-      cp_async_commit();
-
-      uint32_t qf[D / 16][4];
-      if (active) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LDQ + kk * 16 + (lane >> 4) * 8);
+      for (int p = 0; p < (halves ? 1 : nh / 2); ++p) {
+        const int h0 = rank + (halves ? 0 : 2 * p * split);
+        const int h1 = halves ? h0 : h0 + split;
+        for (int kt = 0; kt < KT; ++kt)
+          for (int w = 0; w < 2; ++w) {
+            bf16* dst = pr.acquire(D * 128, &bar);
+            tma_load_2d(dst, &m_q, bar, kt * 64, (w ? h1 : h0) * D);
+          }
+        for (int seq = seq_first; seq <= seq_last; ++seq) {
+          if (halves) {
+            for (int j = 0; j < half; ++j) {
+              kv_tile(h0, seq, j);
+              if (half + j < ntiles) kv_tile(h0, seq, half + j);
+            }
+          } else {
+            for (int t = 0; t < ntiles; ++t) {
+              kv_tile(h0, seq, t);
+              kv_tile(h1, seq, t);
+            }
+          }
+        }
       }
-      float o[D / 8][4];
-      zero_acc(o);
+      if (out_split && split < H) {
+        const int ns = C / split / 2;  // a warpgroup's columns, in boxes of D rows
+        for (int kt = 0; kt < KT; ++kt)
+          for (int w = 0; w < 2; ++w) {
+            bf16* dst = pr.acquire(ns * 128, &bar);
+            for (int seg = 0; seg < ns / D; ++seg)
+              tma_load_2d(dst + seg * D * 64, &m_outd, bar, kt * 64, out0 + w * ns + seg * D);
+          }
+      } else if (out_split) {  // D columns, warpgroup w over k-tiles w KT/2 ..
+        for (int kt = 0; kt < KT / 2; ++kt)
+          for (int w = 0; w < 2; ++w) {
+            bf16* dst = pr.acquire(D * 128, &bar);
+            tma_load_2d(dst, &m_outd, bar, (w * (KT / 2) + kt) * 64, out0);
+          }
+      } else {
+        produce_out_projection<C>(pr, &m_out);
+      }
+      produce_mlp<C>(pr, &m_w1, &m_w2, rank, split, nchunks);
+      if (timed) {
+        clocks[24] = pr.waited;
+        clocks[25] = clock32() - t_start;
+      }
+    }
+    if (split > 1) {  // the consumers' two cluster barriers in tail_output
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // consumers: warpgroup w, its warp lw owns rows 16 lw .. 16 lw + 15 of every
+  // 64-row accumulator
+  setmaxnreg_inc<232>();
+  const int w = warp >> 2, lw = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3, t2 = t4 * 2;
+  RingConsumer<S> rc{ring, full, empty, P::stage_bytes / 2, w, w, 0, 0, timed};
+  const bool stamps = timed && tid % 128 == 0;
+  auto stamp = [&](int at) {
+    if (stamps) clocks[12 * w + at] = clock32() - t_start;
+  };
+  // the sequence whose attention row r keeps (rows past the end: the last)
+  auto row_seq = [&](int r) { return min(row0 + r, rows - 1) / Lq; };
+
+  // ln1(x) -> sX, in place (rows past the end are zero and stay finite)
+  mbar_wait(xbar, 0);
+  layer_norm_swizzled<C, 4>([&](int r, int col) { return __bfloat162float(sX[swz(r, col)]); }, sX);
+  fence_proxy_async();
+  named_barrier(1, 256);
+  stamp(0);
+  const uint32_t waited_before = rc.waited;
+
+  float* state = reinterpret_cast<float*>(sH);  // warpgroup 1's softmax state, [D/2 + 4][128]
+  for (int p = 0; p < (halves ? 1 : nh / 2); ++p) {
+    const int h = rank + (halves ? 0 : (2 * p + w) * split);
+    // q of head h: round(round(ln1(x) Wq_h^T) + bq_h), kept as bf16 A fragments
+    uint32_t qa[D / 16][4];
+    {
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      ring_product<D, kInFlight>(acc, sX, KT, rc);
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 2) {
+        const int n = h * D + 8 * (i >> 2) + t2;
+        acc[i] = round_bf16(acc[i]) + __bfloat162float(bq[n]);
+        acc[i + 1] = round_bf16(acc[i + 1]) + __bfloat162float(bq[n + 1]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          qa[kk][e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+      }
+    }
+
+    for (int seq = seq_first; seq <= seq_last; ++seq) {
+      // this warpgroup's key tiles t_lo .. t_lo + n - 1 of the sequence; its
+      // j-th is ring tile first + 2 j + w
+      const int t_lo = halves && w ? half : 0;
+      const int n = halves ? (w ? ntiles - half : half) : ntiles;
+      const int first = rc.next - w;
+      float oacc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
       float m_run[2] = {-INFINITY, -INFINITY};
       float l_run[2] = {0.f, 0.f};
-
-      for (int t = 0; t < ntiles; ++t) {
-        if (t + 1 < ntiles) {
-          load_kv(t + 1, (t + 1) & 1);
-          cp_async_commit();
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
+      float sacc[32];     // S of the current tile, later its exponentials
+      uint32_t pa[4][4];  // P of the current tile as bf16 A fragments
+      auto issue_s = [&](int j) {
+        const bf16* cK = rc.wait(first + 2 * j + w);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ch = kk * 16 / W, off = kk * 16 % W;
+          wgmma_rs_n64_kmajor(sacc, qa[kk], make_desc<W>(cK + ch * kKeys * W + off, 16, SBO),
+                              kk > 0);
         }
-        __syncthreads();
-        if (active) {
-          const bf16* cK = sK + (t & 1) * kBK * LDQ;
-          const bf16* cV = sV + (t & 1) * kBK * LDQ;
-          float s[8][4];
-          zero_acc(s);
+        wgmma_commit();
+      };
+      if (n > 0) {
+        // K1's loop: tile j's softmax runs while P V of tile j - 1 is in
+        // flight, and S of tile j + 1 is issued before P V of tile j.
+        issue_s(0);
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        for (int j = 0; j < n; ++j) {
+          const int t = t_lo + j;
+          if ((t + 1) * kKeys > Lk) {
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-            for (int p = 0; p < 4; ++p) {
-              uint32_t bk[4];
-              ldmatrix_x4(bk, cK + (p * 16 + (lane & 7) + (lane >> 4) * 8) * LDQ + kk * 16 +
-                                  ((lane >> 3) & 1) * 8);
-              mma_bf16(s[2 * p], qf[kk], bk[0], bk[1]);
-              mma_bf16(s[2 * p + 1], qf[kk], bk[2], bk[3]);
+            for (int i = 0; i < 32; ++i) {
+              const int key = t * kKeys + (i >> 2) * 8 + t2 + (i & 1);
+              if (key >= Lk) sacc[i] = -INFINITY;
             }
           }
-          // online softmax in the log2 domain; keys past Lk get -inf
           float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int key = t * kBK + j * 8 + t2 + (e & 1);
-              s[j][e] = key < Lk ? s[j][e] * scale_log2 : -INFINITY;
-              mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-            }
-          }
-          float alpha[2];
+          for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+          float alpha[2], msc[2];
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             mx[r] = quad_max(mx[r]);
-            alpha[r] = exp2f(m_run[r] - mx[r]);
+            alpha[r] = exp2f((m_run[r] - mx[r]) * scale_log2);
             m_run[r] = mx[r];
+            msc[r] = mx[r] * scale_log2;
             l_run[r] *= alpha[r];
           }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              s[j][e] = exp2f(s[j][e] - m_run[e >> 1]);
-              l_run[e >> 1] += s[j][e];
-            }
+          for (int i = 0; i < 32; ++i) {
+            sacc[i] = exp2f(fmaf(sacc[i], scale_log2, -msc[(i >> 1) & 1]));
+            l_run[(i >> 1) & 1] += sacc[i];
           }
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            o[j][0] *= alpha[0];
-            o[j][1] *= alpha[0];
-            o[j][2] *= alpha[1];
-            o[j][3] *= alpha[1];
-          }
+          wgmma_wait<0>();  // P V of tile j - 1 is done: its stage is free
+          fence_regs(oacc);
+          if (j > 0) rc.release(first + 2 * (j - 1) + w);
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-            pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-            pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-            for (int dp = 0; dp < D / 16; ++dp) {
-              uint32_t bv[4];
-              ldmatrix_x4_trans(bv, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDQ +
-                                        dp * 16 + (lane >> 4) * 8);
-              mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-              mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
-            }
+            for (int e = 0; e < 4; ++e)
+              pa[kk][e] = pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+          }
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+          if (j + 1 < n) issue_s(j + 1);
+          const bf16* cV = ring + ((first + 2 * j + w) % S) * (P::stage_bytes / 2) + kKeys * D;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_pv<D>(oacc, pa[kk], make_desc<W>(cV + kk * 16 * W, kKeys * W * 2, SBO));
+          wgmma_commit();
+          wgmma_wait<1>();  // S of tile j + 1 (committed first) is done
+          fence_regs(sacc);
+        }
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        rc.release(first + 2 * (n - 1) + w);
+      }
+      rc.next = first + (halves ? ntiles : 2 * ntiles) + w;
+
+      if (halves) {
+        // merge warpgroup 1's state into warpgroup 0's (thread t of either
+        // holds the same rows and columns)
+        const int t = tid & 127;
+        if (w == 1) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) state[i * 128 + t] = oacc[i];
+          state[(D / 2) * 128 + t] = m_run[0];
+          state[(D / 2 + 1) * 128 + t] = m_run[1];
+          state[(D / 2 + 2) * 128 + t] = l_run[0];
+          state[(D / 2 + 3) * 128 + t] = l_run[1];
+        }
+        named_barrier(1, 256);
+        if (w == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float m1 = state[(D / 2 + r) * 128 + t];
+            const float m = fmaxf(m_run[r], m1);  // m_run is finite: tile 0 has key 0
+            const float a0 = exp2f((m_run[r] - m) * scale_log2);
+            const float a1 = exp2f((m1 - m) * scale_log2);  // 0 for an empty half
+            l_run[r] = l_run[r] * a0 + state[(D / 2 + 2 + r) * 128 + t] * a1;
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i)
+              if (((i >> 1) & 1) == r) oacc[i] = oacc[i] * a0 + state[i * 128 + t] * a1;
           }
         }
-        __syncthreads();
+        named_barrier(1, 256);
       }
-
-      if (active) {
+      if (!halves || w == 0) {
         const float inv0 = 1.f / quad_sum(l_run[0]);
         const float inv1 = 1.f / quad_sum(l_run[1]);
-        const int r = warp * 16 + g;
+        const int r = lw * 16 + g;
+        const bool keep0 = row_seq(r) == seq, keep1 = row_seq(r + 8) == seq;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
-          bf16* dst = sA + h * D + j * 8 + t2;
-          *reinterpret_cast<__nv_bfloat162*>(dst + r * LDX) =
-              __floats2bfloat162_rn(o[j][0] * inv0, o[j][1] * inv0);
-          *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * LDX) =
-              __floats2bfloat162_rn(o[j][2] * inv1, o[j][3] * inv1);
+          const int col = h * D + j * 8 + t2;
+          if (keep0)
+            *reinterpret_cast<__nv_bfloat162*>(sA + swz(r, col)) =
+                __floats2bfloat162_rn(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+          if (keep1)
+            *reinterpret_cast<__nv_bfloat162*>(sA + swz(r + 8, col)) =
+                __floats2bfloat162_rn(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
         }
       }
     }
-    __syncthreads();
   }
+  fence_proxy_async();
+  named_barrier(1, 256);
+  stamp(1);
+  if (stamps) clocks[12 * w + 10] = rc.waited - waited_before;
 
-  block_tail<C>(sX, sA, sW, sH, wout, bout, w1, b1, w2, b2, out, row0, rows, hidden);
+  if (split > 1) {
+    // Send this rank's head columns to every peer's sA (16-byte chunks at the
+    // same swizzled offsets), counted in bytes on the peer's exchange
+    // barrier; wait until the peers' columns have landed in this CTA's.
+    constexpr int per_head = kBlkRows * D / 8;
+    for (int i = 1; i < split; ++i) {
+      const int peer = (rank + i) % split;
+      const uint32_t remote = cluster_addr(sA, peer), bar = cluster_addr(xchg, peer);
+      for (int e = tid; e < nh * per_head; e += 256) {
+        const int h = rank + e / per_head * split;
+        const int off = swz(e % per_head / (D / 8), h * D + e % (D / 8) * 8);
+        st_async_v4(remote + off * 2, *reinterpret_cast<const uint4*>(sA + off), bar);
+      }
+    }
+    stamp(7);
+    mbar_wait_cluster(xchg, 0);
+    fence_proxy_async();
+  }
+  stamp(2);
+
+  if (out_split) {
+    // x1 columns out0 + w ns .. + ns, then every rank's to every rank
+    if (split == 2)
+      out_projection_columns<C, C / 4, kInFlight>(sX, sA, bout, out0, rc);
+    else if (split == 4)
+      out_projection_columns<C, C / 8, kInFlight>(sX, sA, bout, out0, rc);
+    else
+      out_projection_halves<C, kInFlight>(sX, sA, bout, out0, reinterpret_cast<float*>(sH), rc);
+    named_barrier(1, 256);
+    const int chunks = C / split / 8;  // 16-byte chunks of a row
+    for (int i = 1; i < split; ++i) {
+      const int peer = (rank + i) % split;
+      const uint32_t remote = cluster_addr(sX, peer), bar = cluster_addr(xchg2, peer);
+      for (int e = tid; e < kBlkRows * chunks; e += 256) {
+        const int off = swz(e / chunks, out0 + e % chunks * 8);
+        st_async_v4(remote + off * 2, *reinterpret_cast<const uint4*>(sX + off), bar);
+      }
+    }
+    mbar_wait_cluster(xchg2, 0);
+  } else {
+    tail_out_projection<C, kInFlight>(sX, sA, bout, rc);
+  }
+  stamp(3);
+  tail_ln2<C>(sX, sA);
+  stamp(4);
+  float acc2[2][C / 8];
+  tail_mlp<C, kInFlight>(sA, sH, b1, acc2, rank, split, nchunks, rc);
+  stamp(5);
+  tail_output<C, kSplit>(acc2, sX, reinterpret_cast<float*>(sH), b2, out, row0, rows, rank,
+                         split);
+  stamp(6);
+  if (stamps) {
+    clocks[12 * w + 8] = rc.waited;
+    clocks[12 * w + 9] = rc.taken;
+  }
 }
 
-template <int C, int D>
+template <int C>
 int launch_cross(const bf16* x, const bf16* ctx, const bf16* gamma, const bf16* beta,
                  const bf16* wq, const bf16* bq, const bf16* wkv, const bf16* bkv,
                  const bf16* wout, const bf16* bout, const bf16* w1, const bf16* b1,
                  const bf16* w2, const bf16* b2, bf16* kv, bf16* out, int B, int Lq, int Lk,
-                 int hidden, cudaStream_t stream) {
-  constexpr int smem_kv = kv_smem_bytes<C>();
-  constexpr int smem_q = CrossSmem<C, D>::bytes;
+                 int hidden, int split, int groups, long long* clocks, cudaStream_t stream) {
+  using P = CrossPlan<C>;
+  using KvKernel = decltype(&cross_kv_kernel<C, false>);
+  using Kernel = decltype(&cross_block_kernel<C, false, false>);
+  const int rk = B * Lk, rq = B * Lq;
+  CUtensorMap m_ctx, m_wkv, m_x, m_kv, m_q, m_out, m_outd, m_w1, m_w2;
+  const cuuint64_t kv_dims[3] = {static_cast<cuuint64_t>(2 * C), static_cast<cuuint64_t>(Lk),
+                                 static_cast<cuuint64_t>(B)};
+  const cuuint64_t kv_strides[2] = {static_cast<cuuint64_t>(2 * C) * 2,
+                                    static_cast<cuuint64_t>(Lk) * 2 * C * 2};
+  const cuuint32_t kv_box[3] = {P::W, kKeys, 1};
+  if (!matrix_map(&m_ctx, ctx, rk, C, kBlkRows) || !matrix_map(&m_wkv, wkv, 2 * C, C, P::NQ) ||
+      !matrix_map(&m_x, x, rq, C, kBlkRows) ||
+      !make_tensor_map<P::W>(&m_kv, kv, 3, kv_dims, kv_strides, kv_box) ||
+      !matrix_map(&m_q, wq, C, C, P::D) || !matrix_map(&m_out, wout, C, C, P::NQ) ||
+      !matrix_map(&m_outd, wout, C, C, P::D) ||
+      !matrix_map(&m_w1, w1, hidden, C, kHid / 2) || !matrix_map(&m_w2, w2, C, hidden, P::NQ))
+    return -2;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cross_kv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(
-        cross_block_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const KvKernel kv_kernels[2] = {&cross_kv_kernel<C, false>, &cross_kv_kernel<C, true>};
+    for (KvKernel k : kv_kernels) {
+      cudaError_t err =
+          cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kv_smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const Kernel kernels[3] = {&cross_block_kernel<C, false, false>,
+                               &cross_block_kernel<C, true, false>,
+                               &cross_block_kernel<C, true, true>};
+    for (Kernel k : kernels) {
+      cudaError_t err =
+          cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     configured = true;
   }
-  const int rk = B * Lk, rq = B * Lq;
-  cross_kv_kernel<C><<<dim3((rk + kRows - 1) / kRows, 2), kThreads, smem_kv, stream>>>(
-      ctx, gamma, beta, wkv, bkv, kv, rk);
+  const KvKernel kv_kernel = clocks ? &cross_kv_kernel<C, true> : &cross_kv_kernel<C, false>;
+  kv_kernel<<<dim3((rk + kBlkRows - 1) / kBlkRows, groups), kBlkThreads, P::kv_smem, stream>>>(
+      m_ctx, m_wkv, gamma, beta, bkv, kv, rk, groups, clocks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  cross_block_kernel<C, D><<<(rq + kRows - 1) / kRows, kThreads, smem_q, stream>>>(
-      x, kv, wq, bq, wout, bout, w1, b1, w2, b2, out, rq, Lq, Lk, hidden,
-      scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = split;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((rq + kBlkRows - 1) / kBlkRows * split);
+  cfg.blockDim = dim3(kBlkThreads);
+  cfg.dynamicSmemBytes = P::smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(P::D)));
+  const Kernel kernel = clocks      ? &cross_block_kernel<C, true, true>
+                       : split > 1 ? &cross_block_kernel<C, true, false>
+                                   : &cross_block_kernel<C, false, false>;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, m_x, m_kv, m_q, m_out, m_outd, m_w1,
+                                             m_w2, bq, bout, b1, b2, out, rq, Lq, Lk, hidden,
+                                             scale_log2, split, clocks));
 }
 
 }  // namespace
 }  // namespace comet
 
-// Returns 0 on success, -1 for an unsupported (C, H, Lq, hidden), else the
-// CUDA error code of a launch. x and out are contiguous [B*Lq, C], ctx is
-// contiguous [B*Lk, C]; kv is a [B*Lk, 2C] bf16 scratch; weights are in the
-// [out_features, in_features] layout: wq [C, C], wkv [2C, C], wout [C, C],
-// w1 [hidden, C], w2 [C, hidden]; gamma, beta and every bias are bf16.
+// Returns 0 on success, -1 for arguments the kernel does not take (C, H, Lq
+// not a multiple of 16, hidden, a split that is not 1, 2, 4 or 8, or a
+// number of column groups that is not 1, 2 or 4), -2 if
+// cuTensorMapEncodeTiled refuses a tensor map, else the CUDA error code of a
+// launch. x and out are contiguous [B*Lq, C], ctx is contiguous [B*Lk, C];
+// kv is a [B*Lk, 2C] bf16 scratch; weights are in the [out_features,
+// in_features] layout: wq [C, C], wkv [2C, C], wout [C, C], w1 [hidden, C],
+// w2 [C, hidden]; gamma, beta and every bias are bf16. `split` CTAs share
+// each 64-row query tile (ops/block.py::cross_split) and `groups` CTAs each
+// 64-row context tile (ops/block.py::cross_kv_groups). `clocks` is null, or
+// 30 int64 that receive, from the timed instances, SM cycles since the
+// CTA's start: for launch 2's CTA 0, consumer warpgroup w, at 12 w + 0..6
+// the ends of ln1, q and attention, the exchange of attention columns, the
+// out-projection, ln2, the MLP and the output; at 12 w + 7 the end of its
+// pushes to the peers (before it waits for theirs), at 12 w + 8 the cycles
+// it waited for ring tiles, at 12 w + 9 the tiles it took, at 12 w + 10 the
+// cycles of those waits in q and attention; at 24 the producer's cycles
+// waiting for a free stage and at 25 the end of its last issue; at 26 and 27
+// the ends of LN_ctx and of the whole of launch 1's CTA 0, at 28 and 29 the
+// cycles its warpgroup 0 waited for weight tiles and the tiles it took.
 extern "C" int comet_cross_block_fwd(const void* x, const void* ctx, const void* gamma,
                                      const void* beta, const void* wq, const void* bq,
                                      const void* wkv, const void* bkv, const void* wout,
                                      const void* bout, const void* w1, const void* b1,
                                      const void* w2, const void* b2, void* kv, void* out, int B,
-                                     int Lq, int Lk, int C, int H, int hidden, void* stream) {
+                                     int Lq, int Lk, int C, int H, int hidden, int split,
+                                     int groups, void* clocks, void* stream) {
   using comet::bf16;
-  if (Lq < 1 || Lq % 16 != 0 || Lk < 1 || hidden % 128 != 0) return -1;
+  if (Lq < 1 || Lq % 16 != 0 || Lk < 1 || hidden % comet::kHid != 0 || H != 8 ||
+      (split != 1 && split != 2 && split != 4 && split != 8) ||
+      (groups != 1 && groups != 2 && groups != 4))
+    return -1;
   const bf16* a[14] = {
       static_cast<const bf16*>(x),    static_cast<const bf16*>(ctx),
       static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
@@ -367,14 +744,41 @@ extern "C" int comet_cross_block_fwd(const void* x, const void* ctx, const void*
       static_cast<const bf16*>(w2),   static_cast<const bf16*>(b2)};
   bf16* k = static_cast<bf16*>(kv);
   bf16* o = static_cast<bf16*>(out);
+  long long* t = static_cast<long long*>(clocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 384 && H == 8)
-    return comet::launch_cross<384, 48>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8],
-                                        a[9], a[10], a[11], a[12], a[13], k, o, B, Lq, Lk, hidden,
-                                        s);
-  if (C == 256 && H == 8)
-    return comet::launch_cross<256, 32>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8],
-                                        a[9], a[10], a[11], a[12], a[13], k, o, B, Lq, Lk, hidden,
-                                        s);
+  if (C == 384)
+    return comet::launch_cross<384>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9],
+                                    a[10], a[11], a[12], a[13], k, o, B, Lq, Lk, hidden, split,
+                                    groups, t, s);
+  if (C == 256)
+    return comet::launch_cross<256>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9],
+                                    a[10], a[11], a[12], a[13], k, o, B, Lq, Lk, hidden, split,
+                                    groups, t, s);
+  return -1;
+}
+
+// How many clusters of `split` CTAs of launch 2 the card holds at once
+// (cudaOccupancyMaxActiveClusters), or -1 on an error.
+extern "C" int comet_cross_block_clusters(int C, int split) {
+  auto query = [&](auto kernel, int smem) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = split;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(split * 256);
+    cfg.blockDim = dim3(comet::kBlkThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    int n = 0;
+    return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : -1;
+  };
+  if (C == 384)
+    return query(comet::cross_block_kernel<384, true, false>, comet::CrossPlan<384>::smem);
+  if (C == 256)
+    return query(comet::cross_block_kernel<256, true, false>, comet::CrossPlan<256>::smem);
   return -1;
 }

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the port's wgmma kernels, K1 (attn.cu)
-// and K2 (block.cu): mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and instructions, fences, named and cluster barriers,
-// distributed shared memory reads, and the host side of a TMA tensor map.
+// Hopper (sm_90a) building blocks of the port's wgmma kernels, K1 (attn.cu),
+// K2 (block.cu) and K4 (cross_block.cu): mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors and instructions, fences, named and cluster
+// barriers, distributed shared memory, and the host side of a TMA tensor map.
 //
 // Tiles in shared memory are laid out as TMA writes them with a swizzle span
 // of W * 2 bytes (W = 16, 32 or 64 bf16 columns: the 32B, 64B and 128B
@@ -112,17 +112,51 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// The shared::cluster address of `p`'s shared-memory offset in the CTA of
+// cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  return remote;
+}
+
 // The two floats at `p`'s shared-memory offset in the CTA of cluster rank
 // `rank` (distributed shared memory).
 __device__ __forceinline__ float2 ld_cluster_f2(const void* p, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
   float2 v;
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
                : "=f"(v.x), "=f"(v.y)
-               : "r"(remote)
+               : "r"(cluster_addr(p, rank))
                : "memory");
   return v;
+}
+
+// 16 bytes to the shared memory of a CTA of the cluster, counted in bytes
+// on an mbarrier of that CTA (both as shared::cluster addresses).
+__device__ __forceinline__ void st_async_v4(uint32_t remote, uint4 v, uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(remote),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(remote_bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what other CTAs wrote before
+// their arrivals is seen after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -172,6 +206,54 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // j < N / 8, d[4j + e] = D[16 * (t / 32) + (t % 32) / 4 + 8 * (e / 2)]
 //                         [8 * j + 2 * (t % 4) + e % 2],
 // the mma.sync m16n8 layout per warp.
+
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 48] (+)= A[64 x 16] B[16 x 48]: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A in registers (per warp, the A
+// fragment of mma.sync m16n8k16), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64_kmajor(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,

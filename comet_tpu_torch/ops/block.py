@@ -30,6 +30,11 @@ SUPPORTED_WIDTHS = ((384, 8), (256, 8))
 K2_ROWS = 64
 K2_CHUNK = 128
 K2_MAX_SPLIT = 8
+# K4's 64-row tiles
+K4_ROWS = 64
+# int64 counters a timed launch of K2 / K4 fills (``clocks=``)
+K2_CLOCKS = 18
+K4_CLOCKS = 30
 
 
 def block_split(rows: int, hidden: int, sms: int) -> int:
@@ -44,9 +49,49 @@ def block_split(rows: int, hidden: int, sms: int) -> int:
                if chunks % n == 0 and (n == 1 or tiles * n <= sms))
 
 
+def cross_split(rows: int, heads: int, resident) -> int:
+    """K4's plan for its query side: how many CTAs, one cluster, share each
+    64-row tile of a call with ``rows`` query rows, rank r computing the
+    attention of the heads h with h % split == r and the MLP's hidden chunks
+    c with c % split == r (a rank runs at most one chunk more than another).
+    The largest split of 1, 2, 4 or 8 that divides the heads and whose
+    clusters are all resident at once: ``resident(n)`` is how many clusters
+    of n of the kernel's CTAs the card holds (``cudaOccupancyMaxActiveClusters``,
+    about sms // n), so 1 where the tiles alone fill more than half the
+    card."""
+    tiles = -(-rows // K4_ROWS)
+    return max(n for n in (1, 2, 4, 8) if heads % n == 0 and (n == 1 or tiles <= resident(n)))
+
+
+def card_cross_split(rows: int, heads: int, c: int, index: int) -> int:
+    """:func:`cross_split` on CUDA card ``index``, from the clusters of K4's
+    query-side kernel at width ``c`` that it holds at once."""
+    return cross_split(rows, heads, lambda n: _resident_clusters(index, c, n))
+
+
+def cross_kv_groups(rows: int, sms: int) -> int:
+    """K4's plan for its kv projection over ``rows`` context rows: into how
+    many column groups (1, 2 or 4; each recomputes the context LayerNorm)
+    the 2C columns of each 64-row tile are split, so that the CTAs reach as
+    many SMs as there are, resident at once."""
+    tiles = -(-rows // K4_ROWS)
+    return max(n for n in (1, 2, 4) if n == 1 or tiles * n <= sms)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(index: int, c: int, split: int) -> int:
+    """How many clusters of ``split`` CTAs of K4's query-side kernel card
+    ``index`` holds at once."""
+    with torch.cuda.device(index):
+        n = kernels.library().comet_cross_block_clusters(c, split)
+    if n < 0:
+        raise RuntimeError("fused_cross_block: cudaOccupancyMaxActiveClusters failed")
+    return n
 
 
 def layer_norm_plain(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -99,6 +144,12 @@ def _check_all(who: str, device: torch.device, operands) -> None:
             raise ValueError(f"{who}: {name} is on {t.device}, x on {device}")
 
 
+def _check_clocks(who: str, clocks: Optional[torch.Tensor], n: int, device) -> None:
+    if clocks is not None and (clocks.dtype != torch.int64 or clocks.device != device
+                               or clocks.numel() < n or not clocks.is_contiguous()):
+        raise ValueError(f"{who}: clocks must be {n} contiguous int64 on x's device")
+
+
 def fused_attn_block(
     x: torch.Tensor,  # [B, L, C], L divides 64
     wqkv: torch.Tensor,  # [3C, C] packed in-projection
@@ -130,9 +181,7 @@ def fused_attn_block(
         raise ValueError(
             f"fused_attn_block: L {l} must divide {K2_ROWS}, hidden {hidden} % {K2_CHUNK} == 0"
         )
-    if clocks is not None and (clocks.dtype != torch.int64 or clocks.device != x.device
-                               or clocks.numel() < 18 or not clocks.is_contiguous()):
-        raise ValueError("fused_attn_block: clocks must be 18 contiguous int64 on x's device")
+    _check_clocks("fused_attn_block", clocks, K2_CLOCKS, x.device)
     _check_all("fused_attn_block", x.device, (
         ("x", x, (b, l, c)), ("wqkv", wqkv, (3 * c, c)), ("bqkv", bqkv, (3 * c,)),
         ("wout", wout, (c, c)), ("bout", bout, (c,)), ("w1", w1, (hidden, c)),
@@ -196,11 +245,20 @@ def fused_cross_block(
     w2: torch.Tensor,  # [C, hidden]
     b2: torch.Tensor,  # [C]
     num_heads: int,
+    *,
+    split: Optional[int] = None,
+    clocks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One CrossAttnBlock application: x1 = ln1(x) + attn(ln1(x),
     norm_context(ctx)); out = x1 + mlp(ln2(x1)). Returns [B, Lq, C] in x's
     dtype. On CUDA it takes the shapes it was compiled for or raises; the
-    caller's gate is the only gate."""
+    caller's gate is the only gate.
+
+    For measurement and tests only: ``split`` overrides :func:`cross_split`
+    (1, 2, 4 or 8), and ``clocks``, an int64 tensor of 30 on x's device,
+    receives where the kernel's first CTAs spend their cycles, from
+    separately compiled timed instances (the layout is
+    ``comet_cross_block_fwd``'s in ``csrc/cross_block.cu``)."""
     args = (x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return cross_block_reference(*args, num_heads)
@@ -209,10 +267,13 @@ def fused_cross_block(
     hidden = w1.shape[0]
     if (c, num_heads) not in SUPPORTED_WIDTHS:
         raise ValueError(f"fused_cross_block: (C, heads) = {(c, num_heads)} not compiled")
-    if lq % 16 or lk < 1 or hidden % 128:
+    if lq % 16 or lk < 1 or hidden % K2_CHUNK:
         raise ValueError(
             f"fused_cross_block: Lq {lq} % 16 == 0, Lk {lk} >= 1, hidden {hidden} % 128 == 0"
         )
+    if split is not None and split not in (1, 2, 4, 8):
+        raise ValueError(f"fused_cross_block: split {split} is not 1, 2, 4 or 8")
+    _check_clocks("fused_cross_block", clocks, K4_CLOCKS, x.device)
     _check_all("fused_cross_block", x.device, (
         ("x", x, (b, lq, c)), ("ctx", ctx, (b, lk, c)), ("gamma", gamma, (c,)),
         ("beta", beta, (c,)), ("wq", wq, (c, c)), ("bq", bq, (c,)), ("wkv", wkv, (2 * c, c)),
@@ -224,9 +285,14 @@ def fused_cross_block(
     if b == 0:
         return out
     kv = torch.empty((b * lk, 2 * c), dtype=x.dtype, device=x.device)  # K and V, bf16
+    index = x.device.index
+    if split is None:
+        split = card_cross_split(b * lq, num_heads, c, index)
     rc = kernels.library().comet_cross_block_fwd(
         *(t.data_ptr() for t in args), kv.data_ptr(), out.data_ptr(),
-        b, lq, lk, c, num_heads, hidden, torch.cuda.current_stream(x.device).cuda_stream,
+        b, lq, lk, c, num_heads, hidden, split, cross_kv_groups(b * lk, _sm_count(index)),
+        None if clocks is None else clocks.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check_launch(rc, "fused_cross_block")
     fused_cross_block.launches += 1

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +26,7 @@ SOURCES = ("attn.cu", "block.cu", "short_attn.cu", "cross_block.cu", "norm.cu")
 HEADERS = ("mma.cuh", "block_common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -47,9 +48,10 @@ _SIGNATURES = {
         _I,
     ),
     "comet_cross_block_fwd": (
-        [_P] * 16 + [_I] * 6 + [_P],
+        [_P] * 16 + [_I] * 8 + [_P, _P],
         _I,
     ),
+    "comet_cross_block_clusters": ([_I, _I], _I),
     "comet_layer_norm_fwd": (
         [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
         _I,
@@ -78,7 +80,8 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the kernels if the library for these sources is missing, and
-    return the library's path. The compiler's output is printed on failure."""
+    return the library's path. The compiler's output is printed on failure,
+    and kept beside the library (``ptxas_report``) on success."""
     lib = BUILD_DIR / f"libcomet_kernels-{_digest()}.so"
     if lib.exists():
         return lib
@@ -91,9 +94,10 @@ def build() -> Path:
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
+        failed, report = [], []
         for src, _, proc in procs:
             out, _ = proc.communicate()
+            report.append(out)
             if proc.returncode:
                 print(f"[nvcc {src}]\n{out}", flush=True)
                 failed.append(src)
@@ -104,8 +108,28 @@ def build() -> Path:
             [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)],
             check=True,
         )
+        lib.with_suffix(".ptxas.txt").write_text("".join(report))
         os.replace(tmp_lib, lib)
     return lib
+
+
+def ptxas_report() -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel in the built library, from ptxas's report of the build."""
+    text = build().with_suffix(".ptxas.txt").read_text()
+    rows, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,7 +2,11 @@
 
 ``ops/block.py::block_split`` picks how many CTAs of one cluster share each
 64-row tile of K2, splitting the MLP's hidden chunks among them; the C entry
-point takes the split and refuses one it cannot run. ``ops/attn.py::
+point takes the split and refuses one it cannot run. ``cross_split`` does
+the same for K4's query tiles (heads and hidden chunks split over the
+cluster), from how many clusters the card holds at once, and
+``cross_kv_groups`` splits K4's kv projection by columns where its context
+tiles cannot fill the card. ``ops/attn.py::
 kernel_operand`` decides which attention operands reach the kernels as they
 are and which are copied first (expanded ones, whose stride-0 dimensions
 the kernels' tensor maps cannot step over).
@@ -12,7 +16,9 @@ import pytest
 import torch
 
 from comet_tpu_torch.ops.attn import kernel_operand
-from comet_tpu_torch.ops.block import K2_CHUNK, K2_MAX_SPLIT, K2_ROWS, block_split
+from comet_tpu_torch.ops.block import (
+    K2_CHUNK, K2_MAX_SPLIT, K2_ROWS, K4_ROWS, block_split, cross_kv_groups, cross_split,
+)
 
 H100_SMS = 132
 
@@ -74,6 +80,57 @@ def test_k2_split_keeps_its_limits_on_any_card(sms):
 def test_k2_split_is_one_where_the_tiles_fill_half_the_card(hidden):
     assert block_split(67 * K2_ROWS, hidden, H100_SMS) == 1
     assert block_split(66 * K2_ROWS, hidden, H100_SMS) == 2
+
+
+def _ideal(sms):
+    """A card that holds sms // n clusters of n CTAs."""
+    return lambda n: sms // n
+
+
+# the clusters of K4's query-side kernel (214 KB of shared memory per CTA) an
+# H100 80GB HBM3 held at once in cudaOccupancyMaxActiveClusters (chip_smoke.py
+# run on the card): 66 of 2, 30 of 4, 15 of 8
+H100_K4_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+
+# (query rows, heads, split on an ideal 132-SM card, split on the H100)
+K4_CASES = [
+    (16 * 64, 8, 8, 4),  # virtual<-point: 16 tiles; 16 clusters of 8 do not fit the H100
+    (16 * 512, 8, 1, 1),  # point<-virtual: 128 tiles fill the card
+    (17 * 16, 8, 8, 8),  # 5 tiles
+    (9 * 32, 8, 8, 8),  # 5 tiles
+    (33 * 64, 8, 4, 2),  # 33 tiles
+    (70 * 64, 8, 1, 1),  # 70 tiles: more than half the card
+    (16 * 64, 6, 2, 2),  # the split divides the heads
+]
+
+
+@pytest.mark.parametrize("rows,heads,ideal,h100", K4_CASES)
+def test_k4_split(rows, heads, ideal, h100):
+    assert cross_split(rows, heads, _ideal(H100_SMS)) == ideal
+    assert cross_split(rows, heads, H100_K4_CLUSTERS.get) == h100
+
+
+@pytest.mark.parametrize("sms", [16, 20, 66, 78, 114, 132, 144])
+def test_k4_split_keeps_its_limits_on_any_card(sms):
+    for rows, heads, _, _ in K4_CASES:
+        split = cross_split(rows, heads, _ideal(sms))
+        tiles = -(-rows // K4_ROWS)
+        assert split in (1, 2, 4, 8) and heads % split == 0
+        # every CTA of the launch is resident at once
+        assert split == 1 or tiles * split <= sms
+        # no larger split would also fit
+        assert not any(heads % n == 0 and tiles * n <= sms for n in (2, 4, 8) if n > split)
+        # each rank runs at most one hidden chunk more than another
+        ranks = [c % split for c in range(1536 // 128)]
+        assert max(map(ranks.count, range(split))) - min(map(ranks.count, range(split))) <= 1
+
+
+@pytest.mark.parametrize("rows,want", [(16 * 512, 1), (16 * 64, 4), (67 * 64, 1), (40 * 64, 2),
+                                       (1, 4)])
+def test_k4_kv_groups_on_an_h100(rows, want):
+    groups = cross_kv_groups(rows, H100_SMS)
+    assert groups == want
+    assert groups == 1 or -(-rows // K4_ROWS) * groups <= H100_SMS
 
 
 def _layouts():

@@ -136,6 +136,14 @@ def _cross_params(c, hidden, seed):
         (37, 16, 48, 64, 4),  # several sequences per JAX block, batch padded
         (8, 32, 128, 64, 4),  # context longer than the queries
         (4, 128, 32, 64, 4),  # queries longer than the context
+        # Lq 16 and 32 (several sequences per 64-row CUDA tile) against Lk 1,
+        # 63 and 65 (one key; one key tile short of 64; one key past it)
+        (16, 16, 1, 64, 4),
+        (16, 16, 63, 64, 4),
+        (16, 16, 65, 64, 4),
+        (8, 32, 1, 64, 4),
+        (8, 32, 63, 64, 4),
+        (8, 32, 65, 64, 4),
     ],
 )
 def test_k4_matches_jax_cross_kernel(b, lq, lk, c, h):
