@@ -58,8 +58,9 @@
 // 15 clusters of 8, so virtual<-point takes 4).
 //
 // Instances per width: launch 2 with kSplit false (split 1), kSplit true (a
-// cluster) and kTimed, which records where CTA 0 spends its cycles (see
-// comet_cross_block_fwd); the forward's instances carry no counters.
+// cluster) and kTimed, launch 1 with and without kTimed; the timed ones
+// record where their CTA 0 spends its cycles (see comet_cross_block_fwd),
+// and the forward's instances carry no counters.
 #include <cmath>
 
 #include "block_common.cuh"
