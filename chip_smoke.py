@@ -22,13 +22,15 @@ Phases, each of which makes the script exit nonzero when it fails:
    spend their cycles (``clocks=``, from separately compiled timed
    instances; K4's timed output must equal the forward's bit for bit); K4
    at both of its shapes also at every split of its query tiles (1, 2, 4,
-   8); then, for correctness only, K1, K2 and K4 at edge shapes of their
+   8), each timed, with its cycles also at split 8 where the plan splits;
+   then, for correctness only, K1, K2 and K4 at edge shapes of their
    tilings (Lq and Lk of 1, 63, 65, 129 and 577, packed qkv slices at D 48
    and 96, keys and values expanded over the batch; block rows not a
    multiple of 64, L 16 and 64 at both widths, cluster splits of 2 to 8;
    K4 at Lq 16, 32, 64 and 512 against Lk 1, 63, 65, 512 and 1024 at both
    widths and splits 2, 4 and 8) against the same plain f32 versions and
-   tolerances;
+   tolerances (a K4 shape in ``K4_KNOWN_MISS`` that misses is printed as
+   such, and held to the plain version in bf16 instead);
 4. a reference check on small inputs: the full-width ``ours`` model's coarse
    and fine update-formers and its camera predictor, on the card in bf16
    (through the kernels) against the same weights in f32 on the CPU (plain
@@ -131,6 +133,14 @@ K2_EDGE = [(7, 16, 256), (20, 64, 384), (5, 16, 384), (3, 64, 256), (1, 1, 384),
 K4_EDGE = [({16: 17, 32: 9, 64: 5, 512: 1}[lq], lq, lk, c)
            for c in (384, 256) for lq in (16, 32, 64, 512) for lk in (1, 63, 65, 512, 1024)]
 K4_SPLITS = (1, 2, 4, 8)
+# K4 edge shapes that miss atol 3e-2 + 2^-6 |y| against the plain f32
+# version, and where the plain version in bf16 (K4's rounding points) misses
+# it by the same amount on the same inputs: with Lk 1 every row of a
+# sequence shares one attention output, so one bf16 rounding of each of its
+# columns reaches all Lq rows. The miss is printed, and K4 is held there to
+# the plain bf16 version at the same tolerance; a shape whose plain bf16
+# version meets the tolerance fails the check until it leaves this list.
+K4_KNOWN_MISS = {(1, 512, 1, 384)}
 PER_FORWARD = {
     "default": dict(K1=sum(s[-2] for s in K1_SHAPES), K2=sum(s[-1] for s in K2_SHAPES),
                     K3=0, K4=0, K5=0),  # K1 76, K2 72
@@ -366,8 +376,9 @@ def check_k4(torch, block, dev, gen):
         # every split of the query tiles, whatever the plan picks
         for split in K4_SPLITS:
             ex, _ = _k4_excess(torch, block, x, ctx, w, h, want, split)
-            print(f"K4 {where:32s} split {split}: excess over {K2_ATOL} + {K2_RTOL:.4f}|y| {ex:.3e}",
-                  flush=True)
+            split_ms = _median_ms(torch, lambda: block.fused_cross_block(x, ctx, *w, h, split=split))
+            print(f"K4 {where:32s} split {split}: excess over {K2_ATOL} + {K2_RTOL:.4f}|y| {ex:.3e}, "
+                  f"ms {split_ms:.4f}", flush=True)
             if ex > K2_ATOL:
                 raise SmokeError(f"K4 {where} split {split}: exceeds {K2_ATOL} + {K2_RTOL}|y| by {ex}")
         ms = _median_ms(torch, lambda: block.fused_cross_block(x, ctx, *w, h))
@@ -377,7 +388,11 @@ def check_k4(torch, block, dev, gen):
         flops = 2 * c * (rq * (2 * c + 2 * hid) + rk * 2 * c) + 4 * rq * lk * c
         nbytes = 2 * (2 * rq * c + rk * c + 4 * c * c + 2 * c * hid)
         bound, bound_by = _bound_ms(flops, nbytes)
-        _print_k4_cycles(torch, block, where, x, ctx, w, h, out, dev)
+        plan = block.card_cross_split(b * lq, h, c, dev.index)
+        _print_k4_cycles(torch, block, where, x, ctx, w, h, out, plan, dev)
+        if plan > 1:  # and at split 8, one head per CTA
+            out8 = block.fused_cross_block(x, ctx, *w, h, split=8)
+            _print_k4_cycles(torch, block, where, x, ctx, w, h, out8, 8, dev)
         rows.append(dict(kernel="K4", where=where, shape=[b, lq, lk, c, h, hid],
                          max_abs_err=err, tolerance=f"atol {K2_ATOL} + {K2_RTOL} |y|",
                          ms=ms, plain_ms=plain_ms, library_ms=None, host_us=host_us,
@@ -401,18 +416,17 @@ def _print_cycles(kernel, where, split, names, ends, waited, tiles, extra=""):
           flush=True)
 
 
-def _print_k4_cycles(torch, block, where, x, ctx, w, h, out, dev):
-    """One more launch of K4, its timed instances, that records where the
-    first CTA of each launch spends its SM clock cycles; its output must be
-    the forward's, bit for bit."""
+def _print_k4_cycles(torch, block, where, x, ctx, w, h, out, split, dev):
+    """One more launch of K4 at a split, its timed instances, that records
+    where the first CTA of each launch spends its SM clock cycles; its output
+    must be the forward's at that split (out), bit for bit."""
     clocks = torch.zeros(block.K4_CLOCKS, dtype=torch.int64, device=dev)
-    timed = block.fused_cross_block(x, ctx, *w, h, clocks=clocks)
+    timed = block.fused_cross_block(x, ctx, *w, h, split=split, clocks=clocks)
     torch.cuda.synchronize()
     if not torch.equal(timed, out):
-        raise SmokeError(f"K4 {where}: the timed instance's output differs from the forward's")
+        raise SmokeError(f"K4 {where} split {split}: the timed instance's output differs from "
+                         f"the forward's")
     t = clocks.tolist()
-    b, lq, c = x.shape
-    split = block.card_cross_split(b * lq, h, c, dev.index)
     names = ("ln1", "q+attention", "exchange", "out-proj", "ln2", "MLP", "output")
     for wg in range(2):
         _print_cycles("K4", where, split, names, t[12 * wg:12 * wg + 7], t[12 * wg + 8],
@@ -511,19 +525,29 @@ def check_edges(torch, attn, block, dev, gen):
         want = block.cross_block_reference(x.float(), ctx.float(), *(t.float() for t in w), 8)
         worst = {split: _k4_excess(torch, block, x, ctx, w, 8, want, split)[0]
                  for split in (None, 2, 4, 8)}
-        # The plain version in bf16 has K4's rounding points; where it too
-        # misses the tolerance (with Lk 1 every row shares one attention
-        # output, so one rounding of each column reaches all Lq rows), the
-        # kernel is held to it instead: no further from f32 than the function
-        # it implements.
         plain = block.cross_block_reference(x, ctx, *w, 8).float()
         plain_excess = ((plain - want).abs() - K2_RTOL * want.abs()).max().item()
-        limit = max(K2_ATOL, plain_excess)
+        missed = not all(math.isfinite(e) and e <= K2_ATOL for e in worst.values())
+        known = (b, lq, lk, c) in K4_KNOWN_MISS
         print(f"K4 edge [B={b} Lq={lq} Lk={lk} C={c}]: excess over {K2_ATOL} + {K2_RTOL:.4f}|y| "
-              f"by split (None: the plan's) {worst}; plain bf16 {plain_excess:.3e}", flush=True)
-        if not all(math.isfinite(e) and e <= limit for e in worst.values()):
+              f"by split (None: the plan's) {worst}; plain bf16 {plain_excess:.3e}"
+              f"{'; MISSED' if missed else ''}{' (a known miss)' if missed and known else ''}",
+              flush=True)
+        if missed and not known:
             raise SmokeError(f"K4 edge {(b, lq, lk, c)}: exceeds {K2_ATOL} + {K2_RTOL}|y| "
                              f"(plain bf16: {plain_excess}): {worst}")
+        if known and plain_excess <= K2_ATOL:
+            raise SmokeError(f"K4 edge {(b, lq, lk, c)} is in K4_KNOWN_MISS, but the plain "
+                             f"version in bf16 meets the tolerance there ({plain_excess})")
+        if known:
+            # held instead to the plain version in bf16, at the same tolerance
+            against = {split: _k4_excess(torch, block, x, ctx, w, 8, plain, split)[0]
+                       for split in (None, 2, 4, 8)}
+            print(f"K4 edge [B={b} Lq={lq} Lk={lk} C={c}] against plain bf16: excess {against}",
+                  flush=True)
+            if not all(math.isfinite(e) and e <= K2_ATOL for e in against.values()):
+                raise SmokeError(f"K4 edge {(b, lq, lk, c)}: exceeds {K2_ATOL} + {K2_RTOL}|y| "
+                                 f"against the plain version in bf16: {against}")
 
 
 def _request(torch, cfg, seed, dev):

@@ -59,12 +59,7 @@ namespace comet {
 namespace {
 
 constexpr int kBlkStages = 4;  // weight ring depth
-// wgmma groups in flight per warpgroup in the weight products (1 or 2; a
-// build switch for measurement)
-#ifndef COMET_K2_IN_FLIGHT
-#define COMET_K2_IN_FLIGHT 1
-#endif
-constexpr int kInFlight = COMET_K2_IN_FLIGHT;
+constexpr int kInFlight = 1;   // wgmma groups in flight per warpgroup in the weight products
 
 template <int C>
 struct BlockPlan {

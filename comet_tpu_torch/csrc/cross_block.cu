@@ -51,11 +51,13 @@
 // (at split 8 one head, its keys halved between the warpgroups and the two
 // online-softmax states merged), and sends its attention columns into every
 // peer's sA through distributed shared memory (st.async, counted in bytes on
-// the peer's mbarrier); then every CTA runs the out-projection and ln2, and
-// only the hidden chunks c with c % split == r, the fc2 partial sums meeting
-// in distributed shared memory as in K2. The split is one whose clusters the
-// card holds all at once (at 214 KB of shared memory per CTA an H100 holds
-// 15 clusters of 8, so virtual<-point takes 4).
+// the peer's mbarrier); then it computes columns r C / split .. of the
+// out-projection plus residual and sends that part of x1 to its peers the
+// same way; every CTA runs ln2, and only the hidden chunks c with
+// c % split == r, the fc2 partial sums meeting in distributed shared memory
+// as in K2. The split is one whose clusters the card holds all at once (at
+// 214 KB of shared memory per CTA an H100 holds 15 clusters of 8, so
+// virtual<-point takes 4).
 //
 // Instances per width: launch 2 with kSplit false (split 1), kSplit true (a
 // cluster) and kTimed, launch 1 with and without kTimed; the timed ones
@@ -71,18 +73,7 @@ namespace {
 constexpr int kKeys = 64;        // keys per K/V tile
 constexpr int kKvStages = 12;    // ring depth of launch 1
 constexpr int kCrossStages = 8;  // ring depth of launch 2
-// wgmma groups in flight per warpgroup in the weight products (1 or 2; a
-// build switch for measurement)
-#ifndef COMET_K4_IN_FLIGHT
-#define COMET_K4_IN_FLIGHT 2
-#endif
-constexpr int kInFlight = COMET_K4_IN_FLIGHT;
-// Where a cluster shares a tile, whether each rank computes only its
-// C / split columns of the out-projection and sends them to its peers (1),
-// or every rank all of them (0); a build switch for measurement
-#ifndef COMET_K4_OUT_SPLIT
-#define COMET_K4_OUT_SPLIT 1
-#endif
+constexpr int kInFlight = 2;     // wgmma groups in flight per warpgroup in the weight products
 
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
@@ -305,7 +296,6 @@ __global__ void __launch_bounds__(kBlkThreads, 1) cross_block_kernel(
   const int nh = H / split;
   const bool halves = nh == 1;
   const int half = (ntiles + 1) / 2;
-  const bool out_split = COMET_K4_OUT_SPLIT && split > 1;
   const int out0 = rank * (C / split);  // this rank's out-projection columns, if split
   const bool timed = kTimed && blockIdx.x == 0;
   if (tid == 0) {
@@ -314,12 +304,10 @@ __global__ void __launch_bounds__(kBlkThreads, 1) cross_block_kernel(
       mbar_init(empty + s, 4);  // the owning warpgroup's 4 warps
     }
     mbar_init(xbar, 1);
-    if (split > 1) {  // the other ranks' heads: 64 rows x D columns each
-      mbar_init(xchg, 1);
+    if (split > 1) {
+      mbar_init(xchg, 1);  // the other ranks' heads: 64 rows x D columns each
       mbar_expect_tx(xchg, (H - nh) * kBlkRows * D * 2);
-    }
-    if (out_split) {  // the other ranks' x1 columns
-      mbar_init(xchg2, 1);
+      mbar_init(xchg2, 1);  // the other ranks' x1 columns
       mbar_expect_tx(xchg2, (C - C / split) * kBlkRows * 2);
     }
     mbar_init_fence();
@@ -365,7 +353,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) cross_block_kernel(
           }
         }
       }
-      if (out_split && split < H) {
+      if (split > 1 && split < H) {
         const int ns = C / split / 2;  // a warpgroup's columns, in boxes of D rows
         for (int kt = 0; kt < KT; ++kt)
           for (int w = 0; w < 2; ++w) {
@@ -373,7 +361,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) cross_block_kernel(
             for (int seg = 0; seg < ns / D; ++seg)
               tma_load_2d(dst + seg * D * 64, &m_outd, bar, kt * 64, out0 + w * ns + seg * D);
           }
-      } else if (out_split) {  // D columns, warpgroup w over k-tiles w KT/2 ..
+      } else if (split > 1) {  // D columns, warpgroup w over k-tiles w KT/2 ..
         for (int kt = 0; kt < KT / 2; ++kt)
           for (int w = 0; w < 2; ++w) {
             bf16* dst = pr.acquire(D * 128, &bar);
@@ -594,7 +582,7 @@ __global__ void __launch_bounds__(kBlkThreads, 1) cross_block_kernel(
   }
   stamp(2);
 
-  if (out_split) {
+  if (split > 1) {
     // x1 columns out0 + w ns .. + ns, then every rank's to every rank
     if (split == 2)
       out_projection_columns<C, C / 4, kInFlight>(sX, sA, bout, out0, rc);

@@ -8,14 +8,14 @@ card has no JAX, so run them without the JAX-side conftest:
 Tolerances: the kernel in bf16 against the plain version in f32 on the same
 bf16 inputs, atol 3e-2 as tests/test_pallas_attn.py::test_bf16_inputs (K1,
 K3), for K2 and K4 two bf16 steps relative to the value on top (their output
-and residual stream are rounded to bf16 at magnitudes up to ~8; at its edge
-shapes K4 also passes where it is no further from f32 than its plain version
-in bf16, which has the same rounding points and misses that tolerance at
-some of them, such as Lk 1, where one rounded attention output reaches every
-row), and for K5
+and residual stream are rounded to bf16 at magnitudes up to ~8), and for K5
 atol 1e-3 plus one bf16 rounding of the output (2^-7 |y|); K5 in f32 is held
-to 1e-5.
+to 1e-5. The GELU that K2 and K4 share is held to the exact tanh form within
+one bf16 rounding (2^-8 |y|) on every bf16 value in [-8, 8].
 """
+
+import ctypes
+import subprocess
 
 import pytest
 import torch
@@ -206,6 +206,13 @@ K4_CUDA_CASES = (
 # 1024 at both widths, at the plan's split and at splits 2, 4 and 8
 K4_EDGE = [({16: 17, 32: 9, 64: 5, 512: 1}[lq], lq, lk, c)
            for c in (384, 256) for lq in (16, 32, 64, 512) for lk in (1, 63, 65, 512, 1024)]
+# Edge shapes where, on these inputs, the plain version in bf16 (K4's rounding
+# points) itself misses the tolerance against f32: with Lk 1 every row of a
+# sequence shares one attention output, so one bf16 rounding of each of its
+# columns reaches all Lq rows. K4 is held there to the plain bf16 version at
+# the same tolerance, and the plain version's miss is asserted, so that a
+# shape leaves this list when it no longer misses.
+K4_EDGE_KNOWN_MISS = {(17, 16, 1, 256)}
 
 
 def _k4_case(dev, b, lq, lk, c, seed=0):
@@ -231,15 +238,20 @@ def test_k4_cuda_matches_plain(cuda_device, b, lq, lk, c, split):
 def test_k4_cuda_edge_shapes(cuda_device, b, lq, lk, c):
     x, ctx, w, want = _k4_case(cuda_device, b, lq, lk, c)
 
-    def excess(y):
-        return ((y.float() - want).abs() - 2.0 ** -6 * want.abs()).max().item()
+    def excess(y, ref):
+        return ((y.float() - ref).abs() - 2.0 ** -6 * ref.abs()).max().item()
 
-    # within the tolerance, or, where the plain version in bf16 (the same
-    # rounding points) misses it too, no further from f32 than that
-    limit = max(3e-2, excess(cross_block_reference(x, ctx, *w, 8)))
+    plain = cross_block_reference(x, ctx, *w, 8).float()
+    ref = want
+    if (b, lq, lk, c) in K4_EDGE_KNOWN_MISS:
+        assert excess(plain, want) > 3e-2
+        ref = plain
     for split in (None, 2, 4, 8):
         got = fused_cross_block(x, ctx, *w, 8, split=split)
-        assert torch.isfinite(got).all() and excess(got) <= limit
+        assert torch.isfinite(got).all()
+        assert excess(got, ref) <= 3e-2, (
+            f"split {split}: exceeds 3e-2 + 2^-6 |y| by {excess(got, ref)} "
+            f"(plain bf16 against f32: {excess(plain, want)})")
 
 
 @pytest.mark.cuda
@@ -294,3 +306,49 @@ def test_k4_and_k5_refuse_what_they_do_not_take(cuda_device):
         fused_cross_block(x, x, *w, 8, split=3)
     with pytest.raises(ValueError, match="width"):
         fused_layer_norm(torch.zeros(4, 1032, device=cuda_device))
+
+
+# gelu_tanh of block_common.cuh, on f32 inputs
+_GELU_PROBE = r"""
+#include "block_common.cuh"
+
+__global__ void gelu_probe(const float* x, float* y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = comet::gelu_tanh(x[i]);
+}
+
+extern "C" int gelu_probe_launch(const void* x, void* y, int n) {
+  gelu_probe<<<(n + 255) / 256, 256>>>(static_cast<const float*>(x), static_cast<float*>(y), n);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+@pytest.mark.cuda
+def test_gelu_tanh_matches_the_exact_tanh_form(cuda_device, tmp_path):
+    from comet_tpu_torch.ops import kernels
+
+    src, lib = tmp_path / "gelu_probe.cu", tmp_path / "gelu_probe.so"
+    src.write_text(_GELU_PROBE)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC),
+                    "-o", str(lib), str(src)], check=True, capture_output=True)
+    probe = ctypes.CDLL(str(lib))
+    # every bf16 value in [-8, 8]
+    x = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int16).view(torch.bfloat16).float()
+    x = x[torch.isfinite(x) & (x.abs() <= 8)].contiguous()
+    xd = x.to(cuda_device)
+    y = torch.empty_like(xd)
+    assert probe.gelu_probe_launch(ctypes.c_void_p(xd.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+                                   ctypes.c_int(xd.numel())) == 0
+    xe = x.double()
+    u = 0.7978845608028654 * (xe + 0.044715 * xe ** 3)
+    # 0.5 x (1 + tanh(u)) in f64, with 1 + tanh(u) = 2 sigmoid(2u): the tanh
+    # form itself cancels to 0 in f64 below x ~ -6, and agrees above -4
+    exact = xe * torch.sigmoid(2 * u)
+    above = xe > -4
+    torch.testing.assert_close(exact[above], 0.5 * xe[above] * (1 + torch.tanh(u[above])),
+                               rtol=1e-9, atol=0)
+    err = (y.cpu().double() - exact).abs()
+    worst = int((err / exact.abs().clamp_min(1e-300)).argmax())
+    assert (err <= 2.0 ** -8 * exact.abs()).all(), (
+        f"x {x[worst].item()}: {y[worst].item()} against {exact[worst].item()}")
