@@ -133,6 +133,24 @@ K2_EDGE = [(7, 16, 256), (20, 64, 384), (5, 16, 384), (3, 64, 256), (1, 1, 384),
 K4_EDGE = [({16: 17, 32: 9, 64: 5, 512: 1}[lq], lq, lk, c)
            for c in (384, 256) for lq in (16, 32, 64, 512) for lk in (1, 63, 65, 512, 1024)]
 K4_SPLITS = (1, 2, 4, 8)
+# K3 (B, Lq, Lk, C, heads, layout): L 1, 15, 17, 33, 63 and 64 and Lq != Lk
+# around its 16-row slices, D 32, 48, 64 and 96, 12 heads, batches that are
+# not a multiple of a CTA's units; "packed": q, k, v slices of one [B, L,
+# 3C] projection (k, v of one [B, Lk, 2C] where Lq != Lk), "separate": three
+# tensors, "expanded": k and v one [1, Lk, C] each, expanded over the batch
+K3_EDGE = [(300, 1, 1, 256, 8, "packed"), (20, 15, 15, 384, 8, "packed"),
+           (17, 17, 17, 512, 8, "separate"), (9, 33, 33, 768, 8, "packed"),
+           (5, 63, 63, 384, 8, "separate"), (5, 64, 64, 256, 8, "expanded"),
+           (20, 16, 64, 384, 8, "separate"), (8, 64, 17, 256, 8, "packed"),
+           (19, 16, 16, 384, 8, "packed"), (20, 16, 16, 768, 12, "packed"),
+           (33, 16, 1, 768, 8, "expanded"), (7, 40, 40, 512, 8, "packed")]
+# K5 (rows, C, dtype, affine): rows around a CTA's step and the card's
+# resident CTAs, widths that leave lanes idle, both dtypes, affine or not
+K5_EDGE = [(r, c, dt, affine) for r in (1, 7, 9, 1055, 1057, 9296)
+           for c in (8, 264, 392, 1000, 1024) for dt in ("bfloat16", "float32")
+           for affine in (False, True)]
+# K5 in f32 against the plain version in f32 (the tests' tolerance)
+K5_F32_TOL = 1e-5
 # K4 edge shapes that miss atol 3e-2 + 2^-6 |y| against the plain f32
 # version, and where the plain version in bf16 (K4's rounding points) misses
 # it by the same amount on the same inputs: with Lk 1 every row of a
@@ -212,6 +230,21 @@ def _host_us(torch, fn, runs=TIMING_RUNS):
     host = (time.perf_counter() - t0) / runs * 1e6
     torch.cuda.synchronize()
     return host
+
+
+def _floor_ms(torch):
+    """The launch floor on this clock: the median device time of an empty
+    launch (a sleep kernel of one cycle) between the same two events."""
+    return _median_ms(torch, lambda: torch.cuda._sleep(1))
+
+
+def _copy_ms(torch, nbytes, dev):
+    """A practical bandwidth yardstick: the median device time of
+    ``dst.copy_(src)`` on bf16 tensors of nbytes / 2 bytes each, so the copy
+    reads and writes as many bytes as a kernel whose bound counts nbytes."""
+    src = torch.ones(max(nbytes // 4, 1), dtype=torch.bfloat16, device=dev)
+    dst = torch.empty_like(src)
+    return _median_ms(torch, lambda: dst.copy_(src))
 
 
 def _bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
@@ -307,7 +340,7 @@ def _print_k2_cycles(torch, block, where, split, x, w, h, dev):
           f"last tile issued at {t[17]}", flush=True)
 
 
-def check_k3(torch, F, attn, dev, gen):
+def check_k3(torch, F, attn, dev, gen, floor_ms):
     rows = []
     for where, b, l, c, h, calls in K3_SHAPES:
         d = c // h
@@ -320,6 +353,7 @@ def check_k3(torch, F, attn, dev, gen):
             raise SmokeError(f"K3 {where}: max |kernel - plain f32| = {err} > {K1_ATOL}")
         ms = _median_ms(torch, lambda: attn.short_attention(q, k, v, h))
         host_us = _host_us(torch, lambda: attn.short_attention(q, k, v, h))
+        _time_k3_stages(torch, attn, where, q, k, v, h, want, dev)
         plain_ms = _median_ms(torch, lambda: attn.attention_reference(q, k, v, h, d ** -0.5))
         q4, k4, v4 = (t.view(b, l, h, d).transpose(1, 2) for t in (q, k, v))
         library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
@@ -327,16 +361,41 @@ def check_k3(torch, F, attn, dev, gen):
         flops = 4 * b * h * l * l * d
         nbytes = 2 * (3 * b * l * c + b * l * c)  # q, k, v read once, out written once
         bound, bound_by = _bound_ms(flops, nbytes)
+        copy_ms = _copy_ms(torch, nbytes, dev)
         rows.append(dict(kernel="K3", where=where, shape=[b, l, l, c, h],
                          max_abs_err=err, tolerance=f"atol {K1_ATOL}", ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, host_us=host_us,
                          library_host_us=library_host_us, bound_ms=bound, bound_by=bound_by,
-                         flops=flops, bytes=nbytes))
+                         floor_ms=floor_ms, copy_ms=copy_ms, flops=flops, bytes=nbytes))
         print(f"K3 {where:32s} [B={b} L={l} C={c} H={h}] err {err:.3e} (atol {K1_ATOL}) "
               f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
-              f"host us {host_us:.1f} (sdpa {library_host_us:.1f})",
+              f"floor {floor_ms:.4f} copy {copy_ms:.4f} host us {host_us:.1f} "
+              f"(sdpa {library_host_us:.1f})",
               flush=True)
     return rows
+
+
+def _time_k3_stages(torch, attn, where, q, k, v, h, want, dev):
+    """K3 at every ring depth (1 to 3 stages, each with as many CTAs as the
+    card holds, at most one per unit), beside the plan's choice."""
+    b, l, c = q.shape
+    plan = attn._card_short_plan(dev.index, b, l, l, c, h)
+    units = b * h // plan.heads
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for stages in range(1, attn.SHORT_MAX_STAGES + 1):
+        fit = attn._short_resident(dev.index, c // h, 32 * plan.warps,
+                                   attn.short_smem(l, l, plan.heads * (c // h), stages))
+        if fit < 1:
+            continue
+        alt = plan._replace(stages=stages, grid=min(units, sms * fit))
+        out = attn.short_attention(q, k, v, h, plan=alt)
+        torch.cuda.synchronize()
+        err = (out.float() - want).abs().max().item()
+        if not math.isfinite(err) or err > K1_ATOL:
+            raise SmokeError(f"K3 {where} at {alt}: max |kernel - plain f32| = {err} > {K1_ATOL}")
+        alt_ms = _median_ms(torch, lambda: attn.short_attention(q, k, v, h, plan=alt))
+        print(f"K3 {where:32s} {alt}{' (the plan)' if alt == plan else ''}: ms {alt_ms:.4f}, "
+              f"err {err:.3e}", flush=True)
 
 
 def _k4_inputs(torch, gen, dev, b, lq, lk, c, hid):
@@ -438,7 +497,7 @@ def _print_k4_cycles(torch, block, where, x, ctx, w, h, out, split, dev):
           f"waiting for weight tiles {t[28]} over {t[29]} tiles", flush=True)
 
 
-def check_k5(torch, F, norm, dev, gen):
+def check_k5(torch, F, norm, dev, gen, floor_ms):
     rows = []
     for where, r, c, affine, calls in K5_SHAPES:
         x = (torch.randn(r, c, generator=gen, device=dev) * 3 + 1).bfloat16()
@@ -455,6 +514,14 @@ def check_k5(torch, F, norm, dev, gen):
             )
         ms = _median_ms(torch, lambda: norm.fused_layer_norm(x, s, b))
         host_us = _host_us(torch, lambda: norm.fused_layer_norm(x, s, b))
+        ring_out = norm.fused_layer_norm(x, s, b, ring=True)
+        torch.cuda.synchronize()
+        ring_excess = ((ring_out.float() - want).abs() - K5_RTOL * want.abs()).max().item()
+        ring_ms = _median_ms(torch, lambda: norm.fused_layer_norm(x, s, b, ring=True))
+        print(f"K5 {where:42s} designs: registers {ms:.4f} ms, bulk-copy ring {ring_ms:.4f} ms "
+              f"(excess {ring_excess:.3e})", flush=True)
+        if not ring_excess <= K5_ATOL:
+            raise SmokeError(f"K5 {where} ring design: exceeds by {ring_excess}")
         plain_ms = _median_ms(torch, lambda: norm.layer_norm_reference(x, s, b))
         s16, b16 = (t.bfloat16() if t is not None else None for t in (s, b))
         library_ms = _median_ms(torch, lambda: F.layer_norm(x, (c,), s16, b16, 1e-6))
@@ -462,14 +529,17 @@ def check_k5(torch, F, norm, dev, gen):
         flops = 8 * r * c  # sum, center, square, sum, scale by rstd, affine: f32, off the tensor cores
         nbytes = 2 * (2 * r * c) + (8 * c if affine else 0)  # x in, y out (bf16), f32 scale and bias
         bound, bound_by = _bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        copy_ms = _copy_ms(torch, nbytes, dev)
         rows.append(dict(kernel="K5", where=where, shape=[r, c, "bfloat16", affine],
                          max_abs_err=err, tolerance=f"atol {K5_ATOL} + {K5_RTOL} |y|",
                          ms=ms, plain_ms=plain_ms, library_ms=library_ms, host_us=host_us,
                          library_host_us=library_host_us, bound_ms=bound,
-                         bound_by=bound_by, flops=flops, bytes=nbytes))
+                         bound_by=bound_by, floor_ms=floor_ms, copy_ms=copy_ms, flops=flops,
+                         bytes=nbytes))
         print(f"K5 {where:42s} [rows={r} C={c} affine={affine}] err {err:.3e} "
               f"(atol {K5_ATOL} + {K5_RTOL:.4f}|y|, excess {excess:.3e}) ms {ms:.4f} "
               f"plain {plain_ms:.4f} F.layer_norm {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
+              f"floor {floor_ms:.4f} copy {copy_ms:.4f} "
               f"host us {host_us:.1f} (F.layer_norm {library_host_us:.1f})",
               flush=True)
     return rows
@@ -484,6 +554,53 @@ def _k2_inputs(torch, gen, dev, b, l, c, hid):
          rnd(c, std=0.02), rnd(hid, c, std=c ** -0.5), rnd(hid, std=0.02),
          rnd(c, hid, std=hid ** -0.5), rnd(c, std=0.02)]
     return rnd(b, l, c), w
+
+
+def _k3_edge_inputs(torch, gen, dev, b, lq, lk, c, layout):
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
+    if layout == "packed" and lq == lk:
+        return rnd(b, lq, 3 * c).split(c, -1)
+    if layout == "packed":
+        return (rnd(b, lq, c), *rnd(b, lk, 2 * c).split(c, -1))
+    if layout == "expanded":
+        return (rnd(b, lq, c), rnd(1, lk, c).expand(b, lk, c), rnd(1, lk, c).expand(b, lk, c))
+    return rnd(b, lq, c), rnd(b, lk, c), rnd(b, lk, c)
+
+
+def check_edges_k3_k5(torch, attn, norm, dev, gen):
+    """K3 and K5 at the edge shapes of their plans, correctness only."""
+    for b, lq, lk, c, h, layout in K3_EDGE:
+        q, k, v = _k3_edge_inputs(torch, gen, dev, b, lq, lk, c, layout)
+        out = attn.short_attention(q, k, v, h)
+        torch.cuda.synchronize()
+        want = attn.attention_reference(q.float(), k.float(), v.float(), h, (c // h) ** -0.5)
+        err = (out.float() - want).abs().max().item()
+        plan = attn._card_short_plan(dev.index, b, lq, lk, c, h)
+        print(f"K3 edge [B={b} Lq={lq} Lk={lk} C={c} H={h} {layout}] {plan}: err {err:.3e} "
+              f"(atol {K1_ATOL})", flush=True)
+        if out.shape != (b, lq, c) or not math.isfinite(err) or err > K1_ATOL:
+            raise SmokeError(f"K3 edge {(b, lq, lk, c, h, layout)}: max |kernel - plain f32| = "
+                             f"{err} > {K1_ATOL}")
+    worst = {}
+    for r, c, dt, affine in K5_EDGE:
+        x = (torch.randn(r, c, generator=gen, device=dev) * 3 + 1).to(getattr(torch, dt))
+        s = torch.randn(c, generator=gen, device=dev) if affine else None
+        bias = torch.randn(c, generator=gen, device=dev) if affine else None
+        out = norm.fused_layer_norm(x, s, bias)
+        torch.cuda.synchronize()
+        want = norm.layer_norm_reference(x.float(), s, bias)
+        if dt == "float32":  # atol and rtol 1e-5
+            excess = ((out - want).abs() - K5_F32_TOL * want.abs()).max().item()
+            limit = K5_F32_TOL
+        else:
+            excess = ((out.float() - want).abs() - K5_RTOL * want.abs()).max().item()
+            limit = K5_ATOL
+        worst[dt] = max(worst.get(dt, -math.inf), excess)
+        if out.shape != x.shape or out.dtype != x.dtype or not math.isfinite(excess) or excess > limit:
+            raise SmokeError(f"K5 edge {(r, c, dt, affine)}: exceeds its tolerance by {excess}")
+    print(f"K5 edges: {len(K5_EDGE)} shapes (rows 1 to 9296, C 8 to 1024, bf16 and f32, affine "
+          f"or not) within tolerance; largest excess over atol + rtol |y| by dtype {worst}",
+          flush=True)
 
 
 def check_edges(torch, attn, block, dev, gen):
@@ -786,10 +903,14 @@ def main(argv=None) -> int:
               f"{sorted({regs for _, regs, _, _ in report})}, spilling {spilled or 'none'}",
               flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
+        floor_ms = _floor_ms(torch)
+        print(f"launch floor (an empty launch between two events): {floor_ms:.4f} ms", flush=True)
         checked = dict(K1=check_k1(torch, F, attn, dev, gen), K2=check_k2(torch, block, dev, gen),
-                       K3=check_k3(torch, F, attn, dev, gen), K4=check_k4(torch, block, dev, gen),
-                       K5=check_k5(torch, F, norm, dev, gen))
+                       K3=check_k3(torch, F, attn, dev, gen, floor_ms),
+                       K4=check_k4(torch, block, dev, gen),
+                       K5=check_k5(torch, F, norm, dev, gen, floor_ms))
         check_edges(torch, attn, block, dev, gen)
+        check_edges_k3_k5(torch, attn, norm, dev, gen)
         cfg = tcfg.get_config("ours")
         t0 = time.perf_counter()
         model = models.build_comet(cfg, device=dev, seed=0)
@@ -831,6 +952,7 @@ def main(argv=None) -> int:
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
                 host_us=r["host_us"], library_host_us=r["library_host_us"], tolerance=r["tolerance"],
+                floor_ms=r.get("floor_ms"), copy_ms=r.get("copy_ms"),
             ))
     for route_name, run in runs.items():
         print(f"main path, {route_name} route: launches over {args.requests} requests "

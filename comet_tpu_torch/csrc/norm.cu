@@ -6,155 +6,350 @@
 // optional: none means ones and zeros), written in the input dtype.
 //
 // What bounds it on the H100: memory. Each element is read once and written
-// once for a few FLOPs: bytes = 2 * rows * C * sizeof(dtype).
+// once for a few FLOPs: bytes = 2 * rows * C * sizeof(dtype). At the main
+// path's shapes (16 to 9,296 rows of 256 to 768 columns, at most 14 MB each
+// way) the whole call is one or two memory round trips per row, so what
+// counts is that every row's loads are in flight from the start and that no
+// CTA waits for a second wave.
 //
-// What the design does about it: one warp per row, eight rows per CTA. The
-// row is read once with 16-byte vector loads (8 bf16 or 4 f32 values a
-// lane) and held in registers for both passes (mean, then the centered
-// variance), so it crosses the memory bus exactly twice, in and out; scale
-// and bias come in 16-byte vectors too (L1 and L2 serve them). The
-// statistics are warp shuffles; no shared memory. Templated on the number
-// of vectors a lane holds, so C up to 1024 (a multiple of 8) stays in
-// registers.
-#include "mma.cuh"
+// The design (ops/norm.py::norm_plan picks the numbers):
+// - A group of G = 16 or 32 lanes takes a row, each lane NV 16-byte vectors
+//   (8 bf16 or 4 f32 values): 32 lanes where they all hold the same number
+//   of vectors, at least two; else 16 (C 256 and 384 in bf16: 2 and 3
+//   vectors a lane, none idle; C 768: 32 lanes holding 3). The statistics
+//   are shuffles within the group; no shared memory for them.
+// - A persistent grid: at most as many CTAs of 256 threads as the card
+//   holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), so
+//   no CTA runs in a second wave. Group g of CTA b takes rows g * grid + b,
+//   then every (256 / G) * grid-th row: consecutive rows go to different
+//   CTAs, so a grid of one CTA per SM spreads even a few hundred rows over
+//   every SM, and the CTAs' rows differ by at most one step.
+// - The next row in flight while the current row is normalised: a group
+//   issues the 16-byte loads of its next row into registers before it
+//   reduces the current one. The row stays in registers as it arrived
+//   (bf16 pairs) and is unpacked in each pass, and the row loop is not
+//   unrolled, so the two rows cost 8 NV registers a lane.
+// - Scale and bias are read into shared memory once per CTA (f32, 8 C
+//   bytes), after the first row's loads are out, and from there for every
+//   row.
+#include "hopper.cuh"
 
 namespace comet {
 namespace {
 
-constexpr int kNormThreads = 256;  // 8 warps, one row each
+constexpr int kNormThreads = 256;
 constexpr int kMaxC = 1024;
+constexpr int kNormStages = 3;  // blocks of rows in flight per CTA in the ring design
 
-__device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = a.z;
-  f[3] = a.w;
+template <typename T>
+struct Vec {
+  static constexpr int VE = 16 / static_cast<int>(sizeof(T));  // values per 16-byte vector
+};
+
+__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[4]) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
 }
 
-__device__ __forceinline__ void load_vec(const bf16* p, float (&f)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
-__device__ __forceinline__ void store_vec(float* p, const float (&f)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
 }
 
-__device__ __forceinline__ void store_vec(bf16* p, const float (&f)[8]) {
-  uint4 raw;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                    pack_bf16(f[6], f[7]));
+}
+
+// The lanes of this thread's group of G within its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  return G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+}
+
+template <int G>
+__device__ __forceinline__ float group_sum(float v, unsigned mask) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) w[i] = pack_bf16(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+  return v;
 }
 
-// NV: 16-byte vectors a lane holds (C <= 32 * NV * VE).
-template <typename T, int NV>
-__global__ void __launch_bounds__(kNormThreads) layer_norm_kernel(
-    const T* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
-    T* __restrict__ y, int rows, int C, float eps) {
-  constexpr int VE = 16 / static_cast<int>(sizeof(T));  // values per vector
-  const int row = blockIdx.x * (kNormThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int nvec = C / VE;
-  const T* xr = x + (long long)row * C;
-  T* yr = y + (long long)row * C;
+// The 16-byte vectors lane, lane + G, ... of a row (zeros past its end).
+template <typename T, int G, int NV>
+__device__ __forceinline__ void load_row(uint4 (&raw)[NV], const T* __restrict__ xr, int lane,
+                                         int nvec) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int idx = lane + G * i;
+    raw[i] = idx < nvec ? *reinterpret_cast<const uint4*>(xr + idx * Vec<T>::VE)
+                        : make_uint4(0, 0, 0, 0);
+  }
+}
 
-  float v[NV][VE];
+// Normalises one row held as raw vectors, unpacked in each pass so that no
+// second copy of the row occupies registers, and stores it. sc / bi: the
+// CTA's copy of scale and bias in shared memory, or nullptr.
+template <typename T, int G, int NV>
+__device__ __forceinline__ void normalise_row(const uint4 (&raw)[NV], T* __restrict__ yr, int lane,
+                                              int nvec, int C, float eps, const float* sc,
+                                              const float* bi) {
+  constexpr int VE = Vec<T>::VE;
+  const unsigned mask = group_mask<G>();
+  float f[VE];
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int idx = lane + 32 * i;
-    if (idx < nvec) {
-      load_vec(xr + idx * VE, v[i]);
+    unpack(raw[i], f);  // zeros past the row's end
 #pragma unroll
-      for (int e = 0; e < VE; ++e) s += v[i][e];
-    }
+    for (int e = 0; e < VE; ++e) s += f[e];
   }
-  const float mu = warp_sum(s) / static_cast<float>(C);
+  const float mu = group_sum<G>(s, mask) / static_cast<float>(C);
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    if (lane + 32 * i < nvec) {
+    if (lane + G * i < nvec) {
+      unpack(raw[i], f);
 #pragma unroll
-      for (int e = 0; e < VE; ++e) {
-        v[i][e] -= mu;
-        ss += v[i][e] * v[i][e];
-      }
+      for (int e = 0; e < VE; ++e) ss += (f[e] - mu) * (f[e] - mu);
     }
   }
-  const float rstd = rsqrtf(warp_sum(ss) / static_cast<float>(C) + eps);
+  const float rstd = rsqrtf(group_sum<G>(ss, mask) / static_cast<float>(C) + eps);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int idx = lane + 32 * i;
+    const int idx = lane + G * i;
     if (idx < nvec) {
+      unpack(raw[i], f);
 #pragma unroll
-      for (int e = 0; e < VE; ++e) v[i][e] *= rstd;
-      if (scale != nullptr) {
+      for (int e = 0; e < VE; ++e) f[e] = (f[e] - mu) * rstd;
+      if (sc != nullptr) {
 #pragma unroll
         for (int j = 0; j < VE; j += 4) {
-          const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + idx * VE + j));
-          const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + idx * VE + j));
-          v[i][j] = v[i][j] * sc.x + bi.x;
-          v[i][j + 1] = v[i][j + 1] * sc.y + bi.y;
-          v[i][j + 2] = v[i][j + 2] * sc.z + bi.z;
-          v[i][j + 3] = v[i][j + 3] * sc.w + bi.w;
+          const float4 a = *reinterpret_cast<const float4*>(sc + idx * VE + j);
+          const float4 b = *reinterpret_cast<const float4*>(bi + idx * VE + j);
+          f[j] = f[j] * a.x + b.x;
+          f[j + 1] = f[j + 1] * a.y + b.y;
+          f[j + 2] = f[j + 2] * a.z + b.z;
+          f[j + 3] = f[j + 3] * a.w + b.w;
         }
       }
-      store_vec(yr + idx * VE, v[i]);
+      *reinterpret_cast<uint4*>(yr + idx * VE) = pack(f);
     }
   }
 }
 
-template <typename T, int NV>
-int launch_ln(const void* x, const float* scale, const float* bias, void* y, int rows, int C,
-              float eps, cudaStream_t stream) {
-  const int grid = (rows + kNormThreads / 32 - 1) / (kNormThreads / 32);
-  layer_norm_kernel<T, NV><<<grid, kNormThreads, 0, stream>>>(
-      static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, C, eps);
-  return static_cast<int>(cudaGetLastError());
+// Copies scale and bias (f32 [C] each) into the CTA's shared memory, once.
+__device__ __forceinline__ void stage_affine(const float* __restrict__ scale,
+                                             const float* __restrict__ bias, float* s_affine,
+                                             int C) {
+  for (int i = threadIdx.x; i < C / 4; i += kNormThreads) {
+    reinterpret_cast<float4*>(s_affine)[i] = reinterpret_cast<const float4*>(scale)[i];
+    reinterpret_cast<float4*>(s_affine + C)[i] = reinterpret_cast<const float4*>(bias)[i];
+  }
+  __syncthreads();
+}
+
+// Design A: the next row's loads in registers.
+template <typename T, int G, int NV>
+__global__ void __launch_bounds__(kNormThreads) layer_norm_kernel(
+    const T* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
+    T* __restrict__ y, int rows, int C, float eps) {
+  extern __shared__ __align__(16) float s_affine[];
+  // group g of CTA b takes rows g * grid + b, then every (256 / G) * grid-th
+  const int stride = (kNormThreads / G) * static_cast<int>(gridDim.x);
+  const int nvec = C / Vec<T>::VE;
+  const int lane = threadIdx.x % G;
+  int row = static_cast<int>(threadIdx.x / G * gridDim.x + blockIdx.x);
+  uint4 cur[NV], nxt[NV];
+  // the first row's loads go out before the CTA waits for scale and bias
+  if (row < rows) load_row<T, G, NV>(cur, x + static_cast<long long>(row) * C, lane, nvec);
+  if (scale != nullptr) stage_affine(scale, bias, s_affine, C);
+  const float* sc = scale != nullptr ? s_affine : nullptr;
+  const float* bi = s_affine + C;
+#pragma unroll 1
+  for (; row < rows; row += stride) {
+    const bool more = row + stride < rows;
+    if (more) load_row<T, G, NV>(nxt, x + static_cast<long long>(row + stride) * C, lane, nvec);
+    normalise_row<T, G, NV>(cur, y + static_cast<long long>(row) * C, lane, nvec, C, eps, sc, bi);
+    if (more) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) cur[i] = nxt[i];
+    }
+  }
+}
+
+// Design B: blocks of 256 / G contiguous rows by one bulk copy each into a
+// ring of kNormStages stages in shared memory, completed on mbarriers.
+template <typename T, int G, int NV>
+__global__ void __launch_bounds__(kNormThreads) layer_norm_ring_kernel(
+    const T* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
+    T* __restrict__ y, int rows, int C, float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kGroups = kNormThreads / G;
+  const int row_bytes = C * static_cast<int>(sizeof(T));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw + 128);
+  float* s_affine = reinterpret_cast<float*>(smem_raw + 128 + kNormStages * kGroups * row_bytes);
+  // block k of 256 / G contiguous rows goes to CTA k % grid
+  const int blocks = (rows + kGroups - 1) / kGroups;
+  const int steps = (blocks - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  auto issue = [&](int s) {
+    const int first = (static_cast<int>(blockIdx.x) + s * static_cast<int>(gridDim.x)) * kGroups;
+    const int n = min(kGroups, rows - first);
+    const int st = s % kNormStages;
+    mbar_expect_tx(&full[st], n * row_bytes);
+    bulk_load(ring + st * kGroups * C, x + static_cast<long long>(first) * C, n * row_bytes,
+              &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kNormStages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    for (int s = 0; s < kNormStages && s < steps; ++s) issue(s);
+  }
+  __syncthreads();
+  if (scale != nullptr) stage_affine(scale, bias, s_affine, C);
+  const float* sc = scale != nullptr ? s_affine : nullptr;
+  const float* bi = s_affine + C;
+  const int nvec = C / Vec<T>::VE;
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    const int st = s % kNormStages;
+    const int row = (static_cast<int>(blockIdx.x) + s * static_cast<int>(gridDim.x)) * kGroups + grp;
+    mbar_wait(&full[st], (s / kNormStages) & 1);
+    if (row < rows) {
+      uint4 raw[NV];
+      load_row<T, G, NV>(raw, ring + (st * kGroups + grp) * C, lane, nvec);
+      normalise_row<T, G, NV>(raw, y + static_cast<long long>(row) * C, lane, nvec, C, eps, sc,
+                              bi);
+    }
+    __syncthreads();  // every group has read stage st
+    if (threadIdx.x == 0 && s + kNormStages < steps) issue(s + kNormStages);
+  }
 }
 
 template <typename T>
-int dispatch_ln(const void* x, const float* scale, const float* bias, void* y, int rows, int C,
-                float eps, cudaStream_t stream) {
-  constexpr int VE = 16 / static_cast<int>(sizeof(T));
-  const int nv = (C / VE + 31) / 32;
-  switch (nv) {
-    case 1: return launch_ln<T, 1>(x, scale, bias, y, rows, C, eps, stream);
-    case 2: return launch_ln<T, 2>(x, scale, bias, y, rows, C, eps, stream);
-    case 3: return launch_ln<T, 3>(x, scale, bias, y, rows, C, eps, stream);
-    case 4: return launch_ln<T, 4>(x, scale, bias, y, rows, C, eps, stream);
-    case 5: return launch_ln<T, 5>(x, scale, bias, y, rows, C, eps, stream);
-    case 6: return launch_ln<T, 6>(x, scale, bias, y, rows, C, eps, stream);
-    case 7: return launch_ln<T, 7>(x, scale, bias, y, rows, C, eps, stream);
-    case 8: return launch_ln<T, 8>(x, scale, bias, y, rows, C, eps, stream);
-    default: return -1;
-  }
+int ring_smem(int C, int G) {
+  return 128 + kNormStages * (kNormThreads / G) * C * static_cast<int>(sizeof(T)) + 8 * C;
 }
+
+template <typename T, int G, int NV>
+int launch_ln(const void* x, const float* scale, const float* bias, void* y, int rows, int C,
+              float eps, int grid, int ring, cudaStream_t stream) {
+  if (ring) {
+    const int smem = ring_smem<T>(C, G);
+    static int configured = 0;
+    if (smem > configured) {
+      cudaError_t err = cudaFuncSetAttribute(layer_norm_ring_kernel<T, G, NV>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      configured = smem;
+    }
+    layer_norm_ring_kernel<T, G, NV><<<min(grid, (rows + kNormThreads / G - 1) / (kNormThreads / G)), kNormThreads, smem, stream>>>(
+        static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, C, eps);
+  } else {
+    layer_norm_kernel<T, G, NV><<<grid, kNormThreads, scale ? 8 * C : 0, stream>>>(
+        static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, C, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int G, int NV>
+int resident_ln(int C, int affine, int ring) {
+  int n = 0;
+  cudaError_t err;
+  if (ring) {
+    const int smem = ring_smem<T>(C, G);
+    err = cudaFuncSetAttribute(layer_norm_ring_kernel<T, G, NV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layer_norm_ring_kernel<T, G, NV>,
+                                                          kNormThreads, smem);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layer_norm_kernel<T, G, NV>,
+                                                        kNormThreads, affine ? 8 * C : 0);
+  }
+  return err == cudaSuccess ? n : -1;
+}
+
+// Calls f.template operator()<G, NV>() for the group the plan gave and the
+// vectors a lane of it holds at width C, or returns -1 for a plan or width
+// the kernels do not take.
+template <typename T, typename F>
+int with_instance(int C, int G, F f) {
+  if (C < 8 || C % 8 != 0 || C > kMaxC || (G != 16 && G != 32)) return -1;
+  const int nv = (C / Vec<T>::VE + G - 1) / G;
+#define COMET_LN_CASE(g, n) \
+  if (G == g && nv == n) return f.template operator()<g, n>();
+  COMET_LN_CASE(16, 1) COMET_LN_CASE(16, 2) COMET_LN_CASE(16, 3) COMET_LN_CASE(16, 4)
+  COMET_LN_CASE(16, 5) COMET_LN_CASE(16, 6) COMET_LN_CASE(16, 7) COMET_LN_CASE(16, 8)
+  COMET_LN_CASE(32, 1) COMET_LN_CASE(32, 2) COMET_LN_CASE(32, 3) COMET_LN_CASE(32, 4)
+  COMET_LN_CASE(32, 5) COMET_LN_CASE(32, 6) COMET_LN_CASE(32, 7) COMET_LN_CASE(32, 8)
+#undef COMET_LN_CASE
+  return -1;
+}
+
+template <typename T>
+struct Launch {
+  const void* x;
+  const float* scale;
+  const float* bias;
+  void* y;
+  int rows, C;
+  float eps;
+  int grid, ring;
+  cudaStream_t stream;
+  template <int G, int NV>
+  int operator()() const {
+    return launch_ln<T, G, NV>(x, scale, bias, y, rows, C, eps, grid, ring, stream);
+  }
+};
+
+template <typename T>
+struct Resident {
+  int C, affine, ring;
+  template <int G, int NV>
+  int operator()() const {
+    return resident_ln<T, G, NV>(C, affine, ring);
+  }
+};
 
 }  // namespace
 }  // namespace comet
 
-// Returns 0 on success, -1 for an unsupported width or dtype, else the CUDA
-// error code of the launch. x and y are contiguous [rows, C] of one dtype
-// (is_bf16: bf16, else f32); scale and bias are f32 [C], both or neither;
-// every pointer is 16-byte aligned.
+// Returns 0 on success, -1 for a plan, width or dtype the kernel does not
+// take, else the CUDA error code of the launch. x and y are contiguous
+// [rows, C] of one dtype (is_bf16: bf16, else f32); scale and bias are f32
+// [C], both or neither; every pointer is 16-byte aligned. group (lanes per
+// row, 16 or 32) and grid come from ops/norm.py::norm_plan.
 extern "C" int comet_layer_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
-                                    int rows, int C, int is_bf16, float eps, void* stream) {
-  if (C < 8 || C % 8 != 0 || C > comet::kMaxC) return -1;
-  if ((scale == nullptr) != (bias == nullptr)) return -1;
+                                    int rows, int C, int is_bf16, float eps, int group, int grid,
+                                    int ring, void* stream) {
+  if ((scale == nullptr) != (bias == nullptr) || grid < 1 || grid > rows) return -1;
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return comet::dispatch_ln<comet::bf16>(x, s, b, y, rows, C, eps, st);
-  return comet::dispatch_ln<float>(x, s, b, y, rows, C, eps, st);
+  if (is_bf16)
+    return comet::with_instance<comet::bf16>(
+        C, group, comet::Launch<comet::bf16>{x, s, b, y, rows, C, eps, grid, ring, st});
+  return comet::with_instance<float>(
+      C, group, comet::Launch<float>{x, s, b, y, rows, C, eps, grid, ring, st});
+}
+
+// How many CTAs of the kernel for (C, dtype, group, affine) one SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
+extern "C" int comet_layer_norm_resident(int C, int is_bf16, int group, int affine, int ring) {
+  if (is_bf16)
+    return comet::with_instance<comet::bf16>(C, group, comet::Resident<comet::bf16>{C, affine, ring});
+  return comet::with_instance<float>(C, group, comet::Resident<float>{C, affine, ring});
 }

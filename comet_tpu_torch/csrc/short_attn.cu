@@ -9,198 +9,313 @@
 // What bounds it on the H100: memory. At L = 16 one (sequence, head) pair
 // reads 3*16*D and writes 16*D bf16 values for 4*16*16*D FLOPs, about 8
 // FLOPs per byte against the card's ~295, so the bound is the bytes:
-// 2*(3*B*L*C + B*L*C).
+// 2*(3*B*L*C + B*L*C). The tensor cores are not the limit, so the products
+// stay on mma.sync m16n8k16 (wgmma wants 64 rows: four sequences of 16
+// under a block-diagonal mask, the TPU's packing, at 4x the logits).
 //
-// What the design does about it: the TPU kernel packed 512/L sequences
-// under a block-diagonal mask because its matrix unit wanted 512-wide dots;
-// here each (sequence, head) pair is computed directly, with no mask and no
-// padding copies. A CTA of 4 warps holds up to 4 pairs: warp w takes 16
-// query rows of one pair (one m16 tile covers all the queries at L <= 16;
-// at L = 64 four warps share one pair's K and V). Q, K and V are read once
-// by column slice of the packed projection, with row and batch strides as
-// arguments, into shared memory with cp.async (zero fill past L); QK^T and
-// PV run on bf16 mma.sync m16n8k16 with f32 accumulators, and the whole
-// row of <= 64 logits stays in registers, so the softmax is exact, not
-// online. Thousands of small CTAs fill the 132 SMs.
+// The design (ops/attn.py::short_plan picks the numbers):
+// - A unit of work is Hg heads of one sequence: the whole sequence (Hg = H)
+//   where the units still fill the card, as at L 16, else fewer heads (at L
+//   64, 16 sequences would give 16 CTAs). Warp w takes head w / S and query
+//   rows 16 (w % S) .. + 15, S = ceil(Lq / 16), so a CTA has Hg * S warps.
+// - Its q, k and v are column slices [g Hg D, (g + 1) Hg D) of whole rows,
+//   read by TMA from 3D tensor maps over the strided [B, L, C] layout (a
+//   column slice of a packed projection is a base pointer and a row
+//   stride), as boxes of 64 columns by ceil(L / 16) * 16 rows with the 128B
+//   swizzle, so ldmatrix reads them without bank conflicts. Rows past L and
+//   columns past C load as zeros; where Hg D is not a multiple of 64 the
+//   last box also reads the next head's first columns, unused (narrower
+//   boxes cost the TMA unit more: it walks a box row by row).
+// - A persistent grid: at most as many CTAs as the card holds at once, unit
+//   u going to CTA u % grid, and a ring of 1 to 3 stages, each one unit's q,
+//   k and v completed on one mbarrier: the units after the current one are
+//   in flight while it is computed, so the CTAs do not load, compute and
+//   store in lockstep.
+// - The output goes through shared memory in swizzled boxes of exactly the
+//   unit's columns, W = 64, 32 or 16 wide (the widest dividing Hg D), and
+//   out by TMA stores of whole [L, W] boxes (rows past Lq are not written),
+//   from two buffers, so a unit's stores overlap the next unit's products.
+// - The whole row of <= 64 logits stays in registers, so the softmax is
+//   exact, not online, in the log2 domain (log2 e folded into the scale).
 #include <cmath>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace comet {
 namespace {
 
-constexpr int kShortThreads = 128;  // 4 warps
 constexpr int kMaxL = 64;
+constexpr int kMaxStages = 3;
 
+// The most warps a CTA has: 16, or 8 at D 96, whose 12 output fragments and
+// hoisted tile addresses need more than the 128 registers a thread of a
+// 512-thread CTA may have (ops/attn.py::short_max_warps).
 template <int D>
-constexpr int short_attn_max_smem() {
-  // 4 pairs of 16 queries and 64 keys is the largest working set
-  return 4 * (16 + 2 * kMaxL) * (D + 8) * static_cast<int>(sizeof(bf16));
+constexpr int max_warps() {
+  return D == 96 ? 8 : 16;
+}
+
+constexpr int kInBox = 64;  // columns of an input box (128B swizzle)
+
+// Shared memory of one launch: 1024 bytes of slack to align the tiles, the
+// ring of q, k, v tiles (CW columns read as whole 64-column boxes), two
+// output tiles, then the barriers.
+int short_smem(int LqP, int LkP, int CW, int stages) {
+  const int CWP = (CW + kInBox - 1) / kInBox * kInBox;
+  return 1024 + stages * (LqP + 2 * LkP) * CWP * 2 + 2 * LqP * CW * 2 + 8 * kMaxStages;
+}
+
+// Byte offset of element (r, col) of a tile stored as boxes of R rows by
+// W = 1 << wl columns, each swizzled as TMA writes it (CUTLASS's
+// Swizzle<wl - 3, 4, 3>); col is even.
+__device__ __forceinline__ uint32_t swz(int r, int col, int R, int wl) {
+  const int box = col >> wl, cc = col & ((1 << wl) - 1);
+  uint32_t o = (r << (wl + 1)) + ((cc >> 3) << 4);
+  o ^= ((o >> 7) & ((1u << (wl - 3)) - 1)) << 4;
+  return box * (R << (wl + 1)) + o + ((cc & 7) << 1);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kShortThreads) short_attn_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int pairs, int H, int Lq, int Lk, int LqP, int LkP, int pairs_per_cta,
-    int nslices, long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-    long long v_rs, float scale) {
-  constexpr int LDS = D + 8;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* base = reinterpret_cast<bf16*>(smem_raw);
-  const int pair_elems = (LqP + 2 * LkP) * LDS;
-  const int pair0 = blockIdx.x * pairs_per_cta;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+__global__ void __launch_bounds__(max_warps<D>() * 32) short_attn_kernel(
+    const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo, int units,
+    int gps, int Lk, int LqP, int LkP, int CW, int wl, int stages, float scale_log2) {
+  // wl: log2 of the output boxes' columns; the input boxes have 64 (wl 6)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nbi = (CW + kInBox - 1) / kInBox;  // input boxes per operand
+  const int q_bytes = LqP * nbi * kInBox * 2, k_bytes = LkP * nbi * kInBox * 2;
+  const int stage_bytes = q_bytes + 2 * k_bytes;
+  const int o_bytes = LqP * CW * 2;
+  unsigned char* outb = base + stages * stage_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outb + 2 * o_bytes);
+  const int nbo = CW >> wl;  // output boxes
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nsl = LqP >> 4;
+  const int hc = (warp / nsl) * D;  // this warp's head, as a column of the tile
+  const int sl = warp % nsl;        // and its 16 query rows
+  const int mine = (units - blockIdx.x + gridDim.x - 1) / gridDim.x;  // units of this CTA
 
-  for (int p = 0; p < pairs_per_cta && pair0 + p < pairs; ++p) {
-    const int b = (pair0 + p) / H, h = (pair0 + p) % H;
-    bf16* sQ = base + p * pair_elems;
-    bf16* sK = sQ + LqP * LDS;
-    bf16* sV = sK + LkP * LDS;
-    const bf16* qg = q + b * q_bs + h * D;
-    const bf16* kg = k + b * k_bs + h * D;
-    const bf16* vg = v + b * v_bs + h * D;
-    for (int i = tid; i < LqP * CPR; i += kShortThreads) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const bool ok = r < Lq;
-      cp_async16(sQ + r * LDS + c, qg + (ok ? r * q_rs : 0) + c, ok);
-    }
-    for (int i = tid; i < LkP * CPR; i += kShortThreads) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const bool ok = r < Lk;
-      cp_async16(sK + r * LDS + c, kg + (ok ? r * k_rs : 0) + c, ok);
-      cp_async16(sV + r * LDS + c, vg + (ok ? r * v_rs : 0) + c, ok);
-    }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
   }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
 
-  const int p = warp / nslices, sl = warp % nslices;
-  if (p >= pairs_per_cta || pair0 + p >= pairs) return;
-  const int b = (pair0 + p) / H, h = (pair0 + p) % H;
-  const bf16* sQ = base + p * pair_elems;
-  const bf16* sK = sQ + LqP * LDS;
-  const bf16* sV = sK + LkP * LDS;
-  const int nkg = LkP / 16;  // 16-key groups, at most 4
-  const int t2 = (lane & 3) * 2;
+  // Warp 0 brings unit i of this CTA into its stage: 3 * nbi TMA boxes.
+  auto issue_loads = [&](int i) {
+    const int u = blockIdx.x + i * gridDim.x;
+    const int b = u / gps, col0 = (u % gps) * CW, st = i % stages;
+    unsigned char* sq = base + st * stage_bytes;
+    if (lane == 0) mbar_expect_tx(&full[st], stage_bytes);
+    __syncwarp();
+    for (int j = lane; j < 3 * nbi; j += 32) {
+      const int op = j / nbi, bx = j % nbi;
+      if (op == 0)
+        tma_load_3d(sq + bx * LqP * kInBox * 2, &mq, &full[st], col0 + bx * kInBox, 0, b);
+      else
+        tma_load_3d(sq + q_bytes + (op - 1) * k_bytes + bx * LkP * kInBox * 2,
+                    op == 1 ? &mk : &mv, &full[st], col0 + bx * kInBox, 0, b);
+    }
+  };
+  if (warp == 0)
+    for (int i = 0; i < stages && i < mine; ++i) issue_loads(i);
 
-  // S = Q K^T for this warp's 16 query rows against all the keys.
-  float s[8][4];
+  const int nkg = LkP >> 4;  // 16-key groups, at most 4
+  const int t2 = (lane & 3) * 2;
+  for (int i = 0; i < mine; ++i) {
+    const int u = blockIdx.x + i * gridDim.x;
+    const int st = i % stages;
+    const unsigned char* sq = base + st * stage_bytes;
+    const unsigned char* sk = sq + q_bytes;
+    const unsigned char* sv = sk + k_bytes;
+    mbar_wait(&full[st], (i / stages) & 1);
+
+    // S = Q K^T for this warp's 16 query rows against all the keys.
+    float s[8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, sQ + (sl * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, sq + swz(sl * 16 + (lane & 15), hc + kk * 16 + (lane >> 4) * 8, LqP, 6));
+#pragma unroll
+      for (int kb = 0; kb < kMaxL / 16; ++kb) {
+        if (kb < nkg) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, sk + swz(kb * 16 + (lane & 7) + (lane >> 4) * 8,
+                                   hc + kk * 16 + ((lane >> 3) & 1) * 8, LkP, 6));
+          mma_bf16(s[2 * kb], a, bk[0], bk[1]);
+          mma_bf16(s[2 * kb + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+
+    // Exact softmax over the row, in the log2 domain: masked keys -inf.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j * 8 + t2 + (e & 1);
+        s[j][e] = key < Lk ? s[j][e] * scale_log2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - mx[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+    const float inv0 = 1.f / quad_sum(sum[0]);
+    const float inv1 = 1.f / quad_sum(sum[1]);
+
+    // O = round_bf16(P) V, P reused from the S accumulators as A fragments.
+    float acc[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
     for (int kb = 0; kb < kMaxL / 16; ++kb) {
       if (kb < nkg) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, sK + (kb * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * kb], a, bk[0], bk[1]);
-        mma_bf16(s[2 * kb + 1], a, bk[2], bk[3]);
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kb][0] * inv0, s[2 * kb][1] * inv0);
+        pa[1] = pack_bf16(s[2 * kb][2] * inv1, s[2 * kb][3] * inv1);
+        pa[2] = pack_bf16(s[2 * kb + 1][0] * inv0, s[2 * kb + 1][1] * inv0);
+        pa[3] = pack_bf16(s[2 * kb + 1][2] * inv1, s[2 * kb + 1][3] * inv1);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, sv + swz(kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                         hc + dp * 16 + (lane >> 4) * 8, LkP, 6));
+          mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
+          mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+        }
       }
     }
-  }
 
-  // Exact softmax over the row: scale on the f32 logits, masked keys -inf.
-  float mx[2] = {-INFINITY, -INFINITY};
+    // Warp 0's stores of two units ago have read this output buffer.
+    if (warp == 0) bulk_wait_read<1>();
+    __syncthreads();  // every warp has read stage st, and the buffer is free
+    if (warp == 0 && i + stages < mine) issue_loads(i + stages);
+    unsigned char* ob = outb + (i & 1) * o_bytes;
+    const int r0 = sl * 16 + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = j * 8 + t2 + (e & 1);
-      s[j][e] = key < Lk ? s[j][e] * scale : -INFINITY;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = hc + j * 8 + t2;
+      *reinterpret_cast<uint32_t*>(ob + swz(r0, col, LqP, wl)) = pack_bf16(acc[j][0], acc[j][1]);
+      *reinterpret_cast<uint32_t*>(ob + swz(r0 + 8, col, LqP, wl)) =
+          pack_bf16(acc[j][2], acc[j][3]);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (warp == 0) {
+      const int b = u / gps, col0 = (u % gps) * CW;
+      for (int j = lane; j < nbo; j += 32)
+        tma_store_3d(&mo, ob + j * (LqP << (wl + 1)), col0 + (j << wl), 0, b);
+      bulk_commit();
     }
   }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = expf(s[j][e] - mx[e >> 1]);
-      sum[e >> 1] += s[j][e];
-    }
-  }
-  const float inv0 = 1.f / quad_sum(sum[0]);
-  const float inv1 = 1.f / quad_sum(sum[1]);
+  if (warp == 0) bulk_wait_read<0>();
+}
 
-  // O = round_bf16(P) V, P reused from the S accumulators as A fragments.
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kb = 0; kb < kMaxL / 16; ++kb) {
-    if (kb < nkg) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kb][0] * inv0, s[2 * kb][1] * inv0);
-      pa[1] = pack_bf16(s[2 * kb][2] * inv1, s[2 * kb][3] * inv1);
-      pa[2] = pack_bf16(s[2 * kb + 1][0] * inv0, s[2 * kb + 1][1] * inv0);
-      pa[3] = pack_bf16(s[2 * kb + 1][2] * inv1, s[2 * kb + 1][3] * inv1);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sV + (kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
-      }
-    }
+// The tensor map of one operand: dims (C, L, B), boxes of `rows` rows by W
+// columns. A size-1 dimension may report stride 0; any valid stride serves
+// it.
+bool operand_map(CUtensorMap* map, const bf16* p, int B, int L, int C, long long bs,
+                 long long rs, int rows, int W) {
+  if (rs == 0) rs = C;
+  if (bs == 0) bs = static_cast<long long>(L) * rs;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(rs) * 2, static_cast<cuuint64_t>(bs) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(W), static_cast<cuuint32_t>(rows), 1};
+  switch (W) {
+    case 64: return make_tensor_map<64>(map, p, 3, dims, strides, box);
+    case 32: return make_tensor_map<32>(map, p, 3, dims, strides, box);
+    case 16: return make_tensor_map<16>(map, p, 3, dims, strides, box);
+    default: return false;
   }
+}
 
-  const int C = H * D;
-  const int r0 = sl * 16 + (lane >> 2);
-  bf16* og = o + (long long)b * Lq * C + h * D + t2;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (r0 < Lq)
-      *reinterpret_cast<__nv_bfloat162*>(og + (long long)r0 * C + j * 8) =
-          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    if (r0 + 8 < Lq)
-      *reinterpret_cast<__nv_bfloat162*>(og + (long long)(r0 + 8) * C + j * 8) =
-          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
-  }
+template <int D>
+int set_max_smem() {
+  static cudaError_t err = [] {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(short_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    return e;
+  }();
+  return static_cast<int>(err);
 }
 
 template <int D>
 int launch_short_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Lq,
                       int Lk, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                      long long v_bs, long long v_rs, float scale, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(short_attn_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           short_attn_max_smem<D>());
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const int nslices = (Lq + 15) / 16;
-  const int pairs_per_cta = 4 / nslices > 1 ? 4 / nslices : 1;
-  const int LqP = nslices * 16, LkP = (Lk + 15) / 16 * 16;
-  const int smem = pairs_per_cta * (LqP + 2 * LkP) * (D + 8) * static_cast<int>(sizeof(bf16));
-  const int pairs = B * H;
-  const int grid = (pairs + pairs_per_cta - 1) / pairs_per_cta;
-  short_attn_kernel<D><<<grid, kShortThreads, smem, stream>>>(
-      q, k, v, o, pairs, H, Lq, Lk, LqP, LkP, pairs_per_cta, nslices, q_bs, q_rs, k_bs, k_rs,
-      v_bs, v_rs, scale);
+                      long long v_bs, long long v_rs, float scale, int hg, int stages, int grid,
+                      cudaStream_t stream) {
+  const int nsl = (Lq + 15) / 16;
+  if (hg < 1 || H % hg != 0 || hg * nsl > max_warps<D>() || stages < 1 || stages > kMaxStages ||
+      grid < 1)
+    return -1;
+  // a stride of 0 on a dimension longer than 1 (an expanded tensor) would
+  // make the tensor map step past the allocation
+  if ((q_rs == 0 && Lq > 1) || ((k_rs == 0 || v_rs == 0) && Lk > 1) ||
+      ((q_bs == 0 || k_bs == 0 || v_bs == 0) && B > 1))
+    return -1;
+  const int C = H * D, CW = hg * D;
+  const int W = CW % 64 == 0 ? 64 : (CW % 32 == 0 ? 32 : 16);
+  const int wl = W == 64 ? 6 : (W == 32 ? 5 : 4);
+  const int LqP = nsl * 16, LkP = (Lk + 15) / 16 * 16;
+  CUtensorMap mq, mk, mv, mo;
+  if (!operand_map(&mq, q, B, Lq, C, q_bs, q_rs, LqP, kInBox) ||
+      !operand_map(&mk, k, B, Lk, C, k_bs, k_rs, LkP, kInBox) ||
+      !operand_map(&mv, v, B, Lk, C, v_bs, v_rs, LkP, kInBox) ||
+      !operand_map(&mo, o, B, Lq, C, static_cast<long long>(Lq) * C, C, LqP, W))
+    return -2;
+  const int err = set_max_smem<D>();
+  if (err != 0) return err;
+  const int units = B * (H / hg);
+  short_attn_kernel<D><<<grid, hg * nsl * 32, short_smem(LqP, LkP, CW, stages), stream>>>(
+      mq, mk, mv, mo, units, H / hg, Lk, LqP, LkP, CW, wl, stages, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int resident_short_attn(int threads, int smem) {
+  const int err = set_max_smem<D>();
+  if (err != 0) return -1;
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, short_attn_kernel<D>, threads, smem) ==
+                 cudaSuccess
+             ? n
+             : -1;
 }
 
 }  // namespace
 }  // namespace comet
 
-// Returns 0 on success, -1 for an unsupported head dimension or length, else
-// the CUDA error code of the launch. Strides are in elements; the output is
-// a contiguous [B, Lq, H*D] tensor.
+// Returns 0 on success, -1 for arguments the kernel does not take (a head
+// dimension or length, a plan, or stride 0 on a dimension longer than 1: an
+// expanded tensor), -2 if cuTensorMapEncodeTiled refuses a tensor map, else
+// the CUDA error code of the launch. Strides are in elements; a dimension of
+// size 1 may report stride 0. The output is a contiguous [B, Lq, H*D]
+// tensor. heads (per unit), stages and grid come from ops/attn.py::short_plan.
 extern "C" int comet_short_attn_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int D, int Lq, int Lk, long long q_bs, long long q_rs,
                                     long long k_bs, long long k_rs, long long v_bs,
-                                    long long v_rs, float scale, void* stream) {
+                                    long long v_rs, float scale, int heads, int stages, int grid,
+                                    void* stream) {
   using comet::bf16;
   if (Lq < 1 || Lq > comet::kMaxL || Lk < 1 || Lk > comet::kMaxL) return -1;
   const bf16* qp = static_cast<const bf16*>(q);
@@ -211,17 +326,30 @@ extern "C" int comet_short_attn_fwd(const void* q, const void* k, const void* v,
   switch (D) {
     case 32:
       return comet::launch_short_attn<32>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs,
-                                          v_bs, v_rs, scale, s);
+                                          v_bs, v_rs, scale, heads, stages, grid, s);
     case 48:
       return comet::launch_short_attn<48>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs,
-                                          v_bs, v_rs, scale, s);
+                                          v_bs, v_rs, scale, heads, stages, grid, s);
     case 64:
       return comet::launch_short_attn<64>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs,
-                                          v_bs, v_rs, scale, s);
+                                          v_bs, v_rs, scale, heads, stages, grid, s);
     case 96:
       return comet::launch_short_attn<96>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs,
-                                          v_bs, v_rs, scale, s);
+                                          v_bs, v_rs, scale, heads, stages, grid, s);
     default:
       return -1;
+  }
+}
+
+// How many CTAs of K3 at head dimension D, of `threads` threads and `smem`
+// bytes of dynamic shared memory, one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
+extern "C" int comet_short_attn_resident(int D, int threads, int smem) {
+  switch (D) {
+    case 32: return comet::resident_short_attn<32>(threads, smem);
+    case 48: return comet::resident_short_attn<48>(threads, smem);
+    case 64: return comet::resident_short_attn<64>(threads, smem);
+    case 96: return comet::resident_short_attn<96>(threads, smem);
+    default: return -1;
   }
 }

@@ -11,8 +11,9 @@ PyTorch version of the same function.
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -22,6 +23,85 @@ SUPPORTED_HEAD_DIMS = (32, 48, 64, 96)
 # K3 takes sequences up to this long when there are at least this many rows
 SHORT_MAX_LEN = 64
 SHORT_MIN_ROWS = 256
+# K3 as compiled: at most 16 warps (one per head and 16 query rows; 8 at D
+# 96, whose instance needs more than 128 registers a thread) and a ring of at
+# most 3 stages per CTA
+SHORT_MAX_WARPS = 16
+SHORT_MAX_STAGES = 3
+
+
+def short_max_warps(d: int) -> int:
+    """The most warps a K3 CTA at head dimension ``d`` has."""
+    return SHORT_MAX_WARPS // 2 if d == 96 else SHORT_MAX_WARPS
+
+
+class ShortPlan(NamedTuple):
+    heads: int  # heads of one sequence per unit of work (a warp per head and 16 query rows)
+    warps: int  # per CTA
+    stages: int  # units in the ring
+    grid: int  # CTAs; unit u = (sequence u // (H / heads), head group u % (H / heads)) goes to CTA u % grid
+    box_cols: int  # columns of an output TMA box (input boxes have 64)
+
+
+def short_box_cols(cols: int) -> int:
+    """The widest output TMA box (64, 32 or 16 columns) that divides ``cols``."""
+    return next(w for w in (64, 32, 16) if cols % w == 0)
+
+
+def short_smem(lq: int, lk: int, cols: int, stages: int) -> int:
+    """K3's dynamic shared memory for units of ``cols`` columns: 1024 bytes
+    to align the tiles, the ring of q, k, v tiles (rows padded to 16, columns
+    read as whole boxes of 64), two output tiles and the barriers
+    (``short_smem`` in ``csrc/short_attn.cu``)."""
+    lqp, lkp, read = -(-lq // 16) * 16, -(-lk // 16) * 16, -(-cols // 64) * 64
+    return 1024 + stages * (lqp + 2 * lkp) * read * 2 + 2 * lqp * cols * 2 + 8 * SHORT_MAX_STAGES
+
+
+def short_plan(b: int, lq: int, lk: int, c: int, heads: int, sms: int,
+               resident: Callable[[int, int], int]) -> ShortPlan:
+    """K3's launch for B sequences of Lq queries and Lk keys at width C.
+
+    A unit of work is some heads of one sequence: the most heads (dividing
+    H, one warp per head and 16 query rows, at most :func:`short_max_warps`)
+    whose units
+    still number at least one per SM, so at L <= 16 a whole sequence per
+    unit; where no count does, one head per unit (the most units). The grid
+    is persistent: ``resident(threads, smem)`` is how many CTAs of that size
+    an SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    Where the card holds every unit at once with one stage, each CTA takes
+    one unit; else the ring has 3 stages where the card holds as many CTAs
+    with 3 as with 2, else 2, and the grid is as many CTAs as it holds. A
+    head count whose units do not fit the shared memory is passed over."""
+    d = c // heads
+    slices = -(-lq // 16)
+    counts = [n for n in range(1, heads + 1)
+              if heads % n == 0 and n * slices <= short_max_warps(d)]
+    filling = sorted((n for n in counts if b * heads // n >= sms), reverse=True)
+    for n in filling + [n for n in counts if n not in filling]:
+        warps, cols, units = n * slices, n * d, b * heads // n
+        fits = {s: resident(32 * warps, short_smem(lq, lk, cols, s))
+                for s in range(1, SHORT_MAX_STAGES + 1)}
+        if fits[1] < 1:
+            continue
+        if units <= sms * fits[1]:
+            stages, grid = 1, units
+        else:
+            stages = 3 if fits[3] >= 1 and fits[3] == fits[2] else (2 if fits[2] >= 1 else 1)
+            grid = sms * fits[stages]
+        return ShortPlan(n, warps, stages, grid, short_box_cols(cols))
+    raise ValueError(f"short_attention: no plan fits Lq {lq}, Lk {lk}, C {c}, {heads} heads")
+
+
+@functools.lru_cache(maxsize=None)
+def _short_resident(index: int, d: int, threads: int, smem: int) -> int:
+    with torch.cuda.device(index):
+        return kernels.library().comet_short_attn_resident(d, threads, smem)
+
+
+@functools.lru_cache(maxsize=4096)
+def _card_short_plan(index: int, b: int, lq: int, lk: int, c: int, heads: int) -> ShortPlan:
+    return short_plan(b, lq, lk, c, heads, kernels.sm_count(index),
+                      lambda threads, smem: _short_resident(index, c // heads, threads, smem))
 
 
 def attention_reference(
@@ -41,59 +121,68 @@ def attention_reference(
     return out.reshape(b, lq, c)
 
 
-def _stride(t: torch.Tensor, dim: int) -> int:
-    # a size-1 dimension is never stepped over, whatever stride it reports
-    return 0 if t.shape[dim] == 1 else t.stride(dim)
-
-
 def kernel_operand(t: torch.Tensor) -> torch.Tensor:
     """t as the kernels take it: t itself, or a contiguous copy when a
     dimension longer than 1 has stride 0 (an ``expand``), since the kernels
     step over every such dimension in memory."""
-    if any(n > 1 and s == 0 for n, s in zip(t.shape, t.stride())):
+    strides = t.stride()
+    if 0 in strides and any(n > 1 and s == 0 for n, s in zip(t.shape, strides)):
         return t.contiguous()
     return t
 
 
-def _check_operand(name: str, t: torch.Tensor, length: int, c: int) -> None:
+def _check_operand(name: str, t: torch.Tensor, length: int, c: int) -> tuple:
+    """Check one operand; return its batch and row strides in elements (0
+    for a size-1 dimension, which is never stepped over, whatever stride it
+    reports)."""
     if t.dtype != torch.bfloat16:
         if t.dtype == torch.float32:
             raise NotImplementedError("attention on CUDA takes bfloat16 only")
         raise ValueError(f"attention: {name} has dtype {t.dtype}")
     if t.device.type != "cuda":
         raise ValueError(f"attention: {name} is on {t.device}")
-    if t.dim() != 3 or t.shape[1] != length or t.shape[2] != c:
-        raise ValueError(f"attention: {name} has shape {tuple(t.shape)}")
-    if t.stride(2) != 1 or _stride(t, 1) % 8 or _stride(t, 0) % 8 or t.data_ptr() % 16:
+    shape = t.shape
+    if len(shape) != 3 or shape[1] != length or shape[2] != c:
+        raise ValueError(f"attention: {name} has shape {tuple(shape)}")
+    bs, rs, cs = t.stride()
+    bs, rs = (0 if shape[0] == 1 else bs), (0 if length == 1 else rs)
+    if cs != 1 or rs % 8 or bs % 8 or t.data_ptr() % 16:
         raise ValueError(
             f"attention: {name} needs unit column stride and 16-byte aligned rows"
         )
+    return bs, rs
 
 
-def _launch(entry: str, q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+def _launch(entry: str, q, k, v, num_heads: int, scale: float, plan=None) -> torch.Tensor:
     """Check the operands and launch the kernel behind the C entry point
-    ``entry`` (no launch for an empty output)."""
+    ``entry`` (no launch for an empty output). ``plan``, for K3: a function
+    of (card, B, Lq, Lk, C, heads) giving its :class:`ShortPlan`."""
     b, lq, c = q.shape
     lk = k.shape[1]
     if c % num_heads or c // num_heads not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"attention: head dim {c / num_heads} not in {SUPPORTED_HEAD_DIMS}")
-    q, k, v = (kernel_operand(t) for t in (q, k, v))
-    _check_operand("q", q, lq, c)
-    _check_operand("k", k, lk, c)
-    _check_operand("v", v, lk, c)
-    if k.shape[0] != b or v.shape[0] != b or k.device != q.device or v.device != q.device:
+    q, k, v = kernel_operand(q), kernel_operand(k), kernel_operand(v)
+    q_strides = _check_operand("q", q, lq, c)
+    k_strides = _check_operand("k", k, lk, c)
+    v_strides = _check_operand("v", v, lk, c)
+    device = q.device
+    if k.shape[0] != b or v.shape[0] != b or k.device != device or v.device != device:
         raise ValueError("attention: q, k, v disagree in batch or device")
-    out = torch.empty((b, lq, c), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, lq, c), dtype=q.dtype, device=device)
     if b == 0 or lq == 0:
         return out
     if lk == 0:
         raise ValueError("attention: no keys")
+    index = device.index
+    if plan is None:
+        extra = ()
+    else:
+        p = plan(index, b, lq, lk, c, num_heads)
+        extra = (p.heads, p.stages, p.grid)
     rc = getattr(kernels.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, num_heads, c // num_heads, lq, lk,
-        _stride(q, 0), _stride(q, 1), _stride(k, 0), _stride(k, 1),
-        _stride(v, 0), _stride(v, 1),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        b, num_heads, c // num_heads, lq, lk, *q_strides, *k_strides, *v_strides,
+        float(scale), *extra, kernels.stream(index),
     )
     kernels.check_launch(rc, entry)
     return out
@@ -110,9 +199,13 @@ def short_attention(
     v: torch.Tensor,
     num_heads: int,
     scale: Optional[float] = None,
+    *,
+    plan: Optional[ShortPlan] = None,
 ) -> torch.Tensor:
-    """K3: :func:`fused_attention` for Lq, Lk <= 64, one (sequence, head)
-    pair computed directly per warp. Same arguments and result."""
+    """K3: :func:`fused_attention` for Lq, Lk <= 64, each (sequence, head)
+    computed directly by one warp per 16 query rows. Same arguments and
+    result. ``plan``, for tests and measurement: launch with this plan
+    instead of :func:`short_plan`'s."""
     b, lq, c = q.shape
     lk = k.shape[1]
     if scale is None:
@@ -121,7 +214,8 @@ def short_attention(
         return attention_reference(q, k, v, num_heads, scale)
     if lq > SHORT_MAX_LEN or lk > SHORT_MAX_LEN:
         raise ValueError(f"short_attention: Lq {lq} and Lk {lk} must be <= {SHORT_MAX_LEN}")
-    out = _launch("comet_short_attn_fwd", q, k, v, num_heads, scale)
+    out = _launch("comet_short_attn_fwd", q, k, v, num_heads, scale,
+                  _card_short_plan if plan is None else (lambda *_: plan))
     if out.numel():
         short_attention.launches += 1
         short_attention.launch_shapes[(b, lq, lk, c, num_heads)] += 1

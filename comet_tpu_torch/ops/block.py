@@ -79,11 +79,6 @@ def cross_kv_groups(rows: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _resident_clusters(index: int, c: int, split: int) -> int:
     """How many clusters of ``split`` CTAs of K4's query-side kernel card
     ``index`` holds at once."""
@@ -193,7 +188,8 @@ def fused_attn_block(
     rc = kernels.library().comet_attn_block_fwd(
         x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        b * l, l, c, num_heads, hidden, block_split(b * l, hidden, _sm_count(x.device.index)),
+        b * l, l, c, num_heads, hidden,
+        block_split(b * l, hidden, kernels.sm_count(x.device.index)),
         None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -290,7 +286,7 @@ def fused_cross_block(
         split = card_cross_split(b * lq, num_heads, c, index)
     rc = kernels.library().comet_cross_block_fwd(
         *(t.data_ptr() for t in args), kv.data_ptr(), out.data_ptr(),
-        b, lq, lk, c, num_heads, hidden, split, cross_kv_groups(b * lk, _sm_count(index)),
+        b, lq, lk, c, num_heads, hidden, split, cross_kv_groups(b * lk, kernels.sm_count(index)),
         None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("attn.cu", "block.cu", "short_attn.cu", "cross_block.cu", "norm.cu")
@@ -44,18 +46,20 @@ _SIGNATURES = {
     ),
     "comet_short_attn_fwd": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
-         ctypes.c_float, _P],
+         ctypes.c_float, _I, _I, _I, _P],
         _I,
     ),
+    "comet_short_attn_resident": ([_I] * 3, _I),
     "comet_cross_block_fwd": (
         [_P] * 16 + [_I] * 8 + [_P, _P],
         _I,
     ),
     "comet_cross_block_clusters": ([_I, _I], _I),
     "comet_layer_norm_fwd": (
-        [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+        [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
         _I,
     ),
+    "comet_layer_norm_resident": ([_I] * 5, _I),
 }
 
 
@@ -141,6 +145,18 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stream(index: int) -> int:
+    """The handle of the current stream on CUDA card ``index``, for a launch
+    (without building a ``torch.cuda.Stream`` object on every call)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_launch(rc: int, name: str) -> None:

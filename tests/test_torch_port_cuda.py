@@ -20,7 +20,9 @@ import subprocess
 import pytest
 import torch
 
-from comet_tpu_torch.ops.attn import attention_reference, fused_attention, short_attention
+from comet_tpu_torch.ops.attn import (
+    ShortPlan, attention_reference, fused_attention, short_attention,
+)
 from comet_tpu_torch.ops.block import (
     K4_CLOCKS, block_reference, cross_block_reference, fused_attn_block, fused_cross_block,
 )
@@ -183,6 +185,70 @@ def test_k3_cuda_matches_plain(cuda_device, b, l, c, packed):
     torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
 
 
+# K3's edge shapes (B, Lq, Lk, C, heads, layout), as chip_smoke.py's K3_EDGE:
+# L 1, 15, 17, 33, 63 and 64 and Lq != Lk around its 16-row slices, D 32,
+# 48, 64 and 96, 12 heads, batches that are not a multiple of a CTA's units;
+# q, k, v as slices of one packed projection, as three tensors, or with k
+# and v one sequence expanded over the batch
+K3_EDGE = [(300, 1, 1, 256, 8, "packed"), (20, 15, 15, 384, 8, "packed"),
+           (17, 17, 17, 512, 8, "separate"), (9, 33, 33, 768, 8, "packed"),
+           (5, 63, 63, 384, 8, "separate"), (5, 64, 64, 256, 8, "expanded"),
+           (20, 16, 64, 384, 8, "separate"), (8, 64, 17, 256, 8, "packed"),
+           (19, 16, 16, 384, 8, "packed"), (20, 16, 16, 768, 12, "packed"),
+           (33, 16, 1, 768, 8, "expanded"), (7, 40, 40, 512, 8, "packed")]
+
+
+def _k3_inputs(dev, b, lq, lk, c, layout, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    if layout == "packed" and lq == lk:
+        return rnd(b, lq, 3 * c).split(c, -1)
+    if layout == "packed":
+        return (rnd(b, lq, c), *rnd(b, lk, 2 * c).split(c, -1))
+    if layout == "expanded":
+        return rnd(b, lq, c), rnd(1, lk, c).expand(b, lk, c), rnd(1, lk, c).expand(b, lk, c)
+    return rnd(b, lq, c), rnd(b, lk, c), rnd(b, lk, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,c,h,layout", K3_EDGE)
+def test_k3_cuda_edge_shapes(cuda_device, b, lq, lk, c, h, layout):
+    q, k, v = _k3_inputs(cuda_device, b, lq, lk, c, layout)
+    before = short_attention.launches
+    got = short_attention(q, k, v, h)
+    assert short_attention.launches == before + 1
+    want = attention_reference(q.float(), k.float(), v.float(), h, (c // h) ** -0.5)
+    torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k3_and_k5_are_not_served_a_stale_plan(cuda_device):
+    # K3 and K5 at one shape, another, and the first again (other buffers):
+    # each call's plan and tensor maps are its own
+    for b, lq, lk, c, layout in [(576, 16, 16, 384, "packed"), (16, 64, 64, 384, "packed"),
+                                 (40, 16, 33, 256, "separate"), (576, 16, 16, 384, "packed")]:
+        q, k, v = _k3_inputs(cuda_device, b, lq, lk, c, layout, seed=b + lk)
+        want = attention_reference(q.float(), k.float(), v.float(), 8, (c // 8) ** -0.5)
+        torch.testing.assert_close(short_attention(q, k, v, 8).float(), want, atol=3e-2, rtol=0)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    for rows, c in [(9296, 768), (16, 256), (1057, 392), (9296, 768)]:
+        x = torch.randn(rows, c, generator=g, device=cuda_device).bfloat16()
+        want = layer_norm_reference(x.float())
+        torch.testing.assert_close(fused_layer_norm(x).float(), want, atol=1e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_a_plan_it_cannot_run(cuda_device):
+    q, k, v = _k3_inputs(cuda_device, 32, 16, 16, 384, "packed")
+    with pytest.raises(ValueError, match="does not take"):  # 3 heads do not divide 8
+        short_attention(q, k, v, 8, plan=ShortPlan(3, 3, 1, 64, 16))
+    with pytest.raises(ValueError, match="does not take"):  # a ring of 4 stages
+        short_attention(q, k, v, 8, plan=ShortPlan(8, 8, 4, 16, 64))
+
+
 def _cross_weights(g, dev, c, hid):
     def rnd(*shape, s=1.0, mean=0.0):
         return (mean + torch.randn(*shape, generator=g, device=dev) * s).bfloat16()
@@ -287,6 +353,28 @@ def test_k5_cuda_matches_plain(cuda_device, rows, c, dtype, affine):
     before = fused_layer_norm.launches
     got = fused_layer_norm(x, scale, bias)
     assert fused_layer_norm.launches == before + 1 and got.dtype == dtype
+    want = layer_norm_reference(x.float(), scale, bias)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want, atol=1e-3, rtol=2.0 ** -7)
+
+
+# K5's edge shapes, as chip_smoke.py's K5_EDGE: rows around a CTA's step and
+# an H100's resident CTAs, widths that leave lanes idle
+K5_EDGE = [(r, c) for r in (1, 7, 9, 1055, 1057, 9296) for c in (8, 264, 392, 1000, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,c", K5_EDGE)
+def test_k5_cuda_edge_shapes(cuda_device, rows, c, dtype, affine):
+    g = torch.Generator(device=cuda_device).manual_seed(rows + c)
+    x = (torch.randn(rows, c, generator=g, device=cuda_device) * 3 + 1).to(dtype)
+    scale = torch.randn(c, generator=g, device=cuda_device) if affine else None
+    bias = torch.randn(c, generator=g, device=cuda_device) if affine else None
+    got = fused_layer_norm(x, scale, bias)
     want = layer_norm_reference(x.float(), scale, bias)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)

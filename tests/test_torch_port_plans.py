@@ -9,15 +9,24 @@ cluster), from how many clusters the card holds at once, and
 tiles cannot fill the card. ``ops/attn.py::
 kernel_operand`` decides which attention operands reach the kernels as they
 are and which are copied first (expanded ones, whose stride-0 dimensions
-the kernels' tensor maps cannot step over).
+the kernels' tensor maps cannot step over). ``ops/norm.py::norm_plan`` sizes
+K5's thread group per row and its persistent grid, and ``ops/attn.py::
+short_plan`` K3's units of work, ring depth and persistent grid; each is
+checked here by walking the rows or (sequence, head) pairs as the kernel
+does.
 """
 
 import pytest
 import torch
 
-from comet_tpu_torch.ops.attn import kernel_operand
+from comet_tpu_torch.ops.attn import (
+    SHORT_MAX_STAGES, kernel_operand, short_max_warps, short_plan, short_smem,
+)
 from comet_tpu_torch.ops.block import (
     K2_CHUNK, K2_MAX_SPLIT, K2_ROWS, K4_ROWS, block_split, cross_kv_groups, cross_split,
+)
+from comet_tpu_torch.ops.norm import (
+    NORM_GROUPS, NORM_MAX_VECTORS, NORM_THREADS, norm_group, norm_plan,
 )
 
 H100_SMS = 132
@@ -157,3 +166,166 @@ def test_kernel_operand_copies_only_expanded_tensors(name):
     assert (got.data_ptr() != t.data_ptr()) == copied
     # what reaches a kernel steps over every dimension longer than 1
     assert all(s != 0 for n, s in zip(got.shape, got.stride()) if n > 1)
+
+
+# ------------------------------------------------------------------- K5
+
+# the main path's K5 calls (rows, C) on FUSED_ROUTE, then the edges: rows
+# around a CTA's step and an H100's resident CTAs (1,056 at 8 per SM), widths
+# that leave lanes idle
+K5_MAIN = [(9296, 768), (9216, 768), (9232, 768), (8655, 768), (577, 768), (8192, 256),
+           (8192, 768), (16, 768), (9216, 384), (1024, 384)]
+K5_EDGE = [(r, c) for r in (1, 7, 9, 1055, 1057, 9296) for c in (8, 264, 392, 1000, 1024)]
+
+
+def _ln_rows_covered(plan, rows):
+    """The rows each group of each CTA takes, walked as csrc/norm.cu does:
+    group g of CTA b the rows g * grid + b, then every (256 / group) * grid-th."""
+    seen = []
+    groups = NORM_THREADS // plan.group
+    for b in range(plan.grid):
+        mine = [r for g in range(groups) for r in range(g * plan.grid + b, rows, groups * plan.grid)]
+        assert mine, "a CTA without rows"
+        seen += mine
+    return seen
+
+
+@pytest.mark.parametrize("c,itemsize,want", [
+    (768, 2, (32, 3)), (384, 2, (16, 3)), (256, 2, (16, 2)),  # the main path, bf16
+    (768, 4, (32, 6)), (256, 4, (32, 2)), (1024, 2, (32, 4)), (1024, 4, (32, 8)),
+    (8, 2, (16, 1)), (264, 2, (16, 3)), (392, 2, (16, 4)), (1000, 2, (16, 8)), (1000, 4, (32, 8)),
+])
+def test_k5_group_fits_the_row(c, itemsize, want):
+    group, vectors = norm_group(c, itemsize)
+    assert (group, vectors) == want
+    nvec = c * itemsize // 16
+    assert group in NORM_GROUPS and 1 <= vectors <= NORM_MAX_VECTORS
+    assert group * vectors >= nvec > group * (vectors - 1)  # every vector, no idle round
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_k5_group_takes_every_width(itemsize):
+    for c in range(8, 1025, 8):
+        group, vectors = norm_group(c, itemsize)
+        nvec = c * itemsize // 16
+        assert group in NORM_GROUPS and 1 <= vectors <= NORM_MAX_VECTORS
+        assert group * vectors >= nvec > group * (vectors - 1)
+
+
+@pytest.mark.parametrize("sms,resident", [(132, 8), (132, 3), (132, 1), (1, 8), (16, 4),
+                                          (78, 6), (114, 8), (144, 5)])
+@pytest.mark.parametrize("rows,c", K5_MAIN + K5_EDGE)
+def test_k5_plan_covers_every_row_once(rows, c, sms, resident):
+    for itemsize in (2, 4):
+        plan = norm_plan(rows, c, itemsize, sms, lambda g: resident)
+        assert (plan.group, plan.vectors) == norm_group(c, itemsize)
+        # persistent: never more CTAs than the card holds at once, or than rows
+        assert 1 <= plan.grid <= min(sms * resident, rows)
+        assert sorted(_ln_rows_covered(plan, rows)) == list(range(rows))
+
+
+@pytest.mark.parametrize("rows,c,grid", [
+    (9296, 768, 1056),  # 1,162 steps of 8 rows: every resident CTA, no second wave
+    (9216, 384, 576),  # one step of 16 rows per CTA
+    (8192, 256, 512),
+    (1024, 384, 132),  # under a step per SM: spread over every SM
+    (577, 768, 132),
+    (16, 768, 16),  # a row per CTA
+    (1, 8, 1),
+])
+def test_k5_plan_on_an_h100(rows, c, grid):
+    # 8 CTAs of 256 threads per SM, the thread limit
+    assert norm_plan(rows, c, 2, 132, lambda g: 8).grid == grid
+
+
+# ------------------------------------------------------------------- K3
+
+# an H100 as cudaOccupancyMaxActiveBlocksPerMultiprocessor sees it for these
+# CTAs: 2,048 threads, 32 CTAs and 228 KB of shared memory per SM (1 KB of it
+# reserved per CTA), at most 227 KB per CTA
+H100_SMEM_PER_SM, H100_SMEM_PER_CTA = 233472, 232448
+
+
+def _h100_resident(threads, smem):
+    if smem > H100_SMEM_PER_CTA:
+        return 0
+    return min(2048 // threads, 32, H100_SMEM_PER_SM // (smem + 1024))
+
+
+def _scaled(n):
+    """A card whose SMs hold n times fewer CTAs than an H100's (at least one
+    of any CTA the H100 takes)."""
+    return lambda threads, smem: min(_h100_resident(threads, smem), max(
+        _h100_resident(threads, smem) // n, 1))
+
+
+# (B, Lq, Lk, C, heads): the main path's three calls, then the edges: B * L
+# just over 256, L 1, 15, 17, 33 and 64, Lq != Lk, D 32, 48, 64 and 96, 12
+# heads, batches that are not a multiple of a CTA's units
+K3_MAIN = [(576, 16, 16, 384, 8), (16, 64, 64, 384, 8), (512, 16, 16, 256, 8)]
+K3_EDGE = [(17, 16, 16, 384, 8), (257, 1, 1, 256, 8), (300, 1, 1, 768, 8), (18, 15, 15, 384, 8),
+           (16, 17, 17, 512, 8), (9, 33, 33, 768, 8), (5, 64, 64, 768, 8), (5, 63, 63, 384, 8),
+           (20, 16, 64, 384, 8), (8, 64, 17, 256, 8), (20, 16, 16, 768, 12), (577, 16, 16, 384, 8),
+           (1, 64, 64, 384, 8), (4097, 16, 16, 256, 8)]
+
+
+def _pairs_covered(plan, b, heads):
+    """The (sequence, head) pairs each CTA computes, walked as
+    csrc/short_attn.cu does: unit u = (sequence u // groups, head group
+    u % groups) goes to CTA u % grid, which takes its units in order."""
+    groups = heads // plan.heads
+    units = b * groups
+    seen = []
+    for cta in range(plan.grid):
+        mine = range(cta, units, plan.grid)
+        assert len(mine) >= 1, "a CTA without units"
+        for u in mine:
+            seq, g = divmod(u, groups)
+            seen += [(seq, g * plan.heads + h) for h in range(plan.heads)]
+    return seen
+
+
+@pytest.mark.parametrize("resident", [_h100_resident, _scaled(2), _scaled(4)])
+@pytest.mark.parametrize("sms", [1, 16, 78, 114, 132, 144])
+@pytest.mark.parametrize("b,lq,lk,c,heads", K3_MAIN + K3_EDGE)
+def test_k3_plan_covers_every_pair_once(b, lq, lk, c, heads, sms, resident):
+    plan = short_plan(b, lq, lk, c, heads, sms, resident)
+    d, slices = c // heads, -(-lq // 16)
+    cols = plan.heads * d
+    assert heads % plan.heads == 0
+    # one warp per head and 16 query rows, within a CTA's limits
+    assert plan.warps == plan.heads * slices <= short_max_warps(d) <= 16
+    assert 1 <= plan.stages <= SHORT_MAX_STAGES
+    smem = short_smem(lq, lk, cols, plan.stages)
+    assert smem <= H100_SMEM_PER_CTA and resident(32 * plan.warps, smem) >= 1
+    # TMA boxes: at most 256 per dimension, columns dividing the unit's
+    assert plan.box_cols in (16, 32, 64) and cols % plan.box_cols == 0
+    assert -(-max(lq, lk) // 16) * 16 <= 256
+    # persistent: no more CTAs than the card holds at once, or than units
+    units = b * heads // plan.heads
+    assert 1 <= plan.grid <= min(units, sms * resident(32 * plan.warps, smem))
+    # a ring only where a CTA has more than one unit
+    assert plan.stages == 1 or units > plan.grid
+    assert sorted(_pairs_covered(plan, b, heads)) == [(s, h) for s in range(b)
+                                                      for h in range(heads)]
+
+
+@pytest.mark.parametrize("b,lq,lk,c,heads,want", [
+    # coarse time: whole sequences, 2 stages (a third would halve the CTAs)
+    (576, 16, 16, 384, 8, (8, 8, 2, 264, 64)),
+    # fine time: every unit resident at once, one stage each
+    (512, 16, 16, 256, 8, (8, 8, 1, 512, 64)),
+    # coarse virtual: 16 sequences; one head per unit gives the most CTAs
+    (16, 64, 64, 384, 8, (1, 4, 1, 128, 16)),
+    # B * L just over 256 at L 16: one head per unit fills the card
+    (17, 16, 16, 384, 8, (1, 1, 1, 136, 16)),
+])
+def test_k3_plan_on_an_h100(b, lq, lk, c, heads, want):
+    assert tuple(short_plan(b, lq, lk, c, heads, 132, _h100_resident)) == want
+
+
+def test_k3_plan_passes_over_units_that_do_not_fit():
+    # 4 heads of D 96 at L 64 (16 warps) need 245 KB with one stage
+    assert short_smem(64, 64, 4 * 96, 1) > H100_SMEM_PER_CTA
+    plan = short_plan(1, 64, 64, 768, 8, 1, _h100_resident)
+    assert plan.heads < 4 and short_smem(64, 64, plan.heads * 96, plan.stages) <= H100_SMEM_PER_CTA
