@@ -514,14 +514,6 @@ def check_k5(torch, F, norm, dev, gen, floor_ms):
             )
         ms = _median_ms(torch, lambda: norm.fused_layer_norm(x, s, b))
         host_us = _host_us(torch, lambda: norm.fused_layer_norm(x, s, b))
-        ring_out = norm.fused_layer_norm(x, s, b, ring=True)
-        torch.cuda.synchronize()
-        ring_excess = ((ring_out.float() - want).abs() - K5_RTOL * want.abs()).max().item()
-        ring_ms = _median_ms(torch, lambda: norm.fused_layer_norm(x, s, b, ring=True))
-        print(f"K5 {where:42s} designs: registers {ms:.4f} ms, bulk-copy ring {ring_ms:.4f} ms "
-              f"(excess {ring_excess:.3e})", flush=True)
-        if not ring_excess <= K5_ATOL:
-            raise SmokeError(f"K5 {where} ring design: exceeds by {ring_excess}")
         plain_ms = _median_ms(torch, lambda: norm.layer_norm_reference(x, s, b))
         s16, b16 = (t.bfloat16() if t is not None else None for t in (s, b))
         library_ms = _median_ms(torch, lambda: F.layer_norm(x, (c,), s16, b16, 1e-6))

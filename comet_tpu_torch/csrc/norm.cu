@@ -24,22 +24,29 @@
 //   then every (256 / G) * grid-th row: consecutive rows go to different
 //   CTAs, so a grid of one CTA per SM spreads even a few hundred rows over
 //   every SM, and the CTAs' rows differ by at most one step.
-// - The next row in flight while the current row is normalised: a group
-//   issues the 16-byte loads of its next row into registers before it
-//   reduces the current one. The row stays in registers as it arrived
-//   (bf16 pairs) and is unpacked in each pass, and the row loop is not
-//   unrolled, so the two rows cost 8 NV registers a lane.
+// - The next row in flight while the current row is normalised: where the
+//   card holds a group for every row at once, each group takes one row and
+//   the kernel keeps no second buffer; else a group issues the 16-byte loads
+//   of its next row into registers before it reduces the current one. A
+//   row stays in registers as it arrived (bf16 pairs) and is unpacked in
+//   each pass, and the row loop is not unrolled, so two rows cost 8 NV
+//   registers a lane; the launch bounds give NV <= 3 a budget of 64
+//   registers (4 CTAs per SM), which ptxas would otherwise undercut with
+//   small spills.
+// - A warp walks its rows while its first group has one, and a group
+//   without a row reduces zeros and stores nothing, so every shuffle has the
+//   whole warp and the full mask (a partial mask made ptxas add a slow
+//   divergent path, and spills, to every shuffle).
 // - Scale and bias are read into shared memory once per CTA (f32, 8 C
 //   bytes), after the first row's loads are out, and from there for every
-//   row.
-#include "hopper.cuh"
+//   row. 1 / C comes from the host, so the row loop has no division.
+#include "mma.cuh"
 
 namespace comet {
 namespace {
 
 constexpr int kNormThreads = 256;
 constexpr int kMaxC = 1024;
-constexpr int kNormStages = 3;  // blocks of rows in flight per CTA in the ring design
 
 template <typename T>
 struct Vec {
@@ -72,40 +79,37 @@ __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
                     pack_bf16(f[6], f[7]));
 }
 
-// The lanes of this thread's group of G within its warp.
+// Sum over this thread's group of G lanes. Every lane of the warp calls it
+// (a group without a row sums zeros), so the shuffles take the full mask.
 template <int G>
-__device__ __forceinline__ unsigned group_mask() {
-  return G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
-}
-
-template <int G>
-__device__ __forceinline__ float group_sum(float v, unsigned mask) {
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// The 16-byte vectors lane, lane + G, ... of a row (zeros past its end).
+// The 16-byte vectors lane, lane + G, ... of a row (zeros past its end, and
+// for a group without a row: valid false).
 template <typename T, int G, int NV>
-__device__ __forceinline__ void load_row(uint4 (&raw)[NV], const T* __restrict__ xr, int lane,
-                                         int nvec) {
+__device__ __forceinline__ void load_row(uint4 (&raw)[NV], const T* __restrict__ xr, bool valid,
+                                         int lane, int nvec) {
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int idx = lane + G * i;
-    raw[i] = idx < nvec ? *reinterpret_cast<const uint4*>(xr + idx * Vec<T>::VE)
-                        : make_uint4(0, 0, 0, 0);
+    raw[i] = make_uint4(0, 0, 0, 0);
+    if (valid && idx < nvec) raw[i] = *reinterpret_cast<const uint4*>(xr + idx * Vec<T>::VE);
   }
 }
 
 // Normalises one row held as raw vectors, unpacked in each pass so that no
-// second copy of the row occupies registers, and stores it. sc / bi: the
-// CTA's copy of scale and bias in shared memory, or nullptr.
+// second copy of the row occupies registers, and stores it if valid (the
+// group has a row). inv_c = 1 / C; sc / bi: the CTA's copy of scale and
+// bias in shared memory, or nullptr.
 template <typename T, int G, int NV>
-__device__ __forceinline__ void normalise_row(const uint4 (&raw)[NV], T* __restrict__ yr, int lane,
-                                              int nvec, int C, float eps, const float* sc,
-                                              const float* bi) {
+__device__ __forceinline__ void normalise_row(const uint4 (&raw)[NV], T* __restrict__ yr,
+                                              bool valid, int lane, int nvec, float inv_c,
+                                              float eps, const float* sc, const float* bi) {
   constexpr int VE = Vec<T>::VE;
-  const unsigned mask = group_mask<G>();
   float f[VE];
   float s = 0.f;
 #pragma unroll
@@ -114,7 +118,7 @@ __device__ __forceinline__ void normalise_row(const uint4 (&raw)[NV], T* __restr
 #pragma unroll
     for (int e = 0; e < VE; ++e) s += f[e];
   }
-  const float mu = group_sum<G>(s, mask) / static_cast<float>(C);
+  const float mu = group_sum<G>(s) * inv_c;
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -124,11 +128,11 @@ __device__ __forceinline__ void normalise_row(const uint4 (&raw)[NV], T* __restr
       for (int e = 0; e < VE; ++e) ss += (f[e] - mu) * (f[e] - mu);
     }
   }
-  const float rstd = rsqrtf(group_sum<G>(ss, mask) / static_cast<float>(C) + eps);
+  const float rstd = rsqrtf(group_sum<G>(ss) * inv_c + eps);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int idx = lane + G * i;
-    if (idx < nvec) {
+    if (valid && idx < nvec) {
       unpack(raw[i], f);
 #pragma unroll
       for (int e = 0; e < VE; ++e) f[e] = (f[e] - mu) * rstd;
@@ -148,152 +152,84 @@ __device__ __forceinline__ void normalise_row(const uint4 (&raw)[NV], T* __restr
   }
 }
 
-// Copies scale and bias (f32 [C] each) into the CTA's shared memory, once.
-__device__ __forceinline__ void stage_affine(const float* __restrict__ scale,
-                                             const float* __restrict__ bias, float* s_affine,
-                                             int C) {
-  for (int i = threadIdx.x; i < C / 4; i += kNormThreads) {
-    reinterpret_cast<float4*>(s_affine)[i] = reinterpret_cast<const float4*>(scale)[i];
-    reinterpret_cast<float4*>(s_affine + C)[i] = reinterpret_cast<const float4*>(bias)[i];
-  }
-  __syncthreads();
-}
-
-// Design A: the next row's loads in registers.
-template <typename T, int G, int NV>
-__global__ void __launch_bounds__(kNormThreads) layer_norm_kernel(
+// TWO: a group may take more than one row, so it loads the next row's
+// vectors into registers before it reduces the current one; without TWO
+// each group takes at most one row and holds no second buffer.
+template <typename T, int G, int NV, bool TWO>
+__global__ void __launch_bounds__(kNormThreads, NV <= 3 ? 4 : 2) layer_norm_kernel(
     const T* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
-    T* __restrict__ y, int rows, int C, float eps) {
+    T* __restrict__ y, int rows, int C, float inv_c, float eps) {
   extern __shared__ __align__(16) float s_affine[];
-  // group g of CTA b takes rows g * grid + b, then every (256 / G) * grid-th
+  // group g of CTA b takes rows g * grid + b, then every (256 / G) * grid-th;
+  // a warp walks while its first group has a row, so its lanes stay together
   const int stride = (kNormThreads / G) * static_cast<int>(gridDim.x);
   const int nvec = C / Vec<T>::VE;
   const int lane = threadIdx.x % G;
   int row = static_cast<int>(threadIdx.x / G * gridDim.x + blockIdx.x);
-  uint4 cur[NV], nxt[NV];
+  int warp_row = static_cast<int>(threadIdx.x / 32 * (32 / G) * gridDim.x + blockIdx.x);
+  uint4 cur[NV];
   // the first row's loads go out before the CTA waits for scale and bias
-  if (row < rows) load_row<T, G, NV>(cur, x + static_cast<long long>(row) * C, lane, nvec);
-  if (scale != nullptr) stage_affine(scale, bias, s_affine, C);
-  const float* sc = scale != nullptr ? s_affine : nullptr;
+  load_row<T, G, NV>(cur, x + static_cast<long long>(row) * C, row < rows, lane, nvec);
+  const float* sc = nullptr;
+  if (scale != nullptr) {
+    for (int i = threadIdx.x; i < C / 4; i += kNormThreads) {
+      reinterpret_cast<float4*>(s_affine)[i] = reinterpret_cast<const float4*>(scale)[i];
+      reinterpret_cast<float4*>(s_affine + C)[i] = reinterpret_cast<const float4*>(bias)[i];
+    }
+    __syncthreads();
+    sc = s_affine;
+  }
   const float* bi = s_affine + C;
+  if constexpr (!TWO) {
+    if (warp_row < rows)
+      normalise_row<T, G, NV>(cur, y + static_cast<long long>(row) * C, row < rows, lane, nvec,
+                              inv_c, eps, sc, bi);
+  } else {
 #pragma unroll 1
-  for (; row < rows; row += stride) {
-    const bool more = row + stride < rows;
-    if (more) load_row<T, G, NV>(nxt, x + static_cast<long long>(row + stride) * C, lane, nvec);
-    normalise_row<T, G, NV>(cur, y + static_cast<long long>(row) * C, lane, nvec, C, eps, sc, bi);
-    if (more) {
+    for (; warp_row < rows; warp_row += stride, row += stride) {
+      uint4 nxt[NV];
+      load_row<T, G, NV>(nxt, x + static_cast<long long>(row + stride) * C, row + stride < rows,
+                         lane, nvec);
+      normalise_row<T, G, NV>(cur, y + static_cast<long long>(row) * C, row < rows, lane, nvec,
+                              inv_c, eps, sc, bi);
 #pragma unroll
       for (int i = 0; i < NV; ++i) cur[i] = nxt[i];
     }
   }
 }
 
-// Design B: blocks of 256 / G contiguous rows by one bulk copy each into a
-// ring of kNormStages stages in shared memory, completed on mbarriers.
-template <typename T, int G, int NV>
-__global__ void __launch_bounds__(kNormThreads) layer_norm_ring_kernel(
-    const T* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
-    T* __restrict__ y, int rows, int C, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kGroups = kNormThreads / G;
-  const int row_bytes = C * static_cast<int>(sizeof(T));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
-  T* ring = reinterpret_cast<T*>(smem_raw + 128);
-  float* s_affine = reinterpret_cast<float*>(smem_raw + 128 + kNormStages * kGroups * row_bytes);
-  // block k of 256 / G contiguous rows goes to CTA k % grid
-  const int blocks = (rows + kGroups - 1) / kGroups;
-  const int steps = (blocks - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-  auto issue = [&](int s) {
-    const int first = (static_cast<int>(blockIdx.x) + s * static_cast<int>(gridDim.x)) * kGroups;
-    const int n = min(kGroups, rows - first);
-    const int st = s % kNormStages;
-    mbar_expect_tx(&full[st], n * row_bytes);
-    bulk_load(ring + st * kGroups * C, x + static_cast<long long>(first) * C, n * row_bytes,
-              &full[st]);
-  };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kNormStages; ++s) mbar_init(&full[s], 1);
-    mbar_init_fence();
-    for (int s = 0; s < kNormStages && s < steps; ++s) issue(s);
-  }
-  __syncthreads();
-  if (scale != nullptr) stage_affine(scale, bias, s_affine, C);
-  const float* sc = scale != nullptr ? s_affine : nullptr;
-  const float* bi = s_affine + C;
-  const int nvec = C / Vec<T>::VE;
-  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    const int st = s % kNormStages;
-    const int row = (static_cast<int>(blockIdx.x) + s * static_cast<int>(gridDim.x)) * kGroups + grp;
-    mbar_wait(&full[st], (s / kNormStages) & 1);
-    if (row < rows) {
-      uint4 raw[NV];
-      load_row<T, G, NV>(raw, ring + (st * kGroups + grp) * C, lane, nvec);
-      normalise_row<T, G, NV>(raw, y + static_cast<long long>(row) * C, lane, nvec, C, eps, sc,
-                              bi);
-    }
-    __syncthreads();  // every group has read stage st
-    if (threadIdx.x == 0 && s + kNormStages < steps) issue(s + kNormStages);
-  }
-}
-
-template <typename T>
-int ring_smem(int C, int G) {
-  return 128 + kNormStages * (kNormThreads / G) * C * static_cast<int>(sizeof(T)) + 8 * C;
-}
-
-template <typename T, int G, int NV>
+template <typename T, int G, int NV, bool TWO>
 int launch_ln(const void* x, const float* scale, const float* bias, void* y, int rows, int C,
-              float eps, int grid, int ring, cudaStream_t stream) {
-  if (ring) {
-    const int smem = ring_smem<T>(C, G);
-    static int configured = 0;
-    if (smem > configured) {
-      cudaError_t err = cudaFuncSetAttribute(layer_norm_ring_kernel<T, G, NV>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      configured = smem;
-    }
-    layer_norm_ring_kernel<T, G, NV><<<min(grid, (rows + kNormThreads / G - 1) / (kNormThreads / G)), kNormThreads, smem, stream>>>(
-        static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, C, eps);
-  } else {
-    layer_norm_kernel<T, G, NV><<<grid, kNormThreads, scale ? 8 * C : 0, stream>>>(
-        static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, C, eps);
-  }
+              float eps, int grid, cudaStream_t stream) {
+  layer_norm_kernel<T, G, NV, TWO><<<grid, kNormThreads, scale ? 8 * C : 0, stream>>>(
+      static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, C,
+      1.f / static_cast<float>(C), eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int G, int NV>
-int resident_ln(int C, int affine, int ring) {
+template <typename T, int G, int NV, bool TWO>
+int resident_ln(int C, int affine) {
   int n = 0;
-  cudaError_t err;
-  if (ring) {
-    const int smem = ring_smem<T>(C, G);
-    err = cudaFuncSetAttribute(layer_norm_ring_kernel<T, G, NV>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layer_norm_ring_kernel<T, G, NV>,
-                                                          kNormThreads, smem);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layer_norm_kernel<T, G, NV>,
-                                                        kNormThreads, affine ? 8 * C : 0);
-  }
-  return err == cudaSuccess ? n : -1;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layer_norm_kernel<T, G, NV, TWO>,
+                                                       kNormThreads, affine ? 8 * C : 0) ==
+                 cudaSuccess
+             ? n
+             : -1;
 }
 
-// Calls f.template operator()<G, NV>() for the group the plan gave and the
-// vectors a lane of it holds at width C, or returns -1 for a plan or width
-// the kernels do not take.
+// Calls f.template operator()<G, NV, TWO>() for the plan's group and rows
+// per group, and the vectors a lane of the group holds at width C, or
+// returns -1 for a plan or width the kernel does not take.
 template <typename T, typename F>
-int with_instance(int C, int G, F f) {
+int with_instance(int C, int G, int two, F f) {
   if (C < 8 || C % 8 != 0 || C > kMaxC || (G != 16 && G != 32)) return -1;
   const int nv = (C / Vec<T>::VE + G - 1) / G;
-#define COMET_LN_CASE(g, n) \
-  if (G == g && nv == n) return f.template operator()<g, n>();
+#define COMET_LN_CASE(g, n)                                                   \
+  if (G == g && nv == n)                                                      \
+    return two ? f.template operator()<g, n, true>() : f.template operator()<g, n, false>();
   COMET_LN_CASE(16, 1) COMET_LN_CASE(16, 2) COMET_LN_CASE(16, 3) COMET_LN_CASE(16, 4)
   COMET_LN_CASE(16, 5) COMET_LN_CASE(16, 6) COMET_LN_CASE(16, 7) COMET_LN_CASE(16, 8)
-  COMET_LN_CASE(32, 1) COMET_LN_CASE(32, 2) COMET_LN_CASE(32, 3) COMET_LN_CASE(32, 4)
+  COMET_LN_CASE(32, 2) COMET_LN_CASE(32, 3) COMET_LN_CASE(32, 4)
   COMET_LN_CASE(32, 5) COMET_LN_CASE(32, 6) COMET_LN_CASE(32, 7) COMET_LN_CASE(32, 8)
 #undef COMET_LN_CASE
   return -1;
@@ -307,20 +243,20 @@ struct Launch {
   void* y;
   int rows, C;
   float eps;
-  int grid, ring;
+  int grid;
   cudaStream_t stream;
-  template <int G, int NV>
+  template <int G, int NV, bool TWO>
   int operator()() const {
-    return launch_ln<T, G, NV>(x, scale, bias, y, rows, C, eps, grid, ring, stream);
+    return launch_ln<T, G, NV, TWO>(x, scale, bias, y, rows, C, eps, grid, stream);
   }
 };
 
 template <typename T>
 struct Resident {
-  int C, affine, ring;
-  template <int G, int NV>
+  int C, affine;
+  template <int G, int NV, bool TWO>
   int operator()() const {
-    return resident_ln<T, G, NV>(C, affine, ring);
+    return resident_ln<T, G, NV, TWO>(C, affine);
   }
 };
 
@@ -331,25 +267,29 @@ struct Resident {
 // take, else the CUDA error code of the launch. x and y are contiguous
 // [rows, C] of one dtype (is_bf16: bf16, else f32); scale and bias are f32
 // [C], both or neither; every pointer is 16-byte aligned. group (lanes per
-// row, 16 or 32) and grid come from ops/norm.py::norm_plan.
+// row, 16 or 32), two (whether a group may take more than one row) and grid
+// come from ops/norm.py::norm_plan.
 extern "C" int comet_layer_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
-                                    int rows, int C, int is_bf16, float eps, int group, int grid,
-                                    int ring, void* stream) {
+                                    int rows, int C, int is_bf16, float eps, int group, int two,
+                                    int grid, void* stream) {
   if ((scale == nullptr) != (bias == nullptr) || grid < 1 || grid > rows) return -1;
+  // without two, every row must have a group of its own
+  if (!two && static_cast<long long>(grid) * (comet::kNormThreads / (group > 0 ? group : 1)) < rows)
+    return -1;
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return comet::with_instance<comet::bf16>(
-        C, group, comet::Launch<comet::bf16>{x, s, b, y, rows, C, eps, grid, ring, st});
-  return comet::with_instance<float>(
-      C, group, comet::Launch<float>{x, s, b, y, rows, C, eps, grid, ring, st});
+        C, group, two, comet::Launch<comet::bf16>{x, s, b, y, rows, C, eps, grid, st});
+  return comet::with_instance<float>(C, group, two,
+                                     comet::Launch<float>{x, s, b, y, rows, C, eps, grid, st});
 }
 
-// How many CTAs of the kernel for (C, dtype, group, affine) one SM holds at
-// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
-extern "C" int comet_layer_norm_resident(int C, int is_bf16, int group, int affine, int ring) {
+// How many CTAs of the kernel for (C, dtype, group, two, affine) one SM
+// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
+extern "C" int comet_layer_norm_resident(int C, int is_bf16, int group, int two, int affine) {
   if (is_bf16)
-    return comet::with_instance<comet::bf16>(C, group, comet::Resident<comet::bf16>{C, affine, ring});
-  return comet::with_instance<float>(C, group, comet::Resident<float>{C, affine, ring});
+    return comet::with_instance<comet::bf16>(C, group, two, comet::Resident<comet::bf16>{C, affine});
+  return comet::with_instance<float>(C, group, two, comet::Resident<float>{C, affine});
 }

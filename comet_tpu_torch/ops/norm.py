@@ -29,6 +29,7 @@ _DTYPES = {torch.bfloat16: ("bfloat16", 1), torch.float32: ("float32", 0)}
 class NormPlan(NamedTuple):
     group: int  # lanes per row
     vectors: int  # 16-byte vectors each lane holds
+    two: bool  # a group may take more than one row (the next one's loads go out early)
     grid: int  # CTAs; group g of CTA b takes rows g * grid + b + k * (256 / group) * grid
 
 
@@ -45,32 +46,37 @@ def norm_group(c: int, itemsize: int) -> tuple:
 
 
 def norm_plan(rows: int, c: int, itemsize: int, sms: int,
-              resident: Callable[[int], int]) -> NormPlan:
+              resident: Callable[[int, bool], int]) -> NormPlan:
     """K5's launch for ``rows`` rows of ``c`` values: the group from
     :func:`norm_group`, and a persistent grid of at most as many CTAs as the
-    card holds at once (``resident(group)`` per SM, from
+    card holds at once (``resident(group, two)`` per SM, from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), so no CTA waits for a
-    second wave. Consecutive rows go to different CTAs, so where one row per
-    group would leave SMs empty, the grid has a CTA for each SM (or row)."""
+    second wave. Where the card holds a group for every row at once, each
+    group takes one row (the kernel without a second row buffer), and since
+    consecutive rows go to different CTAs, rows that would leave SMs empty
+    get a CTA for each SM (or row); else every CTA the card holds, each group
+    walking its rows with the next one's loads in flight."""
     group, vectors = norm_group(c, itemsize)
     per_step = NORM_THREADS // group  # rows a CTA takes at once
-    grid = min(sms * resident(group), max(-(-rows // per_step), min(rows, sms)))
-    return NormPlan(group, vectors, grid)
+    steps = -(-rows // per_step)
+    if steps <= sms * resident(group, False):
+        return NormPlan(group, vectors, False, max(steps, min(rows, sms)))
+    return NormPlan(group, vectors, True, sms * resident(group, True))
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(index: int, c: int, is_bf16: int, group: int, affine: bool, ring: bool) -> int:
+def _resident(index: int, c: int, is_bf16: int, group: int, two: bool, affine: bool) -> int:
     with torch.cuda.device(index):
-        n = kernels.library().comet_layer_norm_resident(c, is_bf16, group, int(affine), int(ring))
+        n = kernels.library().comet_layer_norm_resident(c, is_bf16, group, int(two), int(affine))
     if n < 1:
         raise RuntimeError("fused_layer_norm: cudaOccupancyMaxActiveBlocksPerMultiprocessor failed")
     return n
 
 
 @functools.lru_cache(maxsize=4096)
-def _card_plan(index: int, rows: int, c: int, is_bf16: int, affine: bool, ring: bool) -> NormPlan:
+def _card_plan(index: int, rows: int, c: int, is_bf16: int, affine: bool) -> NormPlan:
     return norm_plan(rows, c, 2 if is_bf16 else 4, kernels.sm_count(index),
-                     lambda g: _resident(index, c, is_bf16, g, affine, ring))
+                     lambda g, two: _resident(index, c, is_bf16, g, two, affine))
 
 
 def layer_norm_reference(
@@ -97,8 +103,6 @@ def fused_layer_norm(
     scale: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
-    *,
-    ring: bool = False,
 ) -> torch.Tensor:
     """LayerNorm over the last axis of a contiguous bf16 or f32 tensor, with
     f32 statistics; scale and bias are f32 [C], both or neither. Returns a
@@ -130,10 +134,10 @@ def fused_layer_norm(
     if rows == 0:
         return out
     index = device.index
-    plan = _card_plan(index, rows, c, kind[1], affine, ring)
+    plan = _card_plan(index, rows, c, kind[1], affine)
     rc = kernels.library().comet_layer_norm_fwd(
         x.data_ptr(), scale.data_ptr() if affine else None, bias.data_ptr() if affine else None,
-        out.data_ptr(), rows, c, kind[1], float(eps), plan.group, plan.grid, int(ring),
+        out.data_ptr(), rows, c, kind[1], float(eps), plan.group, int(plan.two), plan.grid,
         kernels.stream(index),
     )
     kernels.check_launch(rc, "fused_layer_norm")

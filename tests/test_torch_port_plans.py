@@ -212,30 +212,35 @@ def test_k5_group_takes_every_width(itemsize):
         assert group * vectors >= nvec > group * (vectors - 1)
 
 
-@pytest.mark.parametrize("sms,resident", [(132, 8), (132, 3), (132, 1), (1, 8), (16, 4),
-                                          (78, 6), (114, 8), (144, 5)])
+@pytest.mark.parametrize("sms,one,two", [(132, 6, 4), (132, 3, 2), (132, 1, 1), (1, 8, 4),
+                                         (16, 4, 4), (78, 6, 3), (114, 8, 8), (144, 5, 4)])
 @pytest.mark.parametrize("rows,c", K5_MAIN + K5_EDGE)
-def test_k5_plan_covers_every_row_once(rows, c, sms, resident):
+def test_k5_plan_covers_every_row_once(rows, c, sms, one, two):
     for itemsize in (2, 4):
-        plan = norm_plan(rows, c, itemsize, sms, lambda g: resident)
+        plan = norm_plan(rows, c, itemsize, sms, lambda g, t: two if t else one)
         assert (plan.group, plan.vectors) == norm_group(c, itemsize)
         # persistent: never more CTAs than the card holds at once, or than rows
-        assert 1 <= plan.grid <= min(sms * resident, rows)
-        assert sorted(_ln_rows_covered(plan, rows)) == list(range(rows))
+        assert 1 <= plan.grid <= min(sms * (two if plan.two else one), rows)
+        covered = _ln_rows_covered(plan, rows)
+        assert sorted(covered) == list(range(rows))
+        # the kernel without a second row buffer gives each group one row
+        if not plan.two:
+            assert plan.grid * (NORM_THREADS // plan.group) >= rows
 
 
-@pytest.mark.parametrize("rows,c,grid", [
-    (9296, 768, 1056),  # 1,162 steps of 8 rows: every resident CTA, no second wave
-    (9216, 384, 576),  # one step of 16 rows per CTA
-    (8192, 256, 512),
-    (1024, 384, 132),  # under a step per SM: spread over every SM
-    (577, 768, 132),
-    (16, 768, 16),  # a row per CTA
-    (1, 8, 1),
+@pytest.mark.parametrize("rows,c,two,grid", [
+    (9296, 768, True, 528),  # 1,162 steps of 8 rows: every resident CTA of the two-row kernel
+    (9216, 384, False, 576),  # one step of 16 rows per CTA, all resident
+    (8192, 256, False, 512),
+    (1024, 384, False, 132),  # under a step per SM: a CTA for each SM
+    (577, 768, False, 132),
+    (16, 768, False, 16),  # a row per CTA
+    (1, 8, False, 1),
 ])
-def test_k5_plan_on_an_h100(rows, c, grid):
-    # 8 CTAs of 256 threads per SM, the thread limit
-    assert norm_plan(rows, c, 2, 132, lambda g: 8).grid == grid
+def test_k5_plan_on_an_h100(rows, c, two, grid):
+    # 6 CTAs of the one-row kernel per SM, 4 of the two-row one
+    plan = norm_plan(rows, c, 2, 132, lambda g, t: 4 if t else 6)
+    assert (plan.two, plan.grid) == (two, grid)
 
 
 # ------------------------------------------------------------------- K3
