@@ -383,7 +383,7 @@ def _time_k3_stages(torch, attn, where, q, k, v, h, want, dev):
     units = b * h // plan.heads
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for stages in range(1, attn.SHORT_MAX_STAGES + 1):
-        fit = attn._short_resident(dev.index, c // h, 32 * plan.warps,
+        fit = attn._short_resident(dev.index, c // h, l, 32 * plan.warps,
                                    attn.short_smem(l, l, plan.heads * (c // h), stages))
         if fit < 1:
             continue

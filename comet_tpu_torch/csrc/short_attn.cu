@@ -34,7 +34,10 @@
 // - The output goes through shared memory in swizzled boxes of exactly the
 //   unit's columns, W = 64, 32 or 16 wide (the widest dividing Hg D), and
 //   out by TMA stores of whole [L, W] boxes (rows past Lq are not written),
-//   from two buffers, so a unit's stores overlap the next unit's products.
+//   which overlap the next unit's products: one output tile suffices, since
+//   its stores have read it long before the next unit's are written.
+// - Instances per head dimension and per 16-key groups of Lk, so that at L
+//   16 a row's logits take 8 registers, not the 32 of L 64.
 // - The whole row of <= 64 logits stays in registers, so the softmax is
 //   exact, not online, in the log2 domain (log2 e folded into the scale).
 #include <cmath>
@@ -47,22 +50,23 @@ namespace {
 constexpr int kMaxL = 64;
 constexpr int kMaxStages = 3;
 
-// The most warps a CTA has: 16, or 8 at D 96, whose 12 output fragments and
-// hoisted tile addresses need more than the 128 registers a thread of a
-// 512-thread CTA may have (ops/attn.py::short_max_warps).
-template <int D>
+// The most warps a CTA has: 16, or 8 at D 96 and at D 64 with 64 keys,
+// whose output fragments, logits and hoisted tile addresses need more than
+// the 128 registers a thread of a 512-thread CTA may have
+// (ops/attn.py::short_max_warps).
+template <int D, int NKG>
 constexpr int max_warps() {
-  return D == 96 ? 8 : 16;
+  return D == 96 || (D == 64 && NKG == 4) ? 8 : 16;
 }
 
 constexpr int kInBox = 64;  // columns of an input box (128B swizzle)
 
 // Shared memory of one launch: 1024 bytes of slack to align the tiles, the
-// ring of q, k, v tiles (CW columns read as whole 64-column boxes), two
-// output tiles, then the barriers.
+// ring of q, k, v tiles (CW columns read as whole 64-column boxes), the
+// output tile, then the barriers.
 int short_smem(int LqP, int LkP, int CW, int stages) {
   const int CWP = (CW + kInBox - 1) / kInBox * kInBox;
-  return 1024 + stages * (LqP + 2 * LkP) * CWP * 2 + 2 * LqP * CW * 2 + 8 * kMaxStages;
+  return 1024 + stages * (LqP + 2 * LkP) * CWP * 2 + LqP * CW * 2 + 8 * kMaxStages;
 }
 
 // Byte offset of element (r, col) of a tile stored as boxes of R rows by
@@ -75,8 +79,10 @@ __device__ __forceinline__ uint32_t swz(int r, int col, int R, int wl) {
   return box * (R << (wl + 1)) + o + ((cc & 7) << 1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(max_warps<D>() * 32) short_attn_kernel(
+// NKG: groups of 16 keys (ceil(Lk / 16)), so that the logits of a row take
+// 8 NKG registers and not the 32 of the longest keys.
+template <int D, int NKG>
+__global__ void __launch_bounds__(max_warps<D, NKG>() * 32, 1) short_attn_kernel(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo, int units,
     int gps, int Lk, int LqP, int LkP, int CW, int wl, int stages, float scale_log2) {
@@ -88,8 +94,8 @@ __global__ void __launch_bounds__(max_warps<D>() * 32) short_attn_kernel(
   const int q_bytes = LqP * nbi * kInBox * 2, k_bytes = LkP * nbi * kInBox * 2;
   const int stage_bytes = q_bytes + 2 * k_bytes;
   const int o_bytes = LqP * CW * 2;
-  unsigned char* outb = base + stages * stage_bytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(outb + 2 * o_bytes);
+  unsigned char* ob = base + stages * stage_bytes;  // the output tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(ob + o_bytes);
   const int nbo = CW >> wl;  // output boxes
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nsl = LqP >> 4;
@@ -122,7 +128,6 @@ __global__ void __launch_bounds__(max_warps<D>() * 32) short_attn_kernel(
   if (warp == 0)
     for (int i = 0; i < stages && i < mine; ++i) issue_loads(i);
 
-  const int nkg = LkP >> 4;  // 16-key groups, at most 4
   const int t2 = (lane & 3) * 2;
   for (int i = 0; i < mine; ++i) {
     const int u = blockIdx.x + i * gridDim.x;
@@ -133,29 +138,27 @@ __global__ void __launch_bounds__(max_warps<D>() * 32) short_attn_kernel(
     mbar_wait(&full[st], (i / stages) & 1);
 
     // S = Q K^T for this warp's 16 query rows against all the keys.
-    float s[8][4];
+    float s[2 * NKG][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < 2 * NKG; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
       ldmatrix_x4(a, sq + swz(sl * 16 + (lane & 15), hc + kk * 16 + (lane >> 4) * 8, LqP, 6));
 #pragma unroll
-      for (int kb = 0; kb < kMaxL / 16; ++kb) {
-        if (kb < nkg) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, sk + swz(kb * 16 + (lane & 7) + (lane >> 4) * 8,
-                                   hc + kk * 16 + ((lane >> 3) & 1) * 8, LkP, 6));
-          mma_bf16(s[2 * kb], a, bk[0], bk[1]);
-          mma_bf16(s[2 * kb + 1], a, bk[2], bk[3]);
-        }
+      for (int kb = 0; kb < NKG; ++kb) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, sk + swz(kb * 16 + (lane & 7) + (lane >> 4) * 8,
+                                 hc + kk * 16 + ((lane >> 3) & 1) * 8, LkP, 6));
+        mma_bf16(s[2 * kb], a, bk[0], bk[1]);
+        mma_bf16(s[2 * kb + 1], a, bk[2], bk[3]);
       }
     }
 
     // Exact softmax over the row, in the log2 domain: masked keys -inf.
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 2 * NKG; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = j * 8 + t2 + (e & 1);
@@ -167,7 +170,7 @@ __global__ void __launch_bounds__(max_warps<D>() * 32) short_attn_kernel(
 #pragma unroll
     for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 2 * NKG; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[j][e] = exp2f(s[j][e] - mx[e >> 1]);
@@ -182,8 +185,8 @@ __global__ void __launch_bounds__(max_warps<D>() * 32) short_attn_kernel(
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-    for (int kb = 0; kb < kMaxL / 16; ++kb) {
-      if (kb < nkg) {
+    for (int kb = 0; kb < NKG; ++kb) {
+      {
         uint32_t pa[4];
         pa[0] = pack_bf16(s[2 * kb][0] * inv0, s[2 * kb][1] * inv0);
         pa[1] = pack_bf16(s[2 * kb][2] * inv1, s[2 * kb][3] * inv1);
@@ -200,11 +203,11 @@ __global__ void __launch_bounds__(max_warps<D>() * 32) short_attn_kernel(
       }
     }
 
-    // Warp 0's stores of two units ago have read this output buffer.
-    if (warp == 0) bulk_wait_read<1>();
-    __syncthreads();  // every warp has read stage st, and the buffer is free
+    // Warp 0's stores of the last unit have read the output tile (long
+    // since: they were issued before this unit's products).
+    if (warp == 0) bulk_wait_read<0>();
+    __syncthreads();  // every warp has read stage st, and the output tile is free
     if (warp == 0 && i + stages < mine) issue_loads(i + stages);
-    unsigned char* ob = outb + (i & 1) * o_bytes;
     const int r0 = sl * 16 + (lane >> 2);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -244,7 +247,7 @@ bool operand_map(CUtensorMap* map, const bf16* p, int B, int L, int C, long long
   }
 }
 
-template <int D>
+template <int D, int NKG>
 int set_max_smem() {
   static cudaError_t err = [] {
     int dev = 0, optin = 0;
@@ -252,11 +255,37 @@ int set_max_smem() {
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(short_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
+      e = cudaFuncSetAttribute(short_attn_kernel<D, NKG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     return e;
   }();
   return static_cast<int>(err);
+}
+
+struct ShortArgs {
+  CUtensorMap mq, mk, mv, mo;
+  int units, gps, Lk, LqP, LkP, CW, wl, stages;
+  float scale_log2;
+};
+
+template <int D, int NKG>
+int launch_instance(const ShortArgs& a, int grid, int threads, int smem, cudaStream_t stream) {
+  const int err = set_max_smem<D, NKG>();
+  if (err != 0) return err;
+  short_attn_kernel<D, NKG><<<grid, threads, smem, stream>>>(
+      a.mq, a.mk, a.mv, a.mo, a.units, a.gps, a.Lk, a.LqP, a.LkP, a.CW, a.wl, a.stages,
+      a.scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int NKG>
+int resident_instance(int threads, int smem) {
+  if (set_max_smem<D, NKG>() != 0) return -1;
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, short_attn_kernel<D, NKG>, threads,
+                                                       smem) == cudaSuccess
+             ? n
+             : -1;
 }
 
 template <int D>
@@ -264,9 +293,9 @@ int launch_short_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int 
                       int Lk, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                       long long v_bs, long long v_rs, float scale, int hg, int stages, int grid,
                       cudaStream_t stream) {
-  const int nsl = (Lq + 15) / 16;
-  if (hg < 1 || H % hg != 0 || hg * nsl > max_warps<D>() || stages < 1 || stages > kMaxStages ||
-      grid < 1)
+  const int nsl = (Lq + 15) / 16, nkg = (Lk + 15) / 16;
+  const int most = nkg == 4 ? max_warps<D, 4>() : max_warps<D, 1>();
+  if (hg < 1 || H % hg != 0 || hg * nsl > most || stages < 1 || stages > kMaxStages || grid < 1)
     return -1;
   // a stride of 0 on a dimension longer than 1 (an expanded tensor) would
   // make the tensor map step past the allocation
@@ -283,23 +312,25 @@ int launch_short_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int 
       !operand_map(&mv, v, B, Lk, C, v_bs, v_rs, LkP, kInBox) ||
       !operand_map(&mo, o, B, Lq, C, static_cast<long long>(Lq) * C, C, LqP, W))
     return -2;
-  const int err = set_max_smem<D>();
-  if (err != 0) return err;
-  const int units = B * (H / hg);
-  short_attn_kernel<D><<<grid, hg * nsl * 32, short_smem(LqP, LkP, CW, stages), stream>>>(
-      mq, mk, mv, mo, units, H / hg, Lk, LqP, LkP, CW, wl, stages, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+  const ShortArgs a{mq, mk, mv, mo, B * (H / hg), H / hg, Lk, LqP, LkP, CW, wl, stages,
+                    scale * 1.4426950408889634f};
+  const int threads = hg * nsl * 32, smem = short_smem(LqP, LkP, CW, stages);
+  switch (LkP / 16) {
+    case 1: return launch_instance<D, 1>(a, grid, threads, smem, stream);
+    case 2: return launch_instance<D, 2>(a, grid, threads, smem, stream);
+    case 3: return launch_instance<D, 3>(a, grid, threads, smem, stream);
+    default: return launch_instance<D, 4>(a, grid, threads, smem, stream);
+  }
 }
 
 template <int D>
-int resident_short_attn(int threads, int smem) {
-  const int err = set_max_smem<D>();
-  if (err != 0) return -1;
-  int n = 0;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, short_attn_kernel<D>, threads, smem) ==
-                 cudaSuccess
-             ? n
-             : -1;
+int resident_short_attn(int Lk, int threads, int smem) {
+  switch ((Lk + 15) / 16) {
+    case 1: return resident_instance<D, 1>(threads, smem);
+    case 2: return resident_instance<D, 2>(threads, smem);
+    case 3: return resident_instance<D, 3>(threads, smem);
+    default: return resident_instance<D, 4>(threads, smem);
+  }
 }
 
 }  // namespace
@@ -341,15 +372,16 @@ extern "C" int comet_short_attn_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// How many CTAs of K3 at head dimension D, of `threads` threads and `smem`
-// bytes of dynamic shared memory, one SM holds at once
+// How many CTAs of K3 at head dimension D and Lk keys, of `threads`
+// threads and `smem` bytes of dynamic shared memory, one SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
-extern "C" int comet_short_attn_resident(int D, int threads, int smem) {
+extern "C" int comet_short_attn_resident(int D, int Lk, int threads, int smem) {
+  if (Lk < 1 || Lk > comet::kMaxL) return -1;
   switch (D) {
-    case 32: return comet::resident_short_attn<32>(threads, smem);
-    case 48: return comet::resident_short_attn<48>(threads, smem);
-    case 64: return comet::resident_short_attn<64>(threads, smem);
-    case 96: return comet::resident_short_attn<96>(threads, smem);
+    case 32: return comet::resident_short_attn<32>(Lk, threads, smem);
+    case 48: return comet::resident_short_attn<48>(Lk, threads, smem);
+    case 64: return comet::resident_short_attn<64>(Lk, threads, smem);
+    case 96: return comet::resident_short_attn<96>(Lk, threads, smem);
     default: return -1;
   }
 }

@@ -23,16 +23,17 @@ SUPPORTED_HEAD_DIMS = (32, 48, 64, 96)
 # K3 takes sequences up to this long when there are at least this many rows
 SHORT_MAX_LEN = 64
 SHORT_MIN_ROWS = 256
-# K3 as compiled: at most 16 warps (one per head and 16 query rows; 8 at D
-# 96, whose instance needs more than 128 registers a thread) and a ring of at
-# most 3 stages per CTA
+# K3 as compiled: at most 16 warps (one per head and 16 query rows) and a
+# ring of at most 3 stages per CTA
 SHORT_MAX_WARPS = 16
 SHORT_MAX_STAGES = 3
 
 
-def short_max_warps(d: int) -> int:
-    """The most warps a K3 CTA at head dimension ``d`` has."""
-    return SHORT_MAX_WARPS // 2 if d == 96 else SHORT_MAX_WARPS
+def short_max_warps(d: int, lk: int) -> int:
+    """The most warps a K3 CTA at head dimension ``d`` and ``lk`` keys has:
+    8 where its instance needs more than the 128 registers a thread of a
+    512-thread CTA may have (D 96, and D 64 with more than 48 keys)."""
+    return SHORT_MAX_WARPS // 2 if d == 96 or (d == 64 and lk > 48) else SHORT_MAX_WARPS
 
 
 class ShortPlan(NamedTuple):
@@ -51,10 +52,10 @@ def short_box_cols(cols: int) -> int:
 def short_smem(lq: int, lk: int, cols: int, stages: int) -> int:
     """K3's dynamic shared memory for units of ``cols`` columns: 1024 bytes
     to align the tiles, the ring of q, k, v tiles (rows padded to 16, columns
-    read as whole boxes of 64), two output tiles and the barriers
+    read as whole boxes of 64), the output tile and the barriers
     (``short_smem`` in ``csrc/short_attn.cu``)."""
     lqp, lkp, read = -(-lq // 16) * 16, -(-lk // 16) * 16, -(-cols // 64) * 64
-    return 1024 + stages * (lqp + 2 * lkp) * read * 2 + 2 * lqp * cols * 2 + 8 * SHORT_MAX_STAGES
+    return 1024 + stages * (lqp + 2 * lkp) * read * 2 + lqp * cols * 2 + 8 * SHORT_MAX_STAGES
 
 
 def short_plan(b: int, lq: int, lk: int, c: int, heads: int, sms: int,
@@ -75,7 +76,7 @@ def short_plan(b: int, lq: int, lk: int, c: int, heads: int, sms: int,
     d = c // heads
     slices = -(-lq // 16)
     counts = [n for n in range(1, heads + 1)
-              if heads % n == 0 and n * slices <= short_max_warps(d)]
+              if heads % n == 0 and n * slices <= short_max_warps(d, lk)]
     filling = sorted((n for n in counts if b * heads // n >= sms), reverse=True)
     for n in filling + [n for n in counts if n not in filling]:
         warps, cols, units = n * slices, n * d, b * heads // n
@@ -93,15 +94,15 @@ def short_plan(b: int, lq: int, lk: int, c: int, heads: int, sms: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _short_resident(index: int, d: int, threads: int, smem: int) -> int:
+def _short_resident(index: int, d: int, lk: int, threads: int, smem: int) -> int:
     with torch.cuda.device(index):
-        return kernels.library().comet_short_attn_resident(d, threads, smem)
+        return kernels.library().comet_short_attn_resident(d, lk, threads, smem)
 
 
 @functools.lru_cache(maxsize=4096)
 def _card_short_plan(index: int, b: int, lq: int, lk: int, c: int, heads: int) -> ShortPlan:
     return short_plan(b, lq, lk, c, heads, kernels.sm_count(index),
-                      lambda threads, smem: _short_resident(index, c // heads, threads, smem))
+                      lambda threads, smem: _short_resident(index, c // heads, lk, threads, smem))
 
 
 def attention_reference(

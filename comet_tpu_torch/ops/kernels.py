@@ -49,7 +49,7 @@ _SIGNATURES = {
          ctypes.c_float, _I, _I, _I, _P],
         _I,
     ),
-    "comet_short_attn_resident": ([_I] * 3, _I),
+    "comet_short_attn_resident": ([_I] * 4, _I),
     "comet_cross_block_fwd": (
         [_P] * 16 + [_I] * 8 + [_P, _P],
         _I,

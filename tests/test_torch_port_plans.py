@@ -299,7 +299,7 @@ def test_k3_plan_covers_every_pair_once(b, lq, lk, c, heads, sms, resident):
     cols = plan.heads * d
     assert heads % plan.heads == 0
     # one warp per head and 16 query rows, within a CTA's limits
-    assert plan.warps == plan.heads * slices <= short_max_warps(d) <= 16
+    assert plan.warps == plan.heads * slices <= short_max_warps(d, lk) <= 16
     assert 1 <= plan.stages <= SHORT_MAX_STAGES
     smem = short_smem(lq, lk, cols, plan.stages)
     assert smem <= H100_SMEM_PER_CTA and resident(32 * plan.warps, smem) >= 1
@@ -330,7 +330,11 @@ def test_k3_plan_on_an_h100(b, lq, lk, c, heads, want):
 
 
 def test_k3_plan_passes_over_units_that_do_not_fit():
-    # 4 heads of D 96 at L 64 (16 warps) need 245 KB with one stage
-    assert short_smem(64, 64, 4 * 96, 1) > H100_SMEM_PER_CTA
-    plan = short_plan(1, 64, 64, 768, 8, 1, _h100_resident)
-    assert plan.heads < 4 and short_smem(64, 64, plan.heads * 96, plan.stages) <= H100_SMEM_PER_CTA
+    # on a card whose CTAs may have 64 KB, 4 heads of D 48 at L 64 (121 KB
+    # with one stage) do not fit, 2 heads do
+    def small_card(threads, smem):
+        return 0 if smem > 65536 else _h100_resident(threads, smem)
+
+    assert short_smem(64, 64, 4 * 48, 1) > 65536 >= short_smem(64, 64, 2 * 48, 1)
+    plan = short_plan(1, 64, 64, 384, 8, 1, small_card)
+    assert plan.heads == 2 and short_smem(64, 64, 2 * 48, plan.stages) <= 65536
