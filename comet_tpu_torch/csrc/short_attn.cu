@@ -50,13 +50,23 @@ namespace {
 constexpr int kMaxL = 64;
 constexpr int kMaxStages = 3;
 
-// The most warps a CTA has: 16, or 8 at D 96 and at D 64 with 64 keys,
+// The most warps a CTA has: 16, or 8 at D 96 and at D 64 with more than 48
+// keys,
 // whose output fragments, logits and hoisted tile addresses need more than
 // the 128 registers a thread of a 512-thread CTA may have
 // (ops/attn.py::short_max_warps).
 template <int D, int NKG>
 constexpr int max_warps() {
   return D == 96 || (D == 64 && NKG == 4) ? 8 : 16;
+}
+
+// The launch bounds' minimum CTAs per SM: none at L <= 16, where ptxas keeps
+// D 32 at 64 registers (four 8-warp CTAs per SM) without spilling; else one,
+// which lets a thread have all 128 registers of a 512-thread CTA (without
+// it ptxas chose 64 at D 32 with 32 keys, and spilled).
+template <int D, int NKG>
+constexpr int min_ctas() {
+  return NKG == 1 ? 0 : 1;
 }
 
 constexpr int kInBox = 64;  // columns of an input box (128B swizzle)
@@ -82,7 +92,7 @@ __device__ __forceinline__ uint32_t swz(int r, int col, int R, int wl) {
 // NKG: groups of 16 keys (ceil(Lk / 16)), so that the logits of a row take
 // 8 NKG registers and not the 32 of the longest keys.
 template <int D, int NKG>
-__global__ void __launch_bounds__(max_warps<D, NKG>() * 32, 1) short_attn_kernel(
+__global__ void __launch_bounds__(max_warps<D, NKG>() * 32, min_ctas<D, NKG>()) short_attn_kernel(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo, int units,
     int gps, int Lk, int LqP, int LkP, int CW, int wl, int stages, float scale_log2) {
