@@ -18,19 +18,24 @@ Phases, each of which makes the script exit nonzero when it fails:
    PyTorch call computes the same function (``F.scaled_dot_product_attention``
    for K1 and K3, ``F.layer_norm`` for K5), that call's median device times
    over 25 runs, and the host time to issue one call of the kernel's wrapper
-   (and of the library call), and for K2 and K4 where their first CTAs
+   (and of the library call); for K3 and K5 two yardsticks beside the
+   bound, the launch floor (an empty launch between the same two events)
+   and a copy of the bytes the bound counts; K3 also at every ring depth of
+   its plan (1 to 3 stages); for K2 and K4 where their first CTAs
    spend their cycles (``clocks=``, from separately compiled timed
    instances; K4's timed output must equal the forward's bit for bit); K4
    at both of its shapes also at every split of its query tiles (1, 2, 4,
    8), each timed, with its cycles also at split 8 where the plan splits;
-   then, for correctness only, K1, K2 and K4 at edge shapes of their
+   then, for correctness only, every kernel at edge shapes of its
    tilings (Lq and Lk of 1, 63, 65, 129 and 577, packed qkv slices at D 48
    and 96, keys and values expanded over the batch; block rows not a
    multiple of 64, L 16 and 64 at both widths, cluster splits of 2 to 8;
    K4 at Lq 16, 32, 64 and 512 against Lk 1, 63, 65, 512 and 1024 at both
-   widths and splits 2, 4 and 8) against the same plain f32 versions and
-   tolerances (a K4 shape in ``K4_KNOWN_MISS`` that misses is printed as
-   such, and held to the plain version in bf16 instead);
+   widths and splits 2, 4 and 8; K3 at L 1 to 64, Lq != Lk, D 32 to 96,
+   packed, separate and expanded operands; K5 at 1 to 9,296 rows of 8 to
+   1,024 columns in bf16 and f32, affine or not) against the same plain f32
+   versions and tolerances (a K4 shape in ``K4_KNOWN_MISS`` that misses is
+   printed as such, and held to the plain version in bf16 instead);
 4. a reference check on small inputs: the full-width ``ours`` model's coarse
    and fine update-formers and its camera predictor, on the card in bf16
    (through the kernels) against the same weights in f32 on the CPU (plain
@@ -588,7 +593,8 @@ def check_edges_k3_k5(torch, attn, norm, dev, gen):
             excess = ((out.float() - want).abs() - K5_RTOL * want.abs()).max().item()
             limit = K5_ATOL
         worst[dt] = max(worst.get(dt, -math.inf), excess)
-        if out.shape != x.shape or out.dtype != x.dtype or not math.isfinite(excess) or excess > limit:
+        if (out.shape != x.shape or out.dtype != x.dtype or not math.isfinite(excess)
+                or excess > limit):
             raise SmokeError(f"K5 edge {(r, c, dt, affine)}: exceeds its tolerance by {excess}")
     print(f"K5 edges: {len(K5_EDGE)} shapes (rows 1 to 9296, C 8 to 1024, bf16 and f32, affine "
           f"or not) within tolerance; largest excess over atol + rtol |y| by dtype {worst}",

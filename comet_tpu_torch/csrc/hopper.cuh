@@ -90,17 +90,6 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       : "memory");
 }
 
-// A contiguous copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from global to shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // Closes this thread's bulk async-group of stores.
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");

@@ -290,6 +290,7 @@ extern "C" int comet_layer_norm_fwd(const void* x, const void* scale, const void
 // holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
 extern "C" int comet_layer_norm_resident(int C, int is_bf16, int group, int two, int affine) {
   if (is_bf16)
-    return comet::with_instance<comet::bf16>(C, group, two, comet::Resident<comet::bf16>{C, affine});
+    return comet::with_instance<comet::bf16>(C, group, two,
+                                             comet::Resident<comet::bf16>{C, affine});
   return comet::with_instance<float>(C, group, two, comet::Resident<float>{C, affine});
 }

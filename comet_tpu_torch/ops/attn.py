@@ -40,13 +40,8 @@ class ShortPlan(NamedTuple):
     heads: int  # heads of one sequence per unit of work (a warp per head and 16 query rows)
     warps: int  # per CTA
     stages: int  # units in the ring
-    grid: int  # CTAs; unit u = (sequence u // (H / heads), head group u % (H / heads)) goes to CTA u % grid
-    box_cols: int  # columns of an output TMA box (input boxes have 64)
-
-
-def short_box_cols(cols: int) -> int:
-    """The widest output TMA box (64, 32 or 16 columns) that divides ``cols``."""
-    return next(w for w in (64, 32, 16) if cols % w == 0)
+    # CTAs; unit u (sequence u // (H / heads), head group u % (H / heads)) goes to CTA u % grid
+    grid: int
 
 
 def short_smem(lq: int, lk: int, cols: int, stages: int) -> int:
@@ -89,7 +84,7 @@ def short_plan(b: int, lq: int, lk: int, c: int, heads: int, sms: int,
         else:
             stages = 3 if fits[3] >= 1 and fits[3] == fits[2] else (2 if fits[2] >= 1 else 1)
             grid = sms * fits[stages]
-        return ShortPlan(n, warps, stages, grid, short_box_cols(cols))
+        return ShortPlan(n, warps, stages, grid)
     raise ValueError(f"short_attention: no plan fits Lq {lq}, Lk {lk}, C {c}, {heads} heads")
 
 

@@ -191,7 +191,7 @@ def fused_attn_block(
         b * l, l, c, num_heads, hidden,
         block_split(b * l, hidden, kernels.sm_count(x.device.index)),
         None if clocks is None else clocks.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        kernels.stream(x.device.index),
     )
     kernels.check_launch(rc, "fused_attn_block")
     fused_attn_block.launches += 1
@@ -288,7 +288,7 @@ def fused_cross_block(
         *(t.data_ptr() for t in args), kv.data_ptr(), out.data_ptr(),
         b, lq, lk, c, num_heads, hidden, split, cross_kv_groups(b * lk, kernels.sm_count(index)),
         None if clocks is None else clocks.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        kernels.stream(x.device.index),
     )
     kernels.check_launch(rc, "fused_cross_block")
     fused_cross_block.launches += 1

@@ -244,9 +244,9 @@ def test_k3_and_k5_are_not_served_a_stale_plan(cuda_device):
 def test_k3_refuses_a_plan_it_cannot_run(cuda_device):
     q, k, v = _k3_inputs(cuda_device, 32, 16, 16, 384, "packed")
     with pytest.raises(ValueError, match="does not take"):  # 3 heads do not divide 8
-        short_attention(q, k, v, 8, plan=ShortPlan(3, 3, 1, 64, 16))
+        short_attention(q, k, v, 8, plan=ShortPlan(3, 3, 1, 64))
     with pytest.raises(ValueError, match="does not take"):  # a ring of 4 stages
-        short_attention(q, k, v, 8, plan=ShortPlan(8, 8, 4, 16, 64))
+        short_attention(q, k, v, 8, plan=ShortPlan(8, 8, 4, 16))
 
 
 def _cross_weights(g, dev, c, hid):

@@ -184,7 +184,8 @@ def _ln_rows_covered(plan, rows):
     seen = []
     groups = NORM_THREADS // plan.group
     for b in range(plan.grid):
-        mine = [r for g in range(groups) for r in range(g * plan.grid + b, rows, groups * plan.grid)]
+        step = groups * plan.grid
+        mine = [r for g in range(groups) for r in range(g * plan.grid + b, rows, step)]
         assert mine, "a CTA without rows"
         seen += mine
     return seen
@@ -303,9 +304,9 @@ def test_k3_plan_covers_every_pair_once(b, lq, lk, c, heads, sms, resident):
     assert 1 <= plan.stages <= SHORT_MAX_STAGES
     smem = short_smem(lq, lk, cols, plan.stages)
     assert smem <= H100_SMEM_PER_CTA and resident(32 * plan.warps, smem) >= 1
-    # TMA boxes: at most 256 per dimension, columns dividing the unit's
-    assert plan.box_cols in (16, 32, 64) and cols % plan.box_cols == 0
-    assert -(-max(lq, lk) // 16) * 16 <= 256
+    # TMA boxes of 64 columns (inputs) or 16, 32 or 64 dividing the unit's
+    # columns (output), by ceil(L / 16) * 16 rows: at most 256 per dimension
+    assert cols % 16 == 0 and -(-max(lq, lk) // 16) * 16 <= 256
     # persistent: no more CTAs than the card holds at once, or than units
     units = b * heads // plan.heads
     assert 1 <= plan.grid <= min(units, sms * resident(32 * plan.warps, smem))
@@ -317,13 +318,13 @@ def test_k3_plan_covers_every_pair_once(b, lq, lk, c, heads, sms, resident):
 
 @pytest.mark.parametrize("b,lq,lk,c,heads,want", [
     # coarse time: whole sequences, 2 stages (a third would halve the CTAs)
-    (576, 16, 16, 384, 8, (8, 8, 2, 264, 64)),
+    (576, 16, 16, 384, 8, (8, 8, 2, 264)),
     # fine time: every unit resident at once, one stage each
-    (512, 16, 16, 256, 8, (8, 8, 1, 512, 64)),
+    (512, 16, 16, 256, 8, (8, 8, 1, 512)),
     # coarse virtual: 16 sequences; one head per unit gives the most CTAs
-    (16, 64, 64, 384, 8, (1, 4, 1, 128, 16)),
+    (16, 64, 64, 384, 8, (1, 4, 1, 128)),
     # B * L just over 256 at L 16: one head per unit fills the card
-    (17, 16, 16, 384, 8, (1, 1, 1, 136, 16)),
+    (17, 16, 16, 384, 8, (1, 1, 1, 136)),
 ])
 def test_k3_plan_on_an_h100(b, lq, lk, c, heads, want):
     assert tuple(short_plan(b, lq, lk, c, heads, 132, _h100_resident)) == want
