@@ -60,10 +60,11 @@ constexpr int max_warps() {
   return D == 96 || (D == 64 && NKG == 4) ? 8 : 16;
 }
 
-// The launch bounds' minimum CTAs per SM: none at L <= 16, where ptxas keeps
-// D 32 at 64 registers (four 8-warp CTAs per SM) without spilling; else one,
-// which lets a thread have all 128 registers of a 512-thread CTA (without
-// it ptxas chose 64 at D 32 with 32 keys, and spilled).
+// The launch bounds' minimum CTAs per SM: none at L <= 16, where ptxas's own
+// choice keeps D 32 small enough for four 8-warp CTAs per SM without
+// spilling; else one, which lets a thread have all 128 registers of a
+// 512-thread CTA (without it ptxas held D 32 with 32 keys to fewer, and
+// spilled).
 template <int D, int NKG>
 constexpr int min_ctas() {
   return NKG == 1 ? 0 : 1;
