@@ -35,7 +35,12 @@ Phases, each of which makes the script exit nonzero when it fails:
    packed, separate and expanded operands; K5 at 1 to 9,296 rows of 8 to
    1,024 columns in bf16 and f32, affine or not) against the same plain f32
    versions and tolerances (a K4 shape in ``K4_KNOWN_MISS`` that misses is
-   printed as such, and held to the plain version in bf16 instead);
+   printed as such, and held to the plain version in bf16 instead); and
+   K1's two A/B softmax forms (``fused_attention(..., softmax="nomax" |
+   "bf16e")``, the TPU tool ``tools/micro_softmax_variants.py``'s) at the
+   tool's two shapes, timed beside K1 and ``F.scaled_dot_product_attention``,
+   and at K1's edge shapes with D 64 and 96, each held to its own plain
+   version on the same bf16 inputs (``FORM_ATOL`` + ``FORM_RTOL`` |y|);
 4. a reference check on small inputs: the full-width ``ours`` model's coarse
    and fine update-formers and its camera predictor, on the card in bf16
    (through the kernels) against the same weights in f32 on the CPU (plain
@@ -47,7 +52,21 @@ Phases, each of which makes the script exit nonzero when it fails:
    model, switched with ``COMET.set_route(FUSED_ROUTE)``, answers 3 more
    (K1, K3, K4 and K5); the kernels' launch counts are set to 0 just before
    each route's requests and read just after, and must rise by that route's
-   per-forward counts at the expected shapes.
+   per-forward counts at the expected shapes;
+6. the bench: ``bench_lib.run_benchmark(get_config("ours"))`` on the
+   default route (its JSON on a line of its own), and
+   ``bench_lib.run_softmax_variants()``, printed as the TPU tool prints it;
+   the counts are set to 0 before each and read after it: the forward's
+   K1 and K2, and each softmax form's launches at each of the tool's shapes;
+7. eval: ``training.evaluate()`` with the same full-width model over 4
+   sequences made in memory from a seed (uint8 frames of 480 x 640, a mask,
+   poses; no image file, PIL or cv2), each cropped and resized by
+   ``data.preprocess_frames`` on the card (which must match its f32 run on
+   the CPU within 1e-5, bilinear and Lanczos), query points seeded with the
+   "grid" backend; at eval_batch 1 and 2: every metric finite, the metric
+   block's key set, each sequence's metric row at batch 2 (padded with
+   itself) within ``EVAL_RTOL`` of its row at batch 1, K1 and K2 launched
+   their per-forward counts once per forward, and the eval sequences/s.
 
 The line before the last holds the kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -172,6 +191,29 @@ PER_FORWARD = {
     # K1 28, K3 72, K4 48, K5 212
 }
 K1_ATOL = 3e-2
+# K1's A/B softmax forms against their own plain versions on the same bf16
+# inputs (the forms' casts): K1's atol plus one bf16 step of the output
+# (2^-7 |y|). The kernel rounds at other points than the whole-row form
+# (unnormalized bf16 weights, divided at the end; bf16e's exponent in bf16
+# pairs from an online maximum), which can move an output to the next bf16
+# value: at Lk 1 the plain nomax weight is exactly 1 and the kernel's is
+# bf16(e) / e, one step (0.03125) at |y| in [4, 8).
+FORM_ATOL, FORM_RTOL = 3e-2, 2.0 ** -7
+# the TPU tool's shapes (where, B, Lq, Lk, C, heads), and the edge shapes of
+# K1's tilings at the forms' head dimensions (64: 12 heads, 96: 8 heads)
+FORM_SHAPES = [("vit self", 16, 581, 581, 768, 12), ("agg self", 16, 578, 578, 768, 8)]
+FORM_EDGE = [(2, 577, lk, 768, h) for lk in (1, 63, 65, 577) for h in (12, 8)]
+FORMS = ("nomax", "bf16e")
+# the eval phase: sequences, and a metric row at batch 2 against batch 1:
+# the same sequence through bf16 at another batch shape rounds elsewhere
+# (cuBLAS picks other products, K2 another cluster split at coarse virtual),
+# and with random weights the trackers amplify a rounding chaotically (as in
+# the reference check), so rows agree only loosely: measured on the H100,
+# loss and R_avg within 0.5 %, the translation RMSEs within 12 %, the
+# fractions within 0.0625. A batching fault (rows of two sequences mixed, a
+# sequence's gt on another's poses) moves a row by its whole size.
+EVAL_SEQUENCES = 4
+EVAL_RTOL, EVAL_ATOL = 0.25, 0.1
 # K2's and K4's output and residual stream are each rounded to bf16 at their
 # own magnitude (|y| reaches ~8, where one bf16 step is 0.0625): atol plus
 # two bf16 steps relative to the value.
@@ -291,6 +333,56 @@ def check_k1(torch, F, attn, dev, gen):
               f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
               f"host us {host_us:.1f} (sdpa {library_host_us:.1f})",
               flush=True)
+    return rows
+
+
+def check_k1_forms(torch, F, attn, dev):
+    """K1's nomax and bf16e forms at the TPU tool's shapes (timed beside K1,
+    the plain version and SDPA) and at K1's edge shapes (correctness only),
+    each against its own plain version on the same bf16 inputs. The inputs
+    come from a generator of their own, so the other checks draw the inputs
+    they drew before the forms were added."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    shapes = [(where, b, lq, lk, c, h, True) for where, b, lq, lk, c, h in FORM_SHAPES]
+    shapes += [("edge", b, lq, lk, c, h, False) for b, lq, lk, c, h in FORM_EDGE]
+    for where, b, lq, lk, c, h, timed in shapes:
+        d = c // h
+        q, k, v = (torch.randn(b, n, c, generator=gen, device=dev).bfloat16() for n in (lq, lk, lk))
+        k1_ms = _median_ms(torch, lambda: attn.fused_attention(q, k, v, h)) if timed else None
+        for form in FORMS:
+            out = attn.fused_attention(q, k, v, h, softmax=form)
+            torch.cuda.synchronize()
+            want = attn.attention_form_reference(q, k, v, h, d ** -0.5, form).float()
+            err = (out.float() - want).abs().max().item()
+            excess = ((out.float() - want).abs() - FORM_RTOL * want.abs()).max().item()
+            if out.shape != (b, lq, c) or not math.isfinite(err) or excess > FORM_ATOL:
+                raise SmokeError(f"K1 {form} {where} {(b, lq, lk, c, h)}: |kernel - plain| "
+                                 f"exceeds {FORM_ATOL} + {FORM_RTOL}|y| by {excess}")
+            if not timed:
+                print(f"K1 {form} edge [B={b} Lq={lq} Lk={lk} C={c} H={h}]: err {err:.3e} "
+                      f"(atol {FORM_ATOL} + {FORM_RTOL:.4f}|y|, excess {excess:.3e})", flush=True)
+                continue
+            ms = _median_ms(torch, lambda: attn.fused_attention(q, k, v, h, softmax=form))
+            host_us = _host_us(torch, lambda: attn.fused_attention(q, k, v, h, softmax=form))
+            plain_ms = _median_ms(
+                torch, lambda: attn.attention_form_reference(q, k, v, h, d ** -0.5, form))
+            q4, k4, v4 = (t.view(b, t.shape[1], h, d).transpose(1, 2) for t in (q, k, v))
+            library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+            flops = 4 * b * h * lq * lk * d
+            nbytes = 2 * (2 * b * lq * c + 2 * b * lk * c)
+            bound, bound_by = _bound_ms(flops, nbytes)
+            rows.append(dict(kernel="K1", form=form, where=where, shape=[b, lq, lk, c, h],
+                             max_abs_err=err,
+                             tolerance=f"atol {FORM_ATOL} + {FORM_RTOL} |y| against its plain form",
+                             ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, library_ms=library_ms,
+                             host_us=host_us, library_host_us=None, bound_ms=bound,
+                             bound_by=bound_by, flops=flops, bytes=nbytes))
+            print(f"K1 {form} {where:27s} [B={b} Lq={lq} Lk={lk} C={c} H={h}] err {err:.3e} "
+                  f"(atol {FORM_ATOL} + {FORM_RTOL:.4f}|y|, excess {excess:.3e}) ms {ms:.4f} "
+                  f"K1 {k1_ms:.4f} plain {plain_ms:.4f} "
+                  f"sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) host us {host_us:.1f}",
+                  flush=True)
     return rows
 
 
@@ -677,6 +769,8 @@ def _reset(counters):
     for fn in counters.values():
         fn.launches = 0
         fn.launch_shapes.clear()
+        if hasattr(fn, "form_launches"):
+            fn.form_launches.clear()
 
 
 def _launches(counters):
@@ -815,6 +909,167 @@ def main_path(torch, cfg, model, models, geom, counters, route_name, dev, n_requ
                 requests=requests)
 
 
+def bench_phase(torch, tcfg, bench_lib, attn, counters, smi):
+    """run_benchmark on the default route, then run_softmax_variants; the
+    counts are set to 0 before each and read after it."""
+    _reset(counters)
+    result = bench_lib.run_benchmark(tcfg.get_config("ours"))
+    used = _launches(counters)
+    print(f"bench: run_benchmark launches {used}, on {smi}", flush=True)
+    print(json.dumps(result), flush=True)
+    if used["K1"] == 0 or used["K2"] == 0:
+        raise SmokeError(f"run_benchmark never launched K1 or K2: {used}")
+    if not (result["value"] > 0 and result["device_ms_per_sequence"] > 0):
+        raise SmokeError(f"run_benchmark: {result}")
+    _reset(counters)
+    variants = bench_lib.run_softmax_variants()
+    forms = dict(attn.fused_attention.form_launches)
+    print(f"bench: run_softmax_variants launches K1 {attn.fused_attention.launches}, forms "
+          f"{forms}", flush=True)
+    for _, b, lq, lk, c, h in bench_lib.SOFTMAX_SHAPES:
+        for form in FORMS:
+            if not forms.get((form, b, lq, lk, c, h)):
+                raise SmokeError(f"run_softmax_variants never launched {form} at {(b, lq, lk, c, h)}")
+    if attn.fused_attention.launches == 0:
+        raise SmokeError("run_softmax_variants never launched K1")
+    for r in variants:
+        for form, v in r["forms"].items():
+            if not (math.isfinite(v["max_abs_err"]) and v["ms"] > 0):
+                raise SmokeError(f"run_softmax_variants {r['name']} {form}: {v}")
+    return result, variants, forms
+
+
+def make_sequences(np, data, geom, cfg, n, seed=0):
+    """n sequences made in memory from a seed: uint8 frames of 480 x 640 (a
+    textured square that moves against black, as the repository's fixtures
+    draw it), the frame-0 mask, the poses of a smooth orbit and the
+    sequence's crop square."""
+    rng = np.random.default_rng(seed)
+    intr = geom.INTRINSICS_TABLE[cfg.dataset]
+    h, w, s = 480, 640, cfg.seqlen
+    seqs = []
+    for i in range(n):
+        t0 = np.array([0.1, -0.05, 6.0]) + rng.normal(0, 0.2, 3) * [1, 1, 0]
+        q = rng.normal(size=(s, 4)) * 0.05 + [1.0, 0.0, 0.0, 0.0]
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+        t = t0 + np.outer(np.arange(s), [0.01, 0.005, 0.02])
+        u = intr.fx * t[:, 0] / t[:, 2] + intr.cx
+        v = intr.fy * t[:, 1] / t[:, 2] + intr.cy
+        frames = np.zeros((s, h, w, 3), np.uint8)
+        masks = np.zeros((s, h, w), np.uint8)
+        for f in range(s):
+            y0, y1 = int(max(0, v[f] - 60)), int(min(h, v[f] + 60))
+            x0, x1 = int(max(0, u[f] - 60)), int(min(w, u[f] + 60))
+            frames[f, y0:y1, x0:x1] = rng.integers(60, 255, size=(y1 - y0, x1 - x0, 3))
+            masks[f, y0:y1, x0:x1] = 255
+        square, ratio = data.datasets.compute_sequence_square(
+            [data.datasets.mask_bbox(m) for m in masks], cfg.img_size)
+        seqs.append(dict(frames=frames, mask0=masks[0], square=square.astype(np.float32),
+                         ratio=ratio, q=q.astype(np.float32), t=t.astype(np.float32),
+                         uvz=np.stack([u, v, t[:, 2]], -1).astype(np.float32),
+                         name=f"memory/seq_{i}"))
+    return seqs
+
+
+class InMemorySequences:
+    """A dataset of ``evaluate`` over sequences of :func:`make_sequences`:
+    ``dataset[i]`` crops and resizes the frames on the card with
+    ``data.preprocess_frames`` (Lanczos) and seeds nothing itself."""
+
+    def __init__(self, torch, np, data, cfg, dev, seqs):
+        self.torch, self.np, self.data = torch, np, data
+        self.cfg, self.dev, self.seqs = cfg, dev, seqs
+
+    def __len__(self):
+        return len(self.seqs)
+
+    def __getitem__(self, index):
+        r = self.seqs[index]
+        images = self.data.preprocess_frames(self.torch.from_numpy(r["frames"]).to(self.dev),
+                                             r["square"], self.cfg.img_size, "lanczos")
+        mask = self.data.device_pipeline._host_nearest_mask(r["mask0"], r["square"],
+                                                           self.cfg.img_size)
+        return self.data.SequenceSample(
+            images=images, t_xyz=r["t"], q_wxyz=r["q"], t_uvz=r["uvz"],
+            r_matrix=self.np.zeros((len(r["q"]), 3, 3), self.np.float32), ratio=float(r["ratio"]),
+            seq_name=r["name"], image_names=[], first_mask=mask)
+
+
+def eval_phase(torch, np, cfg, model, data, loop_mod, geom, counters, dev, smi):
+    """evaluate() at full width over the in-memory sequences, at eval_batch 1
+    and 2, with the checks of the module's docstring."""
+    t0 = time.perf_counter()
+    raw = make_sequences(np, data, geom, cfg, EVAL_SEQUENCES)
+    print(f"eval: {EVAL_SEQUENCES} sequences of {cfg.seqlen} frames of 480 x 640 made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    seqs = InMemorySequences(torch, np, data, cfg, dev, raw)
+    one = [InMemorySequences(torch, np, data, cfg, dev, [r]) for r in raw]
+    r = raw[0]
+    for resample in ("bilinear", "lanczos"):
+        card = data.preprocess_frames(torch.from_numpy(r["frames"]).to(dev), r["square"],
+                                      cfg.img_size, resample).cpu()
+        cpu = data.preprocess_frames(torch.from_numpy(r["frames"]), r["square"], cfg.img_size,
+                                     resample)
+        err = (card - cpu).abs().max().item()
+        print(f"eval: preprocess_frames {resample} on the card against the CPU in f32: max |diff| "
+              f"{err:.3e} (atol 1e-5)", flush=True)
+        if card.shape != (cfg.seqlen, cfg.img_size, cfg.img_size, 3) or not err <= 1e-5:
+            raise SmokeError(f"preprocess_frames {resample}: card and CPU differ by {err}")
+    quiet = dict(keypoint_backend="grid", print_fn=lambda *a: None)
+    # the metric block's keys, from a step output of identity poses
+    s = cfg.seqlen
+    ident = np.tile(np.float32([0, 0, 0, 1, 0, 0, 0]), (1, s, 1))
+    block_keys = set(loop_mod.metric_block(
+        dict(pred_q=ident[..., 3:], pred_t=ident[..., :3], pred_pose_enc=ident,
+             gt_pose_enc=ident[0], loss=0.0, loss_trans=0.0, loss_rot=0.0),
+        geom.make_camera_set(ident[0, :, 3:], ident[0, :, :3])))
+    results = {}
+    for eval_batch in (1, 2):
+        evaluate_kw = dict(quiet, eval_batch=eval_batch)
+        loop_mod.evaluate(model, one[0], cfg, **evaluate_kw)  # warm
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        avg = loop_mod.evaluate(model, seqs, cfg, **evaluate_kw)
+        seconds = time.perf_counter() - t0
+        used = _launches(counters)
+        forwards = -(-EVAL_SEQUENCES // eval_batch)
+        want = {k: v * forwards for k, v in PER_FORWARD["default"].items()}
+        rows = [loop_mod.evaluate(model, ds, cfg, **evaluate_kw) for ds in one]
+        results[eval_batch] = dict(avg=avg, rows=rows, seconds=seconds, launches=used)
+        print(f"eval, eval_batch {eval_batch}: {EVAL_SEQUENCES} sequences in {seconds:.2f} s = "
+              f"{EVAL_SEQUENCES / seconds:.2f} sequences/s on {smi}; launches {used} "
+              f"({forwards} forwards); R_avg {avg['R_avg']:.4f} T_avg {avg['T_avg']:.4f} "
+              f"Auc_30 {avg['Auc_30']:.4f} loss {avg['loss']:.4f}", flush=True)
+        if used != want:
+            raise SmokeError(f"eval_batch {eval_batch}: launches {used}, want {want}")
+        scenes = {k for k in avg if k.startswith("Auc_scene_")}
+        if set(avg) - scenes - {"sec/it"} != block_keys or len(scenes) != EVAL_SEQUENCES:
+            raise SmokeError(f"eval_batch {eval_batch}: keys {sorted(avg)}, want the metric "
+                             f"block's {sorted(block_keys)} and {EVAL_SEQUENCES} scenes")
+        bad = [k for k, v in avg.items() if not math.isfinite(v)]
+        bad += [k for row in rows for k, v in row.items() if not math.isfinite(v)]
+        if bad:
+            raise SmokeError(f"eval_batch {eval_batch}: metrics not finite: {bad}")
+    gaps = {}
+    for one, two in zip(results[1]["rows"], results[2]["rows"]):
+        for k in sorted(set(one) - {"sec/it"}):
+            label = "Auc_scene" if k.startswith("Auc_scene_") else k
+            gaps[label] = max(gaps.get(label, 0.0), abs(one[k] - two[k]))
+    print(f"eval: largest |row at eval_batch 2 - row at eval_batch 1| over the sequences, by "
+          f"key: {json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})}", flush=True)
+    worst = 0.0
+    for i, (one, two) in enumerate(zip(results[1]["rows"], results[2]["rows"])):
+        for k in sorted(set(one) - {"sec/it"}):
+            gap = abs(one[k] - two[k]) - EVAL_RTOL * abs(one[k])
+            worst = max(worst, gap)
+            if gap > EVAL_ATOL:
+                raise SmokeError(f"eval sequence {i} {k}: {one[k]} at batch 1, {two[k]} at batch 2")
+    print(f"eval: each sequence's row at eval_batch 2 within {EVAL_ATOL} + {EVAL_RTOL}|x| of "
+          f"eval_batch 1 (largest excess {worst:.3e})", flush=True)
+    return results
+
+
 # the port's kernel names in the profiler's table (namespace comet::), by kernel
 PROFILE_KEYS = dict(K1=("attn_fwd_kernel",), K2=("attn_block_kernel",),
                     K3=("short_attn_kernel",), K4=("cross_kv_kernel", "cross_block_kernel"),
@@ -868,12 +1123,15 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
+        import numpy as np
         import torch.nn.functional as F
 
+        from comet_tpu_torch import bench_lib, data
         from comet_tpu_torch import config as tcfg
         from comet_tpu_torch import geometry as geom
         from comet_tpu_torch import models
         from comet_tpu_torch.ops import attn, block, kernels, norm
+        from comet_tpu_torch.training import loop as loop_mod
     except ImportError as exc:
         print(f"chip_smoke: the comet_tpu_torch package is not beside this script ({exc})",
               file=sys.stderr)
@@ -903,7 +1161,9 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=dev).manual_seed(0)
         floor_ms = _floor_ms(torch)
         print(f"launch floor (an empty launch between two events): {floor_ms:.4f} ms", flush=True)
-        checked = dict(K1=check_k1(torch, F, attn, dev, gen), K2=check_k2(torch, block, dev, gen),
+        checked = dict(K1=check_k1(torch, F, attn, dev, gen),
+                       K1_forms=check_k1_forms(torch, F, attn, dev),
+                       K2=check_k2(torch, block, dev, gen),
                        K3=check_k3(torch, F, attn, dev, gen, floor_ms),
                        K4=check_k4(torch, block, dev, gen),
                        K5=check_k5(torch, F, norm, dev, gen, floor_ms))
@@ -923,6 +1183,9 @@ def main(argv=None) -> int:
             if args.profile:
                 profile(torch, model, *runs[route_name]["requests"][0], args.profile, route_name,
                         runs[route_name]["median_ms"])
+        model.set_route(tcfg.KernelRoute())
+        bench, variants, form_counts = bench_phase(torch, tcfg, bench_lib, attn, counters, smi)
+        evals = eval_phase(torch, np, cfg, model, data, loop_mod, geom, counters, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -952,11 +1215,26 @@ def main(argv=None) -> int:
                 host_us=r["host_us"], library_host_us=r["library_host_us"], tolerance=r["tolerance"],
                 floor_ms=r.get("floor_ms"), copy_ms=r.get("copy_ms"),
             ))
+    for r in checked["K1_forms"]:
+        # launches: this form at this shape in run_softmax_variants
+        record.append(dict(
+            name=f"K1 {r['form']} {r['where']} {r['shape']}", route="cuda",
+            source="comet_tpu_torch/csrc/attn.cu", replaces="tools/micro_softmax_variants.py:67",
+            launches=form_counts.get((r["form"], *r["shape"]), 0), max_abs_err=r["max_abs_err"],
+            ms=r["ms"], k1_ms=r["k1_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], host_us=r["host_us"],
+            library_host_us=None, tolerance=r["tolerance"],
+        ))
     for route_name, run in runs.items():
         print(f"main path, {route_name} route: launches over {args.requests} requests "
               f"{run['total']} ({PER_FORWARD[route_name]} per forward); median request "
               f"{run['median_ms']:.1f} ms = {1e3 / run['median_ms']:.2f} sequences/s, peak memory "
               f"{run['peak_gib']:.2f} GiB", flush=True)
+    print(f"bench: {bench['value']} sequences/s ({bench['ms_per_sequence']} ms per sequence on "
+          f"the host clock, {bench['device_ms_per_sequence']} between CUDA events)", flush=True)
+    for eval_batch, e in evals.items():
+        print(f"eval, eval_batch {eval_batch}: {EVAL_SEQUENCES / e['seconds']:.2f} sequences/s",
+              flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

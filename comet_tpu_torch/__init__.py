@@ -1,8 +1,10 @@
 """COMET in PyTorch with hand-written CUDA kernels for the H100.
 
 The port of ``comet_tpu`` (JAX, TPU), module for module: ``config``,
-``geometry``, ``ops`` (with the CUDA kernels K1 and K2 under ``csrc``),
-``models`` and the weight bridge ``weights``. It imports neither JAX nor
-``comet_tpu``. Public functions keep the JAX layouts: images
-[B, S, H, W, 3], queries [B, N, 2].
+``geometry``, ``ops`` (with the CUDA kernels K1 to K5 under ``csrc``),
+``models``, the weight bridge ``weights``, and the eval and bench entry
+points: ``data``, ``metrics``, ``training`` (the eval loop), ``bench_lib``
+and ``entry``. It imports neither JAX nor ``comet_tpu``. Public functions
+keep the JAX layouts: images [B, S, H, W, 3], queries [B, N, 2]. Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``.
 """

@@ -30,6 +30,16 @@
 // products, so it is kept short: only the last key tile is masked, and the
 // scale is folded into one FMA per exponent. Each consumer warp releases a
 // stage after its products have read it.
+//
+// Two more softmax forms, the nomax and bf16e variants of the TPU A/B tool
+// tools/micro_softmax_variants.py::_blocked_kernel_variant (its base and exp2
+// forms are this kernel's function), are instances of the same kernel
+// (FORM): nomax takes exp(logits) with no row maximum, so the running
+// maximum and the rescale of O and l go; bf16e keeps the online maximum,
+// rounds x = logits - max to bf16 where the tool does, and takes the
+// exponent of x log2(e) in bf16 pairs (ex2.approx.ftz.bf16x2), which are the
+// P operand of the P V product as they are. Both are built only at the
+// tool's head dimensions (64 and 96).
 #include <cmath>
 
 #include "hopper.cuh"
@@ -41,6 +51,11 @@ constexpr int kRows = 128;     // query rows per CTA: 2 consumer warpgroups x 64
 constexpr int kKeys = 64;      // keys per tile
 constexpr int kStages = 4;     // K/V ring depth
 constexpr int kThreads = 288;  // 2 consumer warpgroups + 1 producer warp
+
+// softmax forms: K1's own, and the two A/B forms of the TPU tool
+constexpr int kBase = 0;   // f32 exponent of logits - max (the tool's base and exp2)
+constexpr int kNoMax = 1;  // f32 exponent of the logits, no maximum
+constexpr int kBf16 = 2;   // logits - max rounded to bf16, exponent in bf16
 
 template <int D>
 struct AttnTiles {
@@ -61,11 +76,18 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 96) wgmma_rs_n96(d, a, db, 1);
 }
 
-template <int D>
+// 2^x of two bf16 values at once (x in the low and high halves)
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+template <int D, int FORM>
 __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, int Lq, int Lk, int C,
-    float scale_log2) {
+    float scale, float scale_log2) {
   using P = AttnTiles<D>;
   constexpr int W = P::W, NCH = P::NCH, S = kStages;
   constexpr uint32_t SBO = 8 * W * 2;  // bytes between 8-row groups of a box
@@ -160,22 +182,48 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(
         if (key >= Lk) sacc[i] = -INFINITY;
       }
     }
-    float mx[2] = {m_run[0], m_run[1]};
+    float alpha[2] = {1.f, 1.f};
+    if constexpr (FORM == kNoMax) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
-    float alpha[2], msc[2];
+      for (int i = 0; i < 32; ++i) {
+        sacc[i] = exp2f(sacc[i] * scale_log2);
+        l_run[(i >> 1) & 1] += sacc[i];
+      }
+    } else {
+      float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = exp2f((m_run[r] - mx[r]) * scale_log2);
-      m_run[r] = mx[r];
-      msc[r] = mx[r] * scale_log2;
-      l_run[r] *= alpha[r];
-    }
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+      float msc[2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      sacc[i] = exp2f(fmaf(sacc[i], scale_log2, -msc[(i >> 1) & 1]));
-      l_run[(i >> 1) & 1] += sacc[i];
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = exp2f((m_run[r] - mx[r]) * scale_log2);
+        m_run[r] = mx[r];
+        msc[r] = mx[r] * (FORM == kBase ? scale_log2 : scale);
+        l_run[r] *= alpha[r];
+      }
+      if constexpr (FORM == kBase) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sacc[i] = exp2f(fmaf(sacc[i], scale_log2, -msc[(i >> 1) & 1]));
+          l_run[(i >> 1) & 1] += sacc[i];
+        }
+      } else {
+        // x = logits - max in bf16 (the tool's rounding point), then 2^(x
+        // log2 e) in bf16 pairs, x log2 e taken in f32 and rounded once (a
+        // bf16 log2 e would be 0.2 % off); each pair's bits go back into
+        // sacc[2j] until P's registers are free
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float m = msc[j & 1];
+          const float2 x = __bfloat1622float2(__floats2bfloat162_rn(
+              fmaf(sacc[2 * j], scale, -m), fmaf(sacc[2 * j + 1], scale, -m)));
+          const uint32_t e = ex2_bf16x2(pack_bf16(x.x * 1.4426950408889634f,
+                                                  x.y * 1.4426950408889634f));
+          l_run[j & 1] += __uint_as_float(e << 16) + __uint_as_float(e & 0xffff0000u);
+          sacc[2 * j] = __uint_as_float(e);
+        }
+      }
     }
 
     // P V of tile t - 1 is done: its stage is free, and O and P may change.
@@ -186,10 +234,13 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        pa[kk][e] = pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+        pa[kk][e] = FORM == kBf16 ? __float_as_uint(sacc[8 * kk + 2 * e])
+                                  : pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
     }
+    if constexpr (FORM != kNoMax) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    }
 
     if (t + 1 < ntiles) issue_s(t + 1);
     // O += P V: P from registers (the S layout is the A fragment layout),
@@ -235,7 +286,7 @@ bool operand_map(CUtensorMap* map, const bf16* p, int B, int L, int C, long long
   return make_tensor_map<W>(map, p, 3, dims, strides, box);
 }
 
-template <int D>
+template <int D, int FORM>
 int launch_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Lq,
                 int Lk, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                 long long v_bs, long long v_rs, float scale, cudaStream_t stream) {
@@ -254,13 +305,13 @@ int launch_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
+        attn_fwd_kernel<D, FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((Lq + kRows - 1) / kRows, H, B);
-  attn_fwd_kernel<D><<<grid, kThreads, P::smem, stream>>>(mq, mk, mv, o, Lq, Lk, C,
-                                                           scale * 1.4426950408889634f);
+  attn_fwd_kernel<D, FORM><<<grid, kThreads, P::smem, stream>>>(
+      mq, mk, mv, o, Lq, Lk, C, scale, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -268,34 +319,39 @@ int launch_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int
 }  // namespace comet
 
 // Returns 0 on success, -1 for arguments the kernel does not take (a head
-// dimension, or stride 0 on a dimension longer than 1: an expanded tensor),
-// -2 if cuTensorMapEncodeTiled refuses a tensor map, else the CUDA error code
-// of the launch. Strides are in elements; a dimension of size 1 may report
-// stride 0. The output is a contiguous [B, Lq, H*D] tensor.
+// dimension, a softmax form, or stride 0 on a dimension longer than 1: an
+// expanded tensor), -2 if cuTensorMapEncodeTiled refuses a tensor map, else
+// the CUDA error code of the launch. Strides are in elements; a dimension of
+// size 1 may report stride 0. The output is a contiguous [B, Lq, H*D] tensor.
+#define COMET_ATTN_ARGS                                                                   \
+  static_cast<const comet::bf16*>(q), static_cast<const comet::bf16*>(k),                 \
+      static_cast<const comet::bf16*>(v), static_cast<comet::bf16*>(o), B, H, Lq, Lk, q_bs, \
+      q_rs, k_bs, k_rs, v_bs, v_rs, scale, static_cast<cudaStream_t>(stream)
+
 extern "C" int comet_attn_fwd(const void* q, const void* k, const void* v, void* o, int B,
                               int H, int D, int Lq, int Lk, long long q_bs, long long q_rs,
                               long long k_bs, long long k_rs, long long v_bs, long long v_rs,
                               float scale, void* stream) {
-  using comet::bf16;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using comet::kBase;
   switch (D) {
-    case 32:
-      return comet::launch_attn<32>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs,
-                                    v_rs, scale, s);
-    case 48:
-      return comet::launch_attn<48>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs,
-                                    v_rs, scale, s);
-    case 64:
-      return comet::launch_attn<64>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs,
-                                    v_rs, scale, s);
-    case 96:
-      return comet::launch_attn<96>(qp, kp, vp, op, B, H, Lq, Lk, q_bs, q_rs, k_bs, k_rs, v_bs,
-                                    v_rs, scale, s);
-    default:
-      return -1;
+    case 32: return comet::launch_attn<32, kBase>(COMET_ATTN_ARGS);
+    case 48: return comet::launch_attn<48, kBase>(COMET_ATTN_ARGS);
+    case 64: return comet::launch_attn<64, kBase>(COMET_ATTN_ARGS);
+    case 96: return comet::launch_attn<96, kBase>(COMET_ATTN_ARGS);
+    default: return -1;
   }
+}
+
+// The A/B softmax forms: form 1 nomax, form 2 bf16e, at D 64 and 96 only.
+extern "C" int comet_attn_form_fwd(const void* q, const void* k, const void* v, void* o, int B,
+                                   int H, int D, int Lq, int Lk, long long q_bs, long long q_rs,
+                                   long long k_bs, long long k_rs, long long v_bs,
+                                   long long v_rs, float scale, int form, void* stream) {
+  using comet::kBf16;
+  using comet::kNoMax;
+  if (form == kNoMax && D == 64) return comet::launch_attn<64, kNoMax>(COMET_ATTN_ARGS);
+  if (form == kNoMax && D == 96) return comet::launch_attn<96, kNoMax>(COMET_ATTN_ARGS);
+  if (form == kBf16 && D == 64) return comet::launch_attn<64, kBf16>(COMET_ATTN_ARGS);
+  if (form == kBf16 && D == 96) return comet::launch_attn<96, kBf16>(COMET_ATTN_ARGS);
+  return -1;
 }

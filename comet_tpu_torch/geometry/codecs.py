@@ -1,11 +1,13 @@
-"""Decoding of frame-0-relative pose encodings.
+"""Frame-0-relative pose encodings: encoders and decoders.
 
-Counterpart of the decoders of ``comet_tpu/geometry/codecs.py``:
+Counterpart of the uvz and xyz codecs of ``comet_tpu/geometry/codecs.py``:
 
 - uvz codec: (du, dv) in crop-normalized pixels, dd relative depth, relative
   quaternion; translation recovered through the pinhole model with the
   dataset's intrinsics.
 - xyz codec: dT = T_i - T_0 in metric space, relative quaternion.
+
+The encoders take the cameras of one sequence ([S, ...]).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .cameras import CameraSet
-from .quaternions import quat_multiply, quat_standardize
+from .quaternions import quat_invert, quat_multiply, quat_standardize
 
 
 class Intrinsics(NamedTuple):
@@ -35,6 +37,23 @@ INTRINSICS_TABLE = {
 
 # The du/dv normalization constant of the codec, whatever the crop size.
 _UV_NORM = 256.0 / 2.0
+
+
+def encode_relative_uvz(cams: CameraSet) -> torch.Tensor:
+    """S cameras -> frame-0-relative [S, 8] = (du, dv, dd, quat, focal).
+
+    Row 0 is the identity encoding (zeros and the unit quaternion) with the
+    frame-0 focal appended; du and dv are normalized by ``_UV_NORM``
+    whatever the crop size."""
+    q, t_uvz, ratio = cams.q, cams.t_uvz, cams.ratio
+    q_rel = quat_standardize(quat_multiply(q, quat_invert(q[0:1])))
+    du = (t_uvz[:, 0] - t_uvz[0, 0]) * ratio / _UV_NORM
+    dv = (t_uvz[:, 1] - t_uvz[0, 1]) * ratio / _UV_NORM
+    dd = (t_uvz[:, 2] / t_uvz[0, 2] - 1.0) * ratio
+    focal = cams.focal[:, 0].clamp(0.1, 30.0)
+    enc = torch.cat([torch.stack([du, dv, dd], dim=-1), q_rel, focal[:, None]], dim=-1)
+    first = torch.cat([enc.new_tensor([0, 0, 0, 1, 0, 0, 0]), focal[0:1]])
+    return torch.cat([first[None], enc[1:]])
 
 
 def decode_relative_uvz(
@@ -59,6 +78,14 @@ def decode_relative_uvz(
     q_abs = quat_standardize(quat_multiply(rel, q_ref.expand_as(rel)))
     batch = enc.shape[:-1]
     return q_abs.reshape(*batch, 4), t_abs.reshape(*batch, 3)
+
+
+def encode_relative_xyz(cams: CameraSet) -> torch.Tensor:
+    """S cameras -> frame-0-relative [S, 7] = (dT_xyz, quat); row 0 is the
+    identity encoding."""
+    q_rel = quat_standardize(quat_multiply(cams.q, quat_invert(cams.q[0:1])))
+    enc = torch.cat([cams.t_xyz - cams.t_xyz[0:1], q_rel], dim=-1)
+    return torch.cat([enc.new_tensor([[0, 0, 0, 1, 0, 0, 0]]), enc[1:]])
 
 
 def decode_relative_xyz(

@@ -1,7 +1,7 @@
 """Quaternion math (wxyz convention).
 
 Counterpart of the parts of ``comet_tpu/geometry/quaternions.py`` that the
-pose decoders use.
+pose codecs use.
 """
 
 from __future__ import annotations
@@ -27,3 +27,13 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def quat_standardize(q: torch.Tensor) -> torch.Tensor:
     """Flip the sign so that w >= 0."""
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (w, -x, -y, -z)."""
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quat_invert(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of a unit quaternion: its conjugate."""
+    return quat_conjugate(q)

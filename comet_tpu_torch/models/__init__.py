@@ -1,1 +1,1 @@
-from .comet import COMET, build_comet, decode_predictions
+from .comet import COMET, build_comet, decode_predictions, encode_gt, pose_loss

@@ -1,8 +1,8 @@
 """COMET end to end: tracker + camera predictor, and its entry points.
 
-Counterpart of ``comet_tpu/models/comet.py`` (``COMET``,
-``decode_predictions``). The tracker branch serves the camera predictor and
-is frozen; this module is an inference path.
+Counterpart of ``comet_tpu/models/comet.py`` (``COMET``, ``encode_gt``,
+``decode_predictions``, ``pose_loss``). The tracker branch serves the
+camera predictor and is frozen; this module is an inference path.
 """
 
 from __future__ import annotations
@@ -14,7 +14,14 @@ import torch.nn as nn
 
 from ..config import CometConfig, KernelRoute
 from ..geometry.cameras import CameraSet
-from ..geometry.codecs import INTRINSICS_TABLE, decode_relative_uvz, decode_relative_xyz
+from ..device import resolve_device
+from ..geometry.codecs import (
+    INTRINSICS_TABLE,
+    decode_relative_uvz,
+    decode_relative_xyz,
+    encode_relative_uvz,
+    encode_relative_xyz,
+)
 from ..ops.bilinear import resize_bilinear_align_corners
 from .blocks import init_params, set_route
 from .camera_predictor import CameraPredictor
@@ -131,11 +138,7 @@ def build_comet(
     back: pass ``device="cpu"`` explicitly. ``device="meta"`` builds the
     parameter shapes only.
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("build_comet: no CUDA device; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    device = torch.device(device)
+    device = resolve_device(device, "build_comet")
     if device.type == "meta":
         with torch.device("meta"):
             return COMET(cfg).set_route(route).eval()
@@ -143,6 +146,17 @@ def build_comet(
     generator = torch.Generator().manual_seed(seed)
     init_params(model, generator)
     return model.to(device).eval()
+
+
+def encode_gt(cfg: CometConfig, gt_cams: CameraSet) -> torch.Tensor:
+    """Ground-truth cameras in the config's codec: a per-sequence camera set
+    ([S, ...] -> [S, 8] uvz or [S, 7] xyz) or a batched one ([B, S, ...] ->
+    [B, S, 8 or 7])."""
+    fn = encode_relative_uvz if cfg.camera.use_gapr else encode_relative_xyz
+    if gt_cams.q.dim() == 3:
+        return torch.stack([fn(CameraSet(*(f[i] for f in gt_cams)))
+                            for i in range(gt_cams.q.shape[0])])
+    return fn(gt_cams)
 
 
 def decode_predictions(
@@ -160,3 +174,15 @@ def decode_predictions(
     if cfg.camera.use_gapr:
         return decode_relative_uvz(pred_pose_enc, gt_cams, INTRINSICS_TABLE[cfg.dataset])
     return decode_relative_xyz(pred_pose_enc, gt_cams)
+
+
+def pose_loss(
+    cfg: CometConfig, pred_pose_enc: torch.Tensor, gt_enc: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """MSE over frames 1..S-1, x100, of translation and rotation, weighted
+    by ``weight_trans`` and ``weight_rot``; pred [B, S, 7], gt [B, S, >= 7].
+    The dtype is PyTorch's promotion of the two, as JAX's."""
+    trans = ((pred_pose_enc[:, 1:, :3] - gt_enc[..., 1:, :3]) ** 2).mean() * 100.0
+    rot = ((pred_pose_enc[:, 1:, 3:7] - gt_enc[..., 1:, 3:7]) ** 2).mean() * 100.0
+    loss = cfg.train.weight_trans * trans + cfg.train.weight_rot * rot
+    return {"loss": loss, "loss_trans": trans, "loss_rot": rot}

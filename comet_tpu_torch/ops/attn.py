@@ -7,6 +7,12 @@ K3, :func:`short_attention` (``csrc/short_attn.cu``), and every other call
 to K1 (``csrc/attn.cu``), including the shapes the JAX package sends to its
 reference. On a CPU tensor both run :func:`attention_reference`, the plain
 PyTorch version of the same function.
+
+``fused_attention(..., softmax=form)`` computes one of the two inexact A/B
+softmax forms of ``tools/micro_softmax_variants.py`` (``nomax``: the
+exponent of the logits with no row maximum; ``bf16e``: the maximum taken in
+f32, the exponent in bf16) through instances of K1 at head dimensions 64
+and 96; :func:`attention_form_reference` is their plain version.
 """
 
 from __future__ import annotations
@@ -20,6 +26,10 @@ import torch
 from . import kernels
 
 SUPPORTED_HEAD_DIMS = (32, 48, 64, 96)
+# the softmax forms of fused_attention: K1's own, then the A/B forms (their
+# number in csrc/attn.cu) and the head dimensions they are built for
+SOFTMAX_FORMS = ("base", "nomax", "bf16e")
+FORM_HEAD_DIMS = (64, 96)
 # K3 takes sequences up to this long when there are at least this many rows
 SHORT_MAX_LEN = 64
 SHORT_MIN_ROWS = 256
@@ -117,6 +127,36 @@ def attention_reference(
     return out.reshape(b, lq, c)
 
 
+def attention_form_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+    softmax: str,
+) -> torch.Tensor:
+    """Plain version of a softmax form, step by step as the TPU tool's
+    whole-row form (``_heads_attend_variant``): f32 logits (scale on the
+    logits); ``nomax``: w = exp(logits) / its row sum, in f32; ``bf16e``: x =
+    logits - row max rounded to bf16, e = exp(x), its row sum and e / sum in
+    bf16; ``base``: :func:`attention_reference`. The weights are cast to the
+    input dtype before the value product, as there."""
+    if softmax == "base":
+        return attention_reference(q, k, v, num_heads, scale)
+    if softmax not in SOFTMAX_FORMS:
+        raise ValueError(f"attention: softmax form {softmax!r} not in {SOFTMAX_FORMS}")
+    b, lq, c = q.shape
+    lk = k.shape[1]
+    d = c // num_heads
+    qh = q.reshape(b, lq, num_heads, d)
+    kh = k.reshape(b, lk, num_heads, d)
+    vh = v.reshape(b, lk, num_heads, d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * scale
+    if softmax == "nomax":
+        e = torch.exp(logits)
+    else:
+        e = torch.exp((logits - logits.amax(dim=-1, keepdim=True)).to(torch.bfloat16))
+    w = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, vh)
+    return out.reshape(b, lq, c)
+
+
 def kernel_operand(t: torch.Tensor) -> torch.Tensor:
     """t as the kernels take it: t itself, or a contiguous copy when a
     dimension longer than 1 has stride 0 (an ``expand``), since the kernels
@@ -149,10 +189,12 @@ def _check_operand(name: str, t: torch.Tensor, length: int, c: int) -> tuple:
     return bs, rs
 
 
-def _launch(entry: str, q, k, v, num_heads: int, scale: float, plan=None) -> torch.Tensor:
+def _launch(entry: str, q, k, v, num_heads: int, scale: float, plan=None,
+            form: Optional[int] = None) -> torch.Tensor:
     """Check the operands and launch the kernel behind the C entry point
     ``entry`` (no launch for an empty output). ``plan``, for K3: a function
-    of (card, B, Lq, Lk, C, heads) giving its :class:`ShortPlan`."""
+    of (card, B, Lq, Lk, C, heads) giving its :class:`ShortPlan`; ``form``,
+    for K1's A/B forms: the softmax form's number."""
     b, lq, c = q.shape
     lk = k.shape[1]
     if c % num_heads or c // num_heads not in SUPPORTED_HEAD_DIMS:
@@ -170,11 +212,11 @@ def _launch(entry: str, q, k, v, num_heads: int, scale: float, plan=None) -> tor
     if lk == 0:
         raise ValueError("attention: no keys")
     index = device.index
-    if plan is None:
-        extra = ()
-    else:
+    if plan is not None:
         p = plan(index, b, lq, lk, c, num_heads)
         extra = (p.heads, p.stages, p.grid)
+    else:
+        extra = () if form is None else (form,)
     rc = getattr(kernels.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, num_heads, c // num_heads, lq, lk, *q_strides, *k_strides, *v_strides,
@@ -224,6 +266,7 @@ def fused_attention(
     v: torch.Tensor,
     num_heads: int,
     scale: Optional[float] = None,
+    softmax: str = "base",
 ) -> torch.Tensor:
     """softmax(scale * Q_h K_h^T) V_h per head, on [B, Lq, C] / [B, Lk, C].
 
@@ -231,12 +274,30 @@ def fused_attention(
     q, k and v may be column slices of one packed projection: only unit
     column stride is required, rows and batches may be strided. On CUDA,
     the packed regime (:func:`is_short`) goes to K3 and the rest to K1;
-    ``fused_attention.launches`` counts K1's launches.
+    ``fused_attention.launches`` counts K1's launches. ``softmax``: K1's
+    form ("base") or one of the inexact A/B forms "nomax" and "bf16e"
+    (:func:`attention_form_reference`), which run on K1's instances for
+    them at every shape, at head dimensions 64 and 96;
+    ``fused_attention.form_launches`` counts those by (form, B, Lq, Lk, C,
+    heads).
     """
     b, lq, c = q.shape
     lk = k.shape[1]
     if scale is None:
         scale = 1.0 / (c // num_heads) ** 0.5
+    if softmax != "base":
+        if softmax not in SOFTMAX_FORMS:
+            raise ValueError(f"attention: softmax form {softmax!r} not in {SOFTMAX_FORMS}")
+        if q.device.type == "cpu":
+            return attention_form_reference(q, k, v, num_heads, scale, softmax)
+        if c % num_heads or c // num_heads not in FORM_HEAD_DIMS:
+            raise ValueError(f"attention: softmax form {softmax!r} is built for head dims "
+                             f"{FORM_HEAD_DIMS}, not {c / num_heads}")
+        out = _launch("comet_attn_form_fwd", q, k, v, num_heads, scale,
+                      form=SOFTMAX_FORMS.index(softmax))
+        if out.numel():
+            fused_attention.form_launches[(softmax, b, lq, lk, c, num_heads)] += 1
+        return out
     if is_short(b, lq, lk):
         return short_attention(q, k, v, num_heads, scale)
     if q.device.type == "cpu":
@@ -248,8 +309,10 @@ def fused_attention(
     return out
 
 
-# launches of each kernel, in all and by (B, Lq, Lk, C, heads): K1, K3
+# launches of each kernel, in all and by (B, Lq, Lk, C, heads): K1, K3;
+# and of K1's A/B softmax forms by (form, B, Lq, Lk, C, heads)
 fused_attention.launches = 0
 fused_attention.launch_shapes = Counter()
+fused_attention.form_launches = Counter()
 short_attention.launches = 0
 short_attention.launch_shapes = Counter()

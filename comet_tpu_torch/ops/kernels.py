@@ -40,6 +40,11 @@ _SIGNATURES = {
          ctypes.c_float, _P],
         _I,
     ),
+    "comet_attn_form_fwd": (
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+         ctypes.c_float, _I, _P],
+        _I,
+    ),
     "comet_attn_block_fwd": (
         [_P] * 10 + [_I] * 6 + [_P, _P],
         _I,

@@ -11,7 +11,12 @@ K3), for K2 and K4 two bf16 steps relative to the value on top (their output
 and residual stream are rounded to bf16 at magnitudes up to ~8), and for K5
 atol 1e-3 plus one bf16 rounding of the output (2^-7 |y|); K5 in f32 is held
 to 1e-5. The GELU that K2 and K4 share is held to the exact tanh form within
-one bf16 rounding (2^-8 |y|) on every bf16 value in [-8, 8].
+one bf16 rounding (2^-8 |y|) on every bf16 value in [-8, 8]. K1's A/B
+softmax forms (nomax, bf16e) are held to their own plain versions on the
+same bf16 inputs, with the forms' casts, at K1's atol 3e-2 plus one bf16
+step of the output (2^-7 |y|: the kernel rounds the weights at other points,
+and at Lk 1 moves an output of |y| >= 4 by one step, 0.03125); the
+preprocessing on the card to its CPU run at 1e-5 (f32 products, no TF32).
 """
 
 import ctypes
@@ -21,7 +26,7 @@ import pytest
 import torch
 
 from comet_tpu_torch.ops.attn import (
-    ShortPlan, attention_reference, fused_attention, short_attention,
+    ShortPlan, attention_form_reference, attention_reference, fused_attention, short_attention,
 )
 from comet_tpu_torch.ops.block import (
     K4_CLOCKS, block_reference, cross_block_reference, fused_attn_block, fused_cross_block,
@@ -92,6 +97,67 @@ def test_k1_cuda_takes_expanded_keys_and_values(cuda_device, b, lq, lk, expanded
     got = fused_attention(q, k, v, h)
     want = attention_reference(q.float(), k.float(), v.float(), h, (c // h) ** -0.5)
     torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["nomax", "bf16e"])
+@pytest.mark.parametrize("b,lq,lk,c,h", [(16, 581, 581, 768, 12), (16, 578, 578, 768, 8),
+                                         (2, 577, 1, 768, 12), (2, 577, 1, 768, 8),
+                                         (2, 577, 63, 768, 8),
+                                         (2, 65, 577, 768, 12), (4, 16, 16, 384, 4)])
+def test_k1_softmax_forms_match_their_plain_versions(cuda_device, form, b, lq, lk, c, h):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(b, n, c, generator=g, device=cuda_device).bfloat16()
+               for n in (lq, lk, lk))
+    key = (form, b, lq, lk, c, h)
+    before = fused_attention.form_launches[key], fused_attention.launches
+    got = fused_attention(q, k, v, h, softmax=form)
+    assert (fused_attention.form_launches[key], fused_attention.launches) == (before[0] + 1,
+                                                                              before[1])
+    want = attention_form_reference(q, k, v, h, (c // h) ** -0.5, form)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_k1_softmax_forms_refuse_other_head_dims(cuda_device):
+    q = torch.zeros(2, 8, 384, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        fused_attention(q, q, q, 8, softmax="bf16e")  # D 48
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resample", ["bilinear", "lanczos"])
+def test_preprocess_frames_on_the_card_matches_the_cpu(cuda_device, resample):
+    from comet_tpu_torch.data.device_pipeline import preprocess_frames, preprocess_mask
+
+    g = torch.Generator().manual_seed(4)
+    frames = torch.randint(0, 256, (16, 480, 640, 3), generator=g, dtype=torch.uint8)
+    square = (120.0, 40.0, 560.0, 480.0)
+    want = preprocess_frames(frames, square, 512, resample)
+    got = preprocess_frames(frames.to(cuda_device), square, 512, resample)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    mask = (frames[0, ..., 0] > 128).to(torch.uint8)
+    assert torch.equal(preprocess_mask(mask.to(cuda_device), square, 512).cpu(),
+                       preprocess_mask(mask, square, 512))
+
+
+@pytest.mark.cuda
+def test_device_preprocess_dataset_hands_images_over_between_streams(cuda_device, tmp_path):
+    """keep_on_device: the images come from a side stream with an event;
+    after wait_ready the consumer's stream reads what the CPU run gives."""
+    from comet_tpu_torch.data import AMDDataset, DevicePreprocessDataset, generate_amd_fixture
+    from comet_tpu_torch.data.device_pipeline import wait_ready
+    from comet_tpu_torch.data.prefetch import prefetch
+
+    root = generate_amd_fixture(str(tmp_path), n_seqs=3, n_frames=8, img_hw=(240, 320))
+    base = AMDDataset(root, crop_size=256, seq_len=8)
+    card = DevicePreprocessDataset(base, resample="lanczos", keep_on_device=True)
+    cpu = DevicePreprocessDataset(base, resample="lanczos", device="cpu")
+    for i, sample in enumerate(prefetch(card.__getitem__, len(card))):
+        assert sample.ready is not None and sample.images.device.type == "cuda"
+        wait_ready(sample)
+        torch.testing.assert_close(sample.images.cpu(), torch.from_numpy(cpu[i].images),
+                                   atol=1e-5, rtol=0)
 
 
 # K2 at the main path's shapes, then rows not a multiple of 64, L 16 and 64

@@ -348,8 +348,11 @@ def test_vit_matches_jax(tiny):
     [
         dict(),
         dict(use_trajectory=False, use_time=False, use_gapr=False),
+        dict(use_trajectory=False),
+        dict(use_time=False),
+        dict(use_gapr=False),
     ],
-    ids=["ours", "abl_all"],
+    ids=["ours", "abl_all", "abl_track", "abl_time", "abl_uvz"],
 )
 def test_camera_predictor_matches_jax(flags):
     kw = dict(hidden_size=32, num_heads=2, att_depth=1, trunk_depth=1, down_size=28,
