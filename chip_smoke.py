@@ -35,16 +35,22 @@ Phases, each of which makes the script exit nonzero when it fails:
    packed, separate and expanded operands; K5 at 1 to 9,296 rows of 8 to
    1,024 columns in bf16 and f32, affine or not) against the same plain f32
    versions and tolerances (a K4 shape in ``K4_KNOWN_MISS`` that misses is
-   printed as such, and held to the plain version in bf16 instead); and
-   K1's two A/B softmax forms (``fused_attention(..., softmax="nomax" |
-   "bf16e")``, the TPU tool ``tools/micro_softmax_variants.py``'s) at the
-   tool's two shapes, timed beside K1 and ``F.scaled_dot_product_attention``,
-   and at K1's edge shapes with D 64 and 96, each held to its own plain
-   version on the same bf16 inputs (``FORM_ATOL`` + ``FORM_RTOL`` |y|);
+   printed as such, and held to the plain version in bf16 instead); K2 also
+   at the shape of the TPU tool ``tools/micro_lane_packing.py`` (K2's
+   function in a lane-packed layout); and K1's two A/B softmax forms
+   (``fused_attention(..., softmax="nomax" | "bf16e")``, the TPU tool
+   ``tools/micro_softmax_variants.py``'s) at the tool's two shapes, timed
+   beside K1 and ``F.scaled_dot_product_attention``, and at K1's edge
+   shapes with D 64 and 96, each held to its own plain version on the same
+   bf16 inputs (``FORM_ATOL`` + ``FORM_RTOL`` |y|);
 4. a reference check on small inputs: the full-width ``ours`` model's coarse
    and fine update-formers and its camera predictor, on the card in bf16
    (through the kernels) against the same weights in f32 on the CPU (plain
-   versions), on the default route and on ``FUSED_ROUTE``;
+   versions), on the default route and on ``FUSED_ROUTE``; then the camera
+   predictor's gradients on the same inputs: every tensor that
+   ``training.camera_only_mask`` selects, on the card in bf16 (the kernels'
+   autograd Functions) against the CPU in f32, within ``GRAD_RTOL`` of its
+   norm, and no frozen parameter with a gradient;
 5. the main path, once per route: ``build_comet(get_config("ours"))`` on the
    card at full width (16 frames, 512 px, 512 tracks, bf16, random weights
    from seed 0) answers 3 seeded requests through ``COMET.forward`` and
@@ -66,7 +72,21 @@ Phases, each of which makes the script exit nonzero when it fails:
    "grid" backend; at eval_batch 1 and 2: every metric finite, the metric
    block's key set, each sequence's metric row at batch 2 (padded with
    itself) within ``EVAL_RTOL`` of its row at batch 1, K1 and K2 launched
-   their per-forward counts once per forward, and the eval sequences/s.
+   their per-forward counts once per forward, and the eval sequences/s;
+8. training: the autograd Functions' gradients at the train step's shapes
+   (K1 at the camera's four, K5 at the camera's LayerNorms) equal the plain
+   versions' autograd on the same bf16 inputs bit for bit, timed as forward
+   + backward; then per route 3 train steps of the same full-width model
+   (``training.build_optimizer`` and ``build_train_step``, f32 master
+   parameters, bf16 compute) on fresh seeded images: each loss finite, the
+   kernels launched their per-forward counts each step (the frozen tracker
+   and ViT still run theirs, under no_grad), the Functions ran their
+   backward at the camera's shapes only, every tensor the mask selects
+   moved and every other stayed bit for bit; the step's forward, backward
+   and optimizer timed between CUDA events, its peak memory, and the
+   device's idle share from a profiled step; and
+   ``bench_lib.run_train_benchmark`` per route (its JSON on a line of its
+   own), with the counts set to 0 before it and read after.
 
 The line before the last holds the kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -82,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 # peaks of one H100 SXM (data sheet, dense): bf16 tensor cores, f32 outside
@@ -107,6 +128,9 @@ K2_SHAPES = [
     ("coarse virtual blocks", 16, 64, 384, 8, 1536, 24),
     ("fine time blocks", 512, 16, 256, 8, 1024, 24),
 ]
+# the TPU A/B tool tools/micro_lane_packing.py's shape (B, L, C, H = 512,
+# 16, 384, 8; hidden 4C): K2's function in a lane-packed layout, timed as K2
+K2_TOOL_SHAPES = [("lane-packing tool", 512, 16, 384, 8, 1536, 0)]
 # K3 (FUSED_ROUTE: the AttnBlocks above, unfused): (where, B, L, C, heads,
 # calls per forward); q, k, v are column slices of the qkv projection
 K3_SHAPES = [
@@ -229,6 +253,24 @@ TIMING_RUNS = 25
 SLEEP_CYCLES = 50_000_000
 REQUESTS = 3
 KERNELS = ("K1", "K2", "K3", "K4", "K5")
+# the train step (phase 8) differentiates K1 at the camera's shapes on both
+# routes and, on FUSED_ROUTE, K5 at the camera's LayerNorms; the tracker and
+# the ViT run their kernels under no_grad
+K1_TRAIN = ("aggregator self", "aggregator cross to frame 0", "trajectory cross", "trunk self")
+K5_TRAIN = ("camera input norm", "aggregator self blocks", "aggregator cross norm1, norm2",
+            "aggregator cross norm_context", "trajectory encoder ln1",
+            "trajectory encoder ln2, T_P norm_context", "T_P cross norm1, norm2, trunk")
+TRAIN_STEPS = 3
+# the camera predictor's gradients, bf16 on the card against f32 on the CPU:
+# each tensor's |difference| / |f32 gradient|. PyTorch's own bf16 of the same
+# backward on the CPU differs by 1.6 % (median) to 2.2 % (largest) at these
+# inputs, a wrong or missing backward path by the gradient's whole size. A
+# tensor's norm is floored at 1e-4 of the largest tensor's: the
+# confidence-attention MLP's f32 gradient is ~1e-8 (the context LayerNorm
+# undoes its per-track scale), so its bf16 rounding, 1e-6 of the largest
+# norm, has no norm of its own to be measured against.
+GRAD_RTOL = 0.1
+GRAD_FLOOR = 1e-4
 
 
 class SmokeError(RuntimeError):
@@ -386,9 +428,9 @@ def check_k1_forms(torch, F, attn, dev):
     return rows
 
 
-def check_k2(torch, block, dev, gen):
+def check_k2(torch, block, dev, gen, shapes=K2_SHAPES):
     rows = []
-    for where, b, l, c, h, hid, calls in K2_SHAPES:
+    for where, b, l, c, h, hid, calls in shapes:
         x, w = _k2_inputs(torch, gen, dev, b, l, c, hid)
         out = block.fused_attn_block(x, *w, h)
         torch.cuda.synchronize()
@@ -777,17 +819,13 @@ def _launches(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
-def reference_check(torch, tcfg, models, model, dev, counters):
-    """The main path's modules at full width on small inputs: on the card in
-    bf16 (through the kernels) against the same weights in f32 on the CPU
-    (plain versions), within REF_RTOL of the reference's largest value, on
-    both routes."""
-    cpu = models.build_comet(tcfg.get_config("ours").replace(compute_dtype="float32"),
-                             device="cpu", seed=0)
+def _reference_cases(torch, model):
+    """The reference check's small inputs: (where, module path, args), drawn
+    from one CPU generator of seed 11."""
     gen = torch.Generator().manual_seed(11)
     coarse_in = model.coarse_tracker.updateformer.input_transform.in_features
     fine_in = model.fine_tracker.updateformer.input_transform.in_features
-    cases = [
+    return [
         # coarse update-former: K2 at L 16 (time) and 64 (virtual), K1 both
         # ways; on FUSED_ROUTE K3 at both, K4 with Lk 32 and Lq 32, K5
         ("coarse update-former [1, 32 tracks, 16 frames]", "coarse_tracker.updateformer",
@@ -801,7 +839,16 @@ def reference_check(torch, tcfg, models, model, dev, counters):
          (torch.randn(1, 2, 64, 64, 3, generator=gen), torch.rand(1, 2, 32, 2, generator=gen) * 64,
           torch.rand(1, 2, 32, generator=gen))),
     ]
-    worst = {}
+
+
+def reference_check(torch, tcfg, models, model, dev, counters):
+    """The main path's modules at full width on small inputs: on the card in
+    bf16 (through the kernels) against the same weights in f32 on the CPU
+    (plain versions), within REF_RTOL of the reference's largest value, on
+    both routes. Returns the CPU model."""
+    cpu = models.build_comet(tcfg.get_config("ours").replace(compute_dtype="float32"),
+                             device="cpu", seed=0)
+    cases = _reference_cases(torch, model)
     for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
         model.set_route(route)
         _reset(counters)
@@ -814,7 +861,6 @@ def reference_check(torch, tcfg, models, model, dev, counters):
             got = got.float().cpu()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            worst[(route_name, where)] = err / scale
             print(f"reference check, {route_name} route, {where}: max |card bf16 - CPU f32| = "
                   f"{err:.3e}, max |reference| = {scale:.3f}, ratio {err / scale:.2e} "
                   f"(limit {REF_RTOL})", flush=True)
@@ -827,7 +873,7 @@ def reference_check(torch, tcfg, models, model, dev, counters):
         if any(used[k] == 0 for k in want_used):
             raise SmokeError(f"reference check {route_name}: a kernel of the route never ran: {used}")
     model.set_route(tcfg.KernelRoute())
-    return worst
+    return cpu
 
 
 def _want_shapes(route_name, n):
@@ -1070,6 +1116,278 @@ def eval_phase(torch, np, cfg, model, data, loop_mod, geom, counters, dev, smi):
     return results
 
 
+def check_backward(torch, F, attn, norm, dev):
+    """The Functions' gradients at the train step's shapes (K1 at the
+    camera's four shapes, K5 at the camera's norms) against the plain
+    version's autograd on the same bf16 inputs and cotangent, bit for bit:
+    the Function's backward is that computation. Each timed as forward +
+    backward beside the plain version's and the library call's."""
+    gen = torch.Generator(device=dev).manual_seed(7)  # its own: the other checks draw as before
+    rows = []
+
+    def rnd(*shape, grad=True):
+        t = torch.randn(*shape, generator=gen, device=dev).bfloat16()
+        return t.requires_grad_() if grad else t
+
+    def record(kernel, where, shape, kernel_fn, plain_fn, library_fn, leaves, g, flops, nbytes,
+               peak):
+        got = torch.autograd.grad(kernel_fn(), leaves, g)
+        want = torch.autograd.grad(plain_fn(), leaves, g)
+        if not all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(got, want)):
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            raise SmokeError(f"{kernel} backward {where}: the Function's gradients differ from "
+                             f"the plain version's autograd by {err}")
+        ms = _median_ms(torch, lambda: torch.autograd.grad(kernel_fn(), leaves, g))
+        plain_ms = _median_ms(torch, lambda: torch.autograd.grad(plain_fn(), leaves, g))
+        library_ms = _median_ms(torch, library_fn)
+        bound, bound_by = _bound_ms(flops, nbytes, peak)
+        rows.append(dict(kernel=kernel, where=where, shape=shape, max_abs_err=0.0,
+                         tolerance="torch.equal", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound, bound_by=bound_by, flops=flops, bytes=nbytes))
+        print(f"{kernel} backward {where:34s} {shape} gradients equal the plain version's "
+              f"autograd; forward + backward ms {ms:.4f} plain {plain_ms:.4f} library "
+              f"{library_ms:.4f} bound {bound:.5f} ({bound_by})", flush=True)
+
+    for where, b, lq, lk, c, h, packed, _, _ in K1_SHAPES:
+        if where not in K1_TRAIN:
+            continue
+        d = c // h
+        if packed:  # q, k, v column slices of one qkv projection, as in the model
+            leaves = [rnd(b, lq, 3 * c)]
+            split = lambda leaves=leaves: leaves[0].split(c, dim=-1)  # noqa: E731
+        else:
+            leaves = [rnd(b, lq, c), rnd(b, lk, 2 * c)]
+            split = lambda leaves=leaves: (leaves[0], *leaves[1].split(c, dim=-1))  # noqa: E731
+        g = rnd(b, lq, c, grad=False)
+        g4 = g.view(b, lq, h, d).transpose(1, 2)
+
+        def library(split=split, leaves=leaves, g4=g4, b=b, h=h, d=d):
+            q4, k4, v4 = (t.view(b, t.shape[1], h, d).transpose(1, 2) for t in split())
+            return torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4), leaves, g4)
+
+        # forward and backward as FlashAttention-2 counts them: 2 + 5 products;
+        # q, k, v and g read once, o, dq, dk and dv written once
+        record("K1", where, [b, lq, lk, c, h],
+               lambda split=split, h=h: attn.fused_attention(*split(), h),
+               lambda split=split, h=h, d=d: attn.attention_reference(*split(), h, d ** -0.5),
+               library, leaves, g, 14 * b * h * lq * lk * d, 2 * 4 * (b * lq * c + b * lk * c),
+               PEAK_BF16_FLOPS)
+    for where, r, c, affine, _ in K5_SHAPES:
+        if where not in K5_TRAIN:
+            continue
+        x = ((torch.randn(r, c, generator=gen, device=dev) * 3 + 1).bfloat16().requires_grad_())
+        s, bias = ((torch.randn(c, generator=gen, device=dev).requires_grad_() for _ in range(2))
+                   if affine else (None, None))
+        leaves = [x, s, bias] if affine else [x]
+        g = rnd(r, c, grad=False)
+        lib = [x] + ([t.detach().bfloat16().requires_grad_() for t in (s, bias)] if affine else [])
+
+        def library(lib=lib, c=c, g=g):
+            return torch.autograd.grad(
+                F.layer_norm(lib[0], (c,), *(lib[1:] or (None, None)), 1e-6), lib, g)
+
+        # ~20 f32 operations an element forward and backward; x, g in and y,
+        # dx out in bf16, the f32 scale and bias in and their gradients out
+        record("K5", where, [r, c, "bfloat16", affine],
+               lambda x=x, s=s, bias=bias: norm.fused_layer_norm(x, s, bias),
+               lambda x=x, s=s, bias=bias: norm.layer_norm_reference(x, s, bias),
+               library, leaves, g, 20 * r * c, 8 * r * c + (16 * c if affine else 0),
+               PEAK_F32_FLOPS)
+    return rows
+
+
+def gradient_check(torch, tcfg, training, model, cpu, dev):
+    """The camera predictor's trainable gradients on the card in bf16 (the
+    kernels and their Functions) against the same weights in f32 on the CPU
+    (plain versions), on the reference check's small camera inputs and one
+    fixed cotangent of the poses, on both routes. Each tensor's relative
+    norm difference must be within GRAD_RTOL, its norm floored at
+    GRAD_FLOOR of the largest tensor's; no frozen parameter may get a
+    gradient."""
+    _, path, args = _reference_cases(torch, model)[2]
+    cot = torch.randn(1, 2, 7, generator=torch.Generator().manual_seed(12))
+    mask = training.camera_only_mask(model)
+    names = [n for n, m in mask.items() if m]
+    cpu.zero_grad(set_to_none=True)
+    (cpu.get_submodule(path)(*args).pred_pose_enc * cot).sum().backward()
+    want = {n: p.grad for n, p in cpu.named_parameters() if mask[n]}
+    floor = GRAD_FLOOR * max(g.norm().item() for g in want.values())
+    floored = sorted(n for n in names if want[n].norm().item() < floor)
+    for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
+        model.set_route(route)
+        model.zero_grad(set_to_none=True)
+        out = model.get_submodule(path)(*(a.to(dev) for a in args)).pred_pose_enc
+        (out * cot.to(dev)).sum().backward()
+        params = dict(model.named_parameters())
+        stray = [n for n, p in params.items() if not mask[n] and p.grad is not None]
+        if stray:
+            raise SmokeError(f"gradient check {route_name}: frozen parameters got gradients: "
+                             f"{stray[:4]}")
+        rel = {}
+        for n in names:
+            g = params[n].grad
+            if g is None or not torch.isfinite(g).all():
+                raise SmokeError(f"gradient check {route_name}: {n} has no finite gradient")
+            rel[n] = ((g.cpu() - want[n]).norm().item() / max(want[n].norm().item(), floor))
+        worst = sorted(rel.items(), key=lambda kv: -kv[1])
+        print(f"gradient check, {route_name} route: {len(names)} trainable tensors, "
+              f"|card bf16 - CPU f32| / |CPU f32| largest {worst[0][1]:.3e} ({worst[0][0]}), "
+              f"then {worst[1][1]:.3e}, {worst[2][1]:.3e}; median "
+              f"{statistics.median(rel.values()):.3e} (limit {GRAD_RTOL}; {len(floored)} tensors "
+              f"held at the floor {floor:.3e}: {floored})", flush=True)
+        if not worst[0][1] <= GRAD_RTOL:
+            raise SmokeError(f"gradient check {route_name}: {worst[0][0]} differs by "
+                             f"{worst[0][1]} > {GRAD_RTOL}")
+    model.zero_grad(set_to_none=True)
+    model.set_route(tcfg.KernelRoute())
+
+
+def _count_backwards(autograd, counts):
+    """Count each Function backward by kernel and shape (K1: B, Lq, Lk, C;
+    K5: rows, C, affine) into ``counts``; returns the undo."""
+    backward = autograd.PlainBackward.backward
+
+    def counted(ctx, grad):
+        x, *rest = ctx.saved_tensors
+        kind = ctx.plain.__qualname__.split(".")[0]
+        if kind == "fused_attention":
+            counts[("K1", *x.shape[:2], rest[0].shape[1], x.shape[2])] += 1
+        elif kind == "fused_layer_norm":
+            counts[("K5", x.numel() // x.shape[-1], x.shape[-1], rest[0] is not None)] += 1
+        else:
+            counts[(kind,)] += 1
+        return backward(ctx, grad)
+
+    autograd.PlainBackward.backward = staticmethod(counted)
+    return lambda: setattr(autograd.PlainBackward, "backward", staticmethod(backward))
+
+
+def _want_backwards(route_name):
+    """The Function backwards of one train step on a route: K1 at the
+    camera's shapes, and on FUSED_ROUTE K5 at the camera's norms."""
+    calls = -2 if route_name == "default" else -1
+    want = {("K1", *r[1:5]): r[calls] for r in K1_SHAPES if r[0] in K1_TRAIN}
+    if route_name == "fused":
+        want.update({("K5", r, c, affine): n for where, r, c, affine, n in K5_SHAPES
+                     if where in K5_TRAIN})
+    return want
+
+
+def train_phase(torch, np, tcfg, geom, training, autograd, bench_lib, cfg, model, counters,
+                dev, smi):
+    """TRAIN_STEPS train steps of the full-width model per route, with the
+    checks of the module's docstring, the parts of a step timed between CUDA
+    events, one profiled step for the device's idle share, then
+    run_train_benchmark per route."""
+    s = cfg.seqlen
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(1, s, 4)).astype(np.float32)
+    t_uvz = (rng.normal(size=(1, s, 3)) * 40 + [320.0, 240.0, 0.0]).astype(np.float32)
+    t_uvz[..., 2] = np.abs(t_uvz[..., 2]) + 3.0
+    gt = geom.CameraSet(*(torch.as_tensor(f, device=dev)[None] for f in geom.make_camera_set(
+        torch.from_numpy(q[0] / np.linalg.norm(q[0], axis=-1, keepdims=True)),
+        torch.from_numpy(rng.normal(size=(s, 3)).astype(np.float32)),
+        t_uvz=torch.from_numpy(t_uvz[0]), ratio=0.9)))
+    mask = training.camera_only_mask(model)
+    results = {}
+    for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
+        model.set_route(route)
+        optimizer, scheduler = training.build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+        step = training.build_train_step(model, cfg, optimizer, scheduler)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        requests = [_request(torch, cfg, 200 + i, dev) for i in range(TRAIN_STEPS)]
+        backwards = Counter()
+        undo = _count_backwards(autograd, backwards)
+        times, parts, losses = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _reset(counters)
+            for i, (images, queries) in enumerate(requests):
+                launched, counted = _launches(counters), Counter(backwards)
+                events = {"start": torch.cuda.Event(enable_timing=True)}
+
+                def mark(name, events=events):
+                    events[name] = torch.cuda.Event(enable_timing=True)
+                    events[name].record()
+
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                events["start"].record()
+                aux = step(images, queries, gt, mark=mark)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                parts.append({k: events[a].elapsed_time(events[k]) for a, k in
+                              (("start", "forward"), ("forward", "backward"),
+                               ("backward", "optimizer"))})
+                losses.append(aux["loss"].item())
+                launches = {k: v - launched[k] for k, v in _launches(counters).items()}
+                bwd = dict(backwards - counted)
+                print(f"train, {route_name} route, step {i}: loss {losses[-1]:.4f}, "
+                      f"{times[-1]:.1f} ms (forward {parts[-1]['forward']:.1f}, backward "
+                      f"{parts[-1]['backward']:.1f}, optimizer {parts[-1]['optimizer']:.1f} ms "
+                      f"between events), launches {launches}, Function backwards "
+                      f"{sum(bwd.values())}", flush=True)
+                if not math.isfinite(losses[-1]):
+                    raise SmokeError(f"train {route_name} step {i}: loss {losses[-1]}")
+                if launches != PER_FORWARD[route_name]:
+                    raise SmokeError(f"train {route_name} step {i}: launches {launches}, want "
+                                     f"{PER_FORWARD[route_name]}")
+                if bwd != _want_backwards(route_name):
+                    raise SmokeError(f"train {route_name} step {i}: Function backwards {bwd}, "
+                                     f"want {_want_backwards(route_name)}")
+        finally:
+            undo()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        unchanged = [n for n, p in model.named_parameters() if mask[n] and torch.equal(p, before[n])]
+        moved = [n for n, p in model.named_parameters()
+                 if not mask[n] and not torch.equal(p, before[n])]
+        if unchanged or moved:
+            raise SmokeError(f"train {route_name}: trainable tensors unchanged {unchanged[:4]}, "
+                             f"frozen tensors changed {moved[:4]}")
+        med = statistics.median(times[1:])
+        split = {k: statistics.median(p[k] for p in parts[1:]) for k in parts[0]}
+        idle = _profile_step(torch, step, requests[0], gt, med)
+        print(f"train, {route_name} route: {TRAIN_STEPS} steps, losses finite, every trainable "
+              f"tensor moved and every frozen one bitwise unchanged; median of steps 2-"
+              f"{TRAIN_STEPS} {med:.1f} ms (forward {split['forward']:.1f}, backward "
+              f"{split['backward']:.1f}, optimizer {split['optimizer']:.1f}), K1 launches per "
+              f"step {PER_FORWARD[route_name]['K1']}, peak memory {peak:.2f} GiB, idle share "
+              f"{idle['idle']:.2f} (device {idle['device_ms']:.1f} ms in {idle['launches']} "
+              f"launches), on {smi}", flush=True)
+        results[route_name] = dict(times=times, median_ms=med, parts=split, peak_gib=peak,
+                                   backwards=dict(backwards), **idle)
+    model.set_route(tcfg.KernelRoute())
+    for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
+        _reset(counters)
+        bench = bench_lib.run_train_benchmark(cfg, route=route)
+        used = _launches(counters)
+        print(f"train bench, {route_name} route: run_train_benchmark launches {used}, on {smi}",
+              flush=True)
+        print(json.dumps(bench), flush=True)
+        if any(used[k] == 0 for k, n in PER_FORWARD[route_name].items() if n):
+            raise SmokeError(f"run_train_benchmark {route_name}: a kernel never ran: {used}")
+        if not (bench["value"] > 0 and bench["device_ms_per_step"] > 0):
+            raise SmokeError(f"run_train_benchmark {route_name}: {bench}")
+        results[route_name]["bench"] = bench
+    return results
+
+
+def _profile_step(torch, step, request, gt, step_ms):
+    """torch.profiler over one warm train step: its device time and the
+    device's idle share of the median step."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(*request, gt)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return dict(device_ms=device_ms, launches=sum(e.count for e in kernels),
+                idle=1 - device_ms / step_ms)
+
+
 # the port's kernel names in the profiler's table (namespace comet::), by kernel
 PROFILE_KEYS = dict(K1=("attn_fwd_kernel",), K2=("attn_block_kernel",),
                     K3=("short_attn_kernel",), K4=("cross_kv_kernel", "cross_block_kernel"),
@@ -1129,8 +1447,8 @@ def main(argv=None) -> int:
         from comet_tpu_torch import bench_lib, data
         from comet_tpu_torch import config as tcfg
         from comet_tpu_torch import geometry as geom
-        from comet_tpu_torch import models
-        from comet_tpu_torch.ops import attn, block, kernels, norm
+        from comet_tpu_torch import models, training
+        from comet_tpu_torch.ops import attn, autograd, block, kernels, norm
         from comet_tpu_torch.training import loop as loop_mod
     except ImportError as exc:
         print(f"chip_smoke: the comet_tpu_torch package is not beside this script ({exc})",
@@ -1164,6 +1482,8 @@ def main(argv=None) -> int:
         checked = dict(K1=check_k1(torch, F, attn, dev, gen),
                        K1_forms=check_k1_forms(torch, F, attn, dev),
                        K2=check_k2(torch, block, dev, gen),
+                       K2_tool=check_k2(torch, block, dev,
+                                        torch.Generator(device=dev).manual_seed(9), K2_TOOL_SHAPES),
                        K3=check_k3(torch, F, attn, dev, gen, floor_ms),
                        K4=check_k4(torch, block, dev, gen),
                        K5=check_k5(torch, F, norm, dev, gen, floor_ms))
@@ -1175,7 +1495,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"build_comet('ours') on {dev} in {time.perf_counter() - t0:.1f} s, "
               f"{sum(p.numel() for p in model.parameters())} parameters", flush=True)
-        reference_check(torch, tcfg, models, model, dev, counters)
+        cpu = reference_check(torch, tcfg, models, model, dev, counters)
+        gradient_check(torch, tcfg, training, model, cpu, dev)
+        del cpu
         for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
             model.set_route(route)
             runs[route_name] = main_path(torch, cfg, model, models, geom, counters, route_name,
@@ -1186,6 +1508,9 @@ def main(argv=None) -> int:
         model.set_route(tcfg.KernelRoute())
         bench, variants, form_counts = bench_phase(torch, tcfg, bench_lib, attn, counters, smi)
         evals = eval_phase(torch, np, cfg, model, data, loop_mod, geom, counters, dev, smi)
+        backward = check_backward(torch, F, attn, norm, dev)
+        train = train_phase(torch, np, tcfg, geom, training, autograd, bench_lib, cfg, model,
+                            counters, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1225,6 +1550,28 @@ def main(argv=None) -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"], host_us=r["host_us"],
             library_host_us=None, tolerance=r["tolerance"],
         ))
+    for r in checked["K2_tool"]:
+        record.append(dict(
+            name=f"K2 {r['where']} {r['shape']}", route="cuda", source="comet_tpu_torch/csrc/block.cu",
+            replaces="tools/micro_lane_packing.py:50", launches=0, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None, host_us=r["host_us"], library_host_us=None, tolerance=r["tolerance"],
+        ))
+    for r in backward:
+        # launches: the Function's backwards at this shape in each route's train steps
+        key = (r["kernel"], *r["shape"][:4]) if r["kernel"] == "K1" else (
+            "K5", r["shape"][0], r["shape"][1], r["shape"][3])
+        by_route = {rn: t["backwards"].get(key, 0) for rn, t in train.items()}
+        record.append(dict(
+            name=f"{r['kernel']} backward {r['where']} {r['shape']}", route="cuda",
+            source="comet_tpu_torch/ops/autograd.py",
+            replaces=("comet_tpu/ops/pallas_attn.py:196" if r["kernel"] == "K1"
+                      else "comet_tpu/ops/pallas_norm.py:82"),
+            launches=sum(by_route.values()), launches_by_route=by_route,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            tolerance=r["tolerance"],
+        ))
     for route_name, run in runs.items():
         print(f"main path, {route_name} route: launches over {args.requests} requests "
               f"{run['total']} ({PER_FORWARD[route_name]} per forward); median request "
@@ -1235,6 +1582,13 @@ def main(argv=None) -> int:
     for eval_batch, e in evals.items():
         print(f"eval, eval_batch {eval_batch}: {EVAL_SEQUENCES / e['seconds']:.2f} sequences/s",
               flush=True)
+    for route_name, t in train.items():
+        print(f"train, {route_name} route: median step {t['median_ms']:.1f} ms (forward "
+              f"{t['parts']['forward']:.1f}, backward {t['parts']['backward']:.1f}, optimizer "
+              f"{t['parts']['optimizer']:.1f}), peak memory {t['peak_gib']:.2f} GiB, idle share "
+              f"{t['idle']:.2f}; run_train_benchmark {t['bench']['value']} steps/s "
+              f"({t['bench']['ms_per_step']} ms per step on the host clock, "
+              f"{t['bench']['device_ms_per_step']} between CUDA events)", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,9 +1,9 @@
-"""Throughput benchmarks: end-to-end COMET inference, eval with data, and
-K1's softmax forms.
+"""Throughput benchmarks: end-to-end COMET inference, the train step, eval
+with data, and K1's softmax forms.
 
 Counterpart of ``comet_tpu/bench_lib.py`` (``run_benchmark``,
-``run_eval_data_benchmark``) and of ``tools/micro_softmax_variants.py``
-(``run_softmax_variants``); ``run_train_benchmark`` comes with training.
+``run_train_benchmark``, ``run_eval_data_benchmark``) and of
+``tools/micro_softmax_variants.py`` (``run_softmax_variants``).
 Every function runs on the card unless ``device="cpu"`` is passed, and then
 it times the host: its numbers are no device metric.
 
@@ -117,6 +117,75 @@ def run_benchmark(
     }
     if device.type == "cuda":
         out["device_ms_per_sequence"] = round(
+            1000.0 * statistics.median(t.device_s for t in batches) / reps, 2)
+    return out
+
+
+def run_train_benchmark(
+    cfg: Optional[CometConfig] = None, warmup: int = 2, reps: int = 8, seed: int = 0,
+    route: KernelRoute = KernelRoute(), device=None,
+) -> Dict:
+    """Train-step throughput (forward, backward, clip and AdamW) of the full
+    model at batch 1, steps/s.
+
+    The model keeps f32 master parameters and computes in ``cfg.dtype``
+    (bf16), with the optimizer of ``training.build_optimizer`` (lr
+    ``cfg.train.lr``, 100 steps per epoch). Queries and gt cameras are drawn
+    once and each rep's images afresh on the card, all from one
+    ``torch.Generator``; a batch of ``reps`` steps is timed on the host
+    clock and between CUDA events, and the median of 3 timed batches is
+    kept. ``route`` picks the kernels (``config.KernelRoute``)."""
+    from .geometry.cameras import CameraSet
+    from .training.loop import build_train_step
+    from .training.optim import build_optimizer
+
+    device = resolve_device(device, "run_train_benchmark")
+    cfg = cfg or get_config("ours")
+    model = build_comet(cfg, device=device, seed=seed, route=route)
+    optimizer, scheduler = build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+    step = build_train_step(model, cfg, optimizer, scheduler)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    s, hw = cfg.seqlen, cfg.img_size
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    queries = torch.rand((1, cfg.track_num, 2), generator=gen, device=device) * (hw - 64) + 32
+    q = draw(1, s, 4)
+    t_uvz = draw(1, s, 3)
+    t_uvz[..., 2] = 3.0
+    gt = CameraSet(q=q / q.norm(dim=-1, keepdim=True), t_xyz=draw(1, s, 3), t_uvz=t_uvz,
+                   focal=torch.full((1, s, 2), 1745.0, device=device),
+                   pp=torch.full((1, s, 2), hw / 2.0, device=device),
+                   ratio=torch.full((1,), 0.5, device=device))
+
+    def run_many(n):
+        acc = torch.zeros((), device=device)
+        for _ in range(n):
+            acc += step(draw(1, s, hw, hw, 3), queries, gt)["loss"]
+        return float(acc)
+
+    for _ in range(warmup):
+        run_many(reps)
+    batches = []
+    for _ in range(3):
+        with _Timer(device) as t:
+            checksum = run_many(reps)
+        batches.append(t)
+    if not math.isfinite(checksum):
+        raise RuntimeError("run_train_benchmark: the losses are not finite")
+    host_s = statistics.median(t.host_s for t in batches)
+    out = {
+        "metric": f"train steps/sec/chip (seqlen={cfg.seqlen}, {cfg.img_size}px, "
+                  f"N={cfg.track_num}, batch=1)",
+        "value": round(reps / host_s, 4),
+        "unit": "steps/s",
+        "ms_per_step": round(1000.0 * host_s / reps, 2),
+        "device": _device_name(device),
+        "device_ms_per_step": None,
+    }
+    if device.type == "cuda":
+        out["device_ms_per_step"] = round(
             1000.0 * statistics.median(t.device_s for t in batches) / reps, 2)
     return out
 

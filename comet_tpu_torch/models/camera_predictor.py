@@ -11,6 +11,7 @@ are config flags. Reference quirks kept on purpose:
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -73,10 +74,12 @@ class CameraPredictor(nn.Module):
         backbone_dim: int = 768,
         backbone_heads: int = 12,
         dtype=torch.float32,
+        freeze_backbone: bool = True,
     ):
         super().__init__()
         c = hidden_size
         self.hidden_size, self.down_size, self.compute_dtype = c, down_size, dtype
+        self.freeze_backbone = freeze_backbone
         self.use_trajectory, self.use_time, self.use_gapr = use_trajectory, use_time, use_gapr
 
         def blocks(cls, depth):
@@ -147,7 +150,9 @@ class CameraPredictor(nn.Module):
         return CameraPredictions(pred_pose_enc=pred, pre_head_feat=rgb_feat)
 
     def _image_features(self, images: torch.Tensor) -> torch.Tensor:
-        """Frozen ViT tokens, then pose-token aggregation: per-frame
+        """ViT tokens (frozen under ``freeze_backbone``: no graph is
+        recorded through the ViT, JAX's ``stop_gradient``), then pose-token
+        aggregation: per-frame
         self-attention and cross-attention of frames 1.. to frame 0."""
         b, s, h, w, _ = images.shape
         c, dt = self.hidden_size, self.compute_dtype
@@ -157,7 +162,9 @@ class CameraPredictor(nn.Module):
         std = x.new_tensor(_RESNET_STD)
         x = (x - mean) / std  # second normalization, as in the reference
 
-        tokens = self.norm2(self.input_transform(self.backbone(x.to(dt))))  # [B*S, P, C]
+        with torch.no_grad() if self.freeze_backbone else contextlib.nullcontext():
+            tokens = self.backbone(x.to(dt))  # [B*S, P, backbone_dim]
+        tokens = self.norm2(self.input_transform(tokens))  # [B*S, P, C]
         p = tokens.shape[1]
         grid = int(round(p ** 0.5))
         pos = sincos_2d_pos_embed(c, (grid, grid), images.device).to(tokens.dtype)

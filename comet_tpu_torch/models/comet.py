@@ -2,11 +2,14 @@
 
 Counterpart of ``comet_tpu/models/comet.py`` (``COMET``, ``encode_gt``,
 ``decode_predictions``, ``pose_loss``). The tracker branch serves the
-camera predictor and is frozen; this module is an inference path.
+camera predictor; under ``cfg.freeze_track`` (every preset) it runs under
+``torch.no_grad()``, the counterpart of JAX's ``stop_gradient`` on its
+outputs, so a train step records no graph through it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -78,52 +81,59 @@ class COMET(nn.Module):
         images: torch.Tensor,  # [B, S, H, W, 3] ImageNet-normalized
         queries: torch.Tensor,  # [B, N, 2] frame-0 query points (pixels)
     ) -> Dict[str, torch.Tensor]:
-        cfg, tc, dtype = self.cfg, self.cfg.tracker, self.cfg.dtype
-        b, s, h, w, _ = images.shape
+        cfg = self.cfg
         out: Dict[str, torch.Tensor] = {}
         pred_track = track_confidence = None
 
         if cfg.enable_track:
-            imgs_flat = images.reshape(b * s, h, w, 3)
-            if tc.coarse_down_ratio > 1:
-                imgs_flat = resize_bilinear_align_corners(
-                    imgs_flat, h // tc.coarse_down_ratio, w // tc.coarse_down_ratio
-                )
-            fmaps = self.coarse_fnet(imgs_flat.to(dtype))
-            fmaps = fmaps.reshape(b, s, *fmaps.shape[1:])
-            coarse_out = self.coarse_tracker(
-                queries, fmaps, iters=tc.coarse_iters, down_ratio=tc.coarse_down_ratio
-            )
-            coarse_pred = coarse_out.coord_preds[-1]  # [B, S, N, 2]
-
-            if cfg.fine_tracker:
-                refined, score = refine_track(
-                    images.to(dtype),
-                    self.fine_fnet,
-                    lambda q, f, iters: self.fine_tracker(q, f, iters=iters),
-                    coarse_pred,
-                    pradius=tc.fine_pradius,
-                    sradius=tc.fine_sradius,
-                    compute_score=True,
-                    iters=tc.fine_iters,
-                )
-                # confidence = normalized inverse heatmap std
-                inv = 1.0 / (score + 1e-6)
-                track_confidence = inv / inv.amax(dim=1, keepdim=True)
-            else:
-                refined = coarse_pred
-                track_confidence = torch.ones_like(coarse_out.vis)
-            pred_track = refined
-            out["coarse_track"] = coarse_pred
-            out["pred_track"] = pred_track
-            out["track_score"] = track_confidence
-            if coarse_out.vis is not None:
-                out["track_vis"] = coarse_out.vis
+            with torch.no_grad() if cfg.freeze_track else contextlib.nullcontext():
+                pred_track, track_confidence = self._track(images, queries, out)
 
         if cfg.enable_pose:
             preds = self.camera_predictor(images, pred_track, track_confidence)
             out["pred_pose_enc"] = preds.pred_pose_enc  # [B, S, 7]
         return out
+
+    def _track(self, images, queries, out):
+        """The coarse and fine trackers: (tracks, confidence), and their
+        other outputs into ``out``."""
+        cfg, tc, dtype = self.cfg, self.cfg.tracker, self.cfg.dtype
+        b, s, h, w, _ = images.shape
+        imgs_flat = images.reshape(b * s, h, w, 3)
+        if tc.coarse_down_ratio > 1:
+            imgs_flat = resize_bilinear_align_corners(
+                imgs_flat, h // tc.coarse_down_ratio, w // tc.coarse_down_ratio
+            )
+        fmaps = self.coarse_fnet(imgs_flat.to(dtype))
+        fmaps = fmaps.reshape(b, s, *fmaps.shape[1:])
+        coarse_out = self.coarse_tracker(
+            queries, fmaps, iters=tc.coarse_iters, down_ratio=tc.coarse_down_ratio
+        )
+        coarse_pred = coarse_out.coord_preds[-1]  # [B, S, N, 2]
+
+        if cfg.fine_tracker:
+            refined, score = refine_track(
+                images.to(dtype),
+                self.fine_fnet,
+                lambda q, f, iters: self.fine_tracker(q, f, iters=iters),
+                coarse_pred,
+                pradius=tc.fine_pradius,
+                sradius=tc.fine_sradius,
+                compute_score=True,
+                iters=tc.fine_iters,
+            )
+            # confidence = normalized inverse heatmap std
+            inv = 1.0 / (score + 1e-6)
+            track_confidence = inv / inv.amax(dim=1, keepdim=True)
+        else:
+            refined = coarse_pred
+            track_confidence = torch.ones_like(coarse_out.vis)
+        out["coarse_track"] = coarse_pred.detach()
+        out["pred_track"] = refined
+        out["track_score"] = track_confidence
+        if coarse_out.vis is not None:
+            out["track_vis"] = coarse_out.vis.detach()
+        return refined, track_confidence
 
 
 def build_comet(

@@ -104,6 +104,7 @@ class BaseTracker(nn.Module):
 
         coord_preds = []
         for _ in range(iters):
+            coords = coords.detach()  # each iteration's gradient stops here, as in JAX
             fcorrs = corr_volume_pyramid_sample(
                 fmaps, coords, track_feats, self.corr_radius, self.corr_levels,
                 out_size=(hh, ww) if self.corr_size is not None else None,

@@ -6,7 +6,9 @@ sequences (Lq <= 64, Lk <= 64 and B*Lq >= 256, the JAX packed regime) to
 K3, :func:`short_attention` (``csrc/short_attn.cu``), and every other call
 to K1 (``csrc/attn.cu``), including the shapes the JAX package sends to its
 reference. On a CPU tensor both run :func:`attention_reference`, the plain
-PyTorch version of the same function.
+PyTorch version of the same function. Both are differentiable: the
+gradient is the plain version's, recomputed from the saved inputs
+(``ops/autograd.py``), as the JAX package's ``custom_vjp`` does.
 
 ``fused_attention(..., softmax=form)`` computes one of the two inexact A/B
 softmax forms of ``tools/micro_softmax_variants.py`` (``nomax``: the
@@ -24,6 +26,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import kernels
+from .autograd import plain_backward
 
 SUPPORTED_HEAD_DIMS = (32, 48, 64, 96)
 # the softmax forms of fused_attention: K1's own, then the A/B forms (their
@@ -242,14 +245,19 @@ def short_attention(
 ) -> torch.Tensor:
     """K3: :func:`fused_attention` for Lq, Lk <= 64, each (sequence, head)
     computed directly by one warp per 16 query rows. Same arguments and
-    result. ``plan``, for tests and measurement: launch with this plan
-    instead of :func:`short_plan`'s."""
-    b, lq, c = q.shape
-    lk = k.shape[1]
+    result, differentiable through the plain version. ``plan``, for tests
+    and measurement: launch with this plan instead of :func:`short_plan`'s."""
+    c = q.shape[2]
     if scale is None:
         scale = 1.0 / (c // num_heads) ** 0.5
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, num_heads, scale)
+    return plain_backward(lambda q, k, v: _short_launch(q, k, v, num_heads, scale, plan),
+                          lambda q, k, v: attention_reference(q, k, v, num_heads, scale),
+                          q, k, v)
+
+
+def _short_launch(q, k, v, num_heads: int, scale: float, plan: Optional[ShortPlan]):
+    b, lq, c = q.shape
+    lk = k.shape[1]
     if lq > SHORT_MAX_LEN or lk > SHORT_MAX_LEN:
         raise ValueError(f"short_attention: Lq {lq} and Lk {lk} must be <= {SHORT_MAX_LEN}")
     out = _launch("comet_short_attn_fwd", q, k, v, num_heads, scale,
@@ -279,17 +287,26 @@ def fused_attention(
     (:func:`attention_form_reference`), which run on K1's instances for
     them at every shape, at head dimensions 64 and 96;
     ``fused_attention.form_launches`` counts those by (form, B, Lq, Lk, C,
-    heads).
+    heads). The gradient is the plain version's (of the form), recomputed
+    from the saved inputs, as the JAX package's ``_fa_bwd``.
     """
     b, lq, c = q.shape
     lk = k.shape[1]
     if scale is None:
         scale = 1.0 / (c // num_heads) ** 0.5
+    if softmax not in SOFTMAX_FORMS:
+        raise ValueError(f"attention: softmax form {softmax!r} not in {SOFTMAX_FORMS}")
+    if softmax == "base" and is_short(b, lq, lk):
+        return short_attention(q, k, v, num_heads, scale)
+    return plain_backward(
+        lambda q, k, v: _k1_launch(q, k, v, num_heads, scale, softmax),
+        lambda q, k, v: attention_form_reference(q, k, v, num_heads, scale, softmax), q, k, v)
+
+
+def _k1_launch(q, k, v, num_heads: int, scale: float, softmax: str):
+    b, lq, c = q.shape
+    lk = k.shape[1]
     if softmax != "base":
-        if softmax not in SOFTMAX_FORMS:
-            raise ValueError(f"attention: softmax form {softmax!r} not in {SOFTMAX_FORMS}")
-        if q.device.type == "cpu":
-            return attention_form_reference(q, k, v, num_heads, scale, softmax)
         if c % num_heads or c // num_heads not in FORM_HEAD_DIMS:
             raise ValueError(f"attention: softmax form {softmax!r} is built for head dims "
                              f"{FORM_HEAD_DIMS}, not {c / num_heads}")
@@ -298,10 +315,6 @@ def fused_attention(
         if out.numel():
             fused_attention.form_launches[(softmax, b, lq, lk, c, num_heads)] += 1
         return out
-    if is_short(b, lq, lk):
-        return short_attention(q, k, v, num_heads, scale)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, num_heads, scale)
     out = _launch("comet_attn_fwd", q, k, v, num_heads, scale)
     if out.numel():
         fused_attention.launches += 1

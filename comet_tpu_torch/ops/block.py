@@ -6,7 +6,9 @@ Counterparts of ``comet_tpu/ops/pallas_block.py::fused_attn_block`` and
 kernel (``csrc/block.cu``, ``csrc/cross_block.cu``) or raises; on a CPU
 tensor it runs :func:`block_reference` or :func:`cross_block_reference`, the
 plain PyTorch versions with the kernels' rounding points. Weights are in the
-port's [out, in] layout.
+port's [out, in] layout. The gradient is the plain version's, recomputed
+from the saved inputs (``ops/autograd.py``), as ``pallas_block.py::_fb_bwd``
+and ``_cb_bwd``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from . import kernels
 from .attn import attention_reference
+from .autograd import plain_backward
 
 # (C, num_heads) K2 and K4 are compiled for: the coarse (384, 8) and fine
 # (256, 8) update-former widths.
@@ -166,8 +169,12 @@ def fused_attn_block(
     that receives where the kernel's first CTA spends its cycles, from a
     separately compiled timed instance of the kernel (the layout is
     ``comet_attn_block_fwd``'s in ``csrc/block.cu``)."""
-    if x.device.type == "cpu":
-        return block_reference(x, wqkv, bqkv, wout, bout, w1, b1, w2, b2, num_heads)
+    return plain_backward(lambda *args: _block_launch(*args, num_heads, clocks),
+                          lambda *args: block_reference(*args, num_heads),
+                          x, wqkv, bqkv, wout, bout, w1, b1, w2, b2)
+
+
+def _block_launch(x, wqkv, bqkv, wout, bout, w1, b1, w2, b2, num_heads: int, clocks):
     b, l, c = x.shape
     hidden = w1.shape[0]
     if (c, num_heads) not in SUPPORTED_WIDTHS:
@@ -255,9 +262,13 @@ def fused_cross_block(
     receives where the kernel's first CTAs spend their cycles, from
     separately compiled timed instances (the layout is
     ``comet_cross_block_fwd``'s in ``csrc/cross_block.cu``)."""
-    args = (x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return cross_block_reference(*args, num_heads)
+    return plain_backward(lambda *args: _cross_launch(args, num_heads, split, clocks),
+                          lambda *args: cross_block_reference(*args, num_heads),
+                          x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2)
+
+
+def _cross_launch(args, num_heads: int, split: Optional[int], clocks):
+    x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2 = args
     b, lq, c = x.shape
     lk = ctx.shape[1]
     hidden = w1.shape[0]

@@ -3,7 +3,8 @@
 Counterpart of ``comet_tpu/ops/pallas_norm.py::fused_layer_norm``. On a
 CUDA tensor every call launches the hand-written kernel ``csrc/norm.cu``; on
 a CPU tensor it runs :func:`layer_norm_reference`, the plain PyTorch version
-of the same function.
+of the same function. The gradient is the plain version's, recomputed from
+the saved inputs (``ops/autograd.py``), as ``pallas_norm.py::_ln_bwd``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import kernels
+from .autograd import plain_backward
 
 MAX_WIDTH = 1024
 # K5 as compiled: CTAs of 256 threads, at most 8 16-byte vectors a lane
@@ -109,8 +111,11 @@ def fused_layer_norm(
     tensor of x's shape and dtype."""
     if (scale is None) != (bias is None):
         raise ValueError("fused_layer_norm: give scale and bias together, or neither")
-    if x.device.type == "cpu":
-        return layer_norm_reference(x, scale, bias, eps)
+    return plain_backward(lambda x, s, b: _launch(x, s, b, eps),
+                          lambda x, s, b: layer_norm_reference(x, s, b, eps), x, scale, bias)
+
+
+def _launch(x, scale, bias, eps: float) -> torch.Tensor:
     c = x.shape[-1]
     kind = _DTYPES.get(x.dtype)
     if kind is None:

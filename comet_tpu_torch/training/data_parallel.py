@@ -1,9 +1,10 @@
-"""Batched eval on one device: stacking samples, and the asynchronous metric
-fetch.
+"""Batched train and eval on one device: stacking samples, the train epoch,
+and the asynchronous metric fetch.
 
-Counterpart of the eval half of ``comet_tpu/training/data_parallel.py``
+Counterpart of ``comet_tpu/training/data_parallel.py``
 (``stack_camera_sets``, ``build_batch``, ``start_metric_fetch``,
-``batch_metrics``). The mesh helpers come with the distributed slice.
+``batch_metrics``, ``fit_epoch``, ``process_local_order``). The mesh
+helpers come with the distributed slice.
 
 The metric fetch is asynchronous: :func:`start_metric_fetch` queues the
 copies of the few tensors the metric block reads into pinned host buffers
@@ -14,13 +15,14 @@ waits on that event only, not on the whole device.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.datasets import SequenceSample
 from ..data.device_pipeline import wait_ready
+from ..device import resolve_device
 from ..geometry.cameras import CameraSet
 from .loop import METRIC_FETCH_KEYS, make_gt_cameras, metric_block
 
@@ -109,3 +111,60 @@ def batch_metrics(
         name = seq_names[b] if seq_names else ""
         rows.append(metric_block(sample_out, gt, name))
     return rows
+
+
+def fit_epoch(
+    train_step: Callable,
+    dataset,
+    seed_fn: Callable[[SequenceSample], np.ndarray],
+    batch_size: int,
+    order: np.ndarray,
+    device=None,
+    mesh=None,
+    on_metrics: Optional[Callable[[int, List[Dict[str, float]]], None]] = None,
+) -> int:
+    """One epoch of ``train_step`` (:func:`~.loop.build_train_step`'s) over
+    full batches of ``order`` (this process's sample order; the remainder
+    is dropped); returns the number of steps. The model and optimizer hold
+    the state. Samples are loaded and seeded on a prefetch thread; step i's
+    metrics are copied to the host as it is issued and handed to
+    ``on_metrics(i, rows)`` after step i + 1 has been issued, so the copies
+    and the float64 metric block hide behind the card's work. ``mesh``
+    (sharded training) comes with the distributed slice and raises."""
+    from ..data.prefetch import prefetch
+
+    if mesh is not None:
+        raise NotImplementedError("fit_epoch: the mesh path comes with the distributed slice "
+                                  "(ROADMAP Queue 1 item 5)")
+    device = resolve_device(device, "fit_epoch")
+    n_steps = len(order) // batch_size
+
+    def produce(i: int):
+        samples = [dataset[int(j)] for j in order[i * batch_size:(i + 1) * batch_size]]
+        return samples, [seed_fn(s) for s in samples]
+
+    pending = None  # (step, metric fetch, gt) awaiting the metric block
+    for i, (samples, queries) in enumerate(prefetch(produce, n_steps)):
+        images, q, gt_b, gt_list = build_batch(samples, queries, device)
+        aux = train_step(images, q, gt_b)
+        if on_metrics is None:
+            continue
+        fetch = start_metric_fetch(aux)
+        if pending is not None:
+            on_metrics(pending[0], batch_metrics(*pending[1:]))
+        pending = (i, fetch, gt_list)
+    if pending is not None:
+        on_metrics(pending[0], batch_metrics(*pending[1:]))
+    return n_steps
+
+
+def process_local_order(rng: np.random.Generator, n: int, shuffle: bool = True) -> np.ndarray:
+    """This process's stride over a shuffled epoch order (the deterministic
+    DistributedSampler): process r of w sees ``order[r::w]``, from the
+    ``torch.distributed`` group when one is initialized (else 0 of 1).
+    Every process draws from an identically seeded ``rng``, so the global
+    permutation agrees."""
+    order = rng.permutation(n) if shuffle else np.arange(n)
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return order[torch.distributed.get_rank()::torch.distributed.get_world_size()]
+    return order

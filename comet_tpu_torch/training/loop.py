@@ -1,17 +1,18 @@
-"""Eval loop: the eval step on the card and the host-side float64 metric block.
+"""Train and eval steps on the card, and the host-side float64 metric block.
 
-Counterpart of the eval half of ``comet_tpu/training/loop.py``
-(``make_gt_cameras``, ``build_eval_step``, ``METRIC_FETCH_KEYS``,
+Counterpart of ``comet_tpu/training/loop.py`` (``make_gt_cameras``,
+``build_eval_step``, ``build_train_step``, ``METRIC_FETCH_KEYS``,
 ``metric_block``, ``evaluate``), itself the reference's train_or_eval_fn
 (comet/models/train_eval_func_new_cp5.py:514-823) split into a device step
 and a host loop that computes the float64 metric block (the reference's
-autocast-double section :632-675) and accumulates per-scene AUC. The train
-step comes with training, the mesh path with the distributed slice.
+autocast-double section :632-675) and accumulates per-scene AUC. The
+windowed train step comes with the windowed slice, the mesh path with the
+distributed slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -75,6 +76,44 @@ def eval_step(model: COMET, cfg: CometConfig, images: torch.Tensor, queries: tor
         "track_score": out.get("track_score"),
         **losses,
     }
+
+
+def build_train_step(model: COMET, cfg: CometConfig, optimizer: torch.optim.Optimizer,
+                     scheduler) -> Callable:
+    """The train step (``build_train_step``'s): forward, ``encode_gt``,
+    ``pose_loss``, backward, then the optimizer (``training.optim``: the
+    global-norm clip and AdamW over the camera parameters) and the
+    scheduler. The model's parameters are the f32 master copy and it
+    computes in ``cfg.dtype`` (bf16 in every preset), as JAX's
+    ``run_train_benchmark`` trains.
+
+    ``step(images, queries, gt_cams)`` returns JAX's aux keys
+    (``pred_pose_enc``, ``gt_pose_enc``, ``pred_q``, ``pred_t``, ``loss``,
+    ``loss_trans``, ``loss_rot``), detached; it does not synchronize.
+    ``step(..., mark=f)``, for measurement: ``f`` is called with "forward",
+    "backward" and "optimizer" as each part of the step has been issued."""
+
+    def step(images: torch.Tensor, queries: torch.Tensor, gt_cams: CameraSet,
+             mark: Callable[[str], None] = lambda name: None) -> Dict[str, torch.Tensor]:
+        gt_cams = cameras_to(gt_cams, images.device)
+        optimizer.zero_grad(set_to_none=True)
+        out = model(images, queries)
+        gt_enc = encode_gt(cfg, gt_cams)
+        gt_enc_b = gt_enc if gt_enc.dim() == 3 else gt_enc[None]
+        losses = pose_loss(cfg, out["pred_pose_enc"], gt_enc_b)
+        mark("forward")
+        losses["loss"].backward()
+        mark("backward")
+        optimizer.step()
+        scheduler.step()
+        mark("optimizer")
+        pred = out["pred_pose_enc"].detach()
+        with torch.no_grad():
+            q_abs, t_abs = decode_predictions(cfg, pred, gt_cams)
+        return {"pred_pose_enc": pred, "gt_pose_enc": gt_enc, "pred_q": q_abs, "pred_t": t_abs,
+                **{k: v.detach() for k, v in losses.items()}}
+
+    return step
 
 
 # The only step-output keys metric_block reads: data_parallel's

@@ -17,6 +17,10 @@ same bf16 inputs, with the forms' casts, at K1's atol 3e-2 plus one bf16
 step of the output (2^-7 |y|: the kernel rounds the weights at other points,
 and at Lk 1 moves an output of |y| >= 4 by one step, 0.03125); the
 preprocessing on the card to its CPU run at 1e-5 (f32 products, no TF32).
+Each kernel wrapper's gradient (its autograd Function, whose backward
+recomputes through the plain version) equals the plain version's autograd on
+the same bf16 inputs bit for bit, and one full-width train step per route
+trains the camera predictor alone.
 """
 
 import ctypes
@@ -506,3 +510,95 @@ def test_gelu_tanh_matches_the_exact_tanh_form(cuda_device, tmp_path):
     worst = int((err / exact.abs().clamp_min(1e-300)).argmax())
     assert (err <= 2.0 ** -8 * exact.abs()).all(), (
         f"x {x[worst].item()}: {y[worst].item()} against {exact[worst].item()}")
+
+
+def _function_cases(g, dev):
+    """(kernel, wrapper call, plain call, leaves, cotangent) in bf16 on the card."""
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).bfloat16().requires_grad_()
+
+    cases = []
+    for b, lq, lk, c, h in [(16, 577, 577, 768, 8), (1, 300, 577, 768, 8), (16, 1, 512, 768, 8),
+                            (1, 16, 16, 768, 8), (64, 16, 16, 384, 8)]:
+        q, k, v = rnd(b, lq, c), rnd(b, lk, c), rnd(b, lk, c)
+        cases.append(("K3" if lq <= 64 and lk <= 64 and b * lq >= 256 else "K1",
+                      lambda q=q, k=k, v=v, h=h: fused_attention(q, k, v, h),
+                      lambda q=q, k=k, v=v, h=h, c=c: attention_reference(q, k, v, h,
+                                                                          (c // h) ** -0.5),
+                      [q, k, v], torch.randn(b, lq, c, generator=g, device=dev).bfloat16()))
+    c, hid = 384, 1536
+    w = [rnd(3 * c, c, std=c ** -0.5), rnd(3 * c, std=0.02), rnd(c, c, std=c ** -0.5),
+         rnd(c, std=0.02), rnd(hid, c, std=c ** -0.5), rnd(hid, std=0.02),
+         rnd(c, hid, std=hid ** -0.5), rnd(c, std=0.02)]
+    x = rnd(64, 16, c)
+    cases.append(("K2", lambda: fused_attn_block(x, *w, 8), lambda: block_reference(x, *w, 8),
+                  [x, *w], torch.randn(64, 16, c, generator=g, device=dev).bfloat16()))
+    xq, ctx = rnd(16, 64, c), rnd(16, 512, c)
+    cw = [rnd(c, std=0.1), rnd(c, std=0.1), rnd(c, c, std=c ** -0.5), rnd(c, std=0.02),
+          rnd(2 * c, c, std=c ** -0.5), rnd(2 * c, std=0.02), *w[2:]]
+    cases.append(("K4", lambda: fused_cross_block(xq, ctx, *cw, 8),
+                  lambda: cross_block_reference(xq, ctx, *cw, 8), [xq, ctx, *cw],
+                  torch.randn(16, 64, c, generator=g, device=dev).bfloat16()))
+    xn = rnd(9232, 768)
+    scale = torch.randn(768, generator=g, device=dev).requires_grad_()
+    bias = torch.randn(768, generator=g, device=dev).requires_grad_()
+    gn = torch.randn(9232, 768, generator=g, device=dev).bfloat16()
+    cases.append(("K5", lambda: fused_layer_norm(xn, scale, bias),
+                  lambda: layer_norm_reference(xn, scale, bias), [xn, scale, bias], gn))
+    cases.append(("K5", lambda: fused_layer_norm(xn), lambda: layer_norm_reference(xn), [xn], gn))
+    return cases
+
+
+@pytest.mark.cuda
+def test_kernel_functions_backward_is_the_plain_versions_autograd(cuda_device):
+    """Each wrapper's output has a grad_fn, its launch is counted, and its
+    gradients equal the plain version's autograd bit for bit."""
+    counters = dict(K1=fused_attention, K2=fused_attn_block, K3=short_attention,
+                    K4=fused_cross_block, K5=fused_layer_norm)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    for kernel, call, plain, leaves, cot in _function_cases(g, cuda_device):
+        before = counters[kernel].launches
+        out = call()
+        assert out.grad_fn is not None and counters[kernel].launches == before + 1, kernel
+        got = torch.autograd.grad(out, leaves, cot)
+        want = torch.autograd.grad(plain(), leaves, cot)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["default", "fused"])
+def test_full_width_train_step(cuda_device, route):
+    """One train step of the full-width ours model: a finite loss, the
+    kernels of the route launched, only the camera predictor's trainable
+    tensors with a gradient, all of them moved, every other bitwise kept."""
+    from comet_tpu_torch.config import FUSED_ROUTE, KernelRoute, get_config
+    from comet_tpu_torch.geometry.cameras import CameraSet, make_camera_set
+    from comet_tpu_torch.models import build_comet
+    from comet_tpu_torch.training import build_optimizer, build_train_step, camera_only_mask
+
+    cfg = get_config("ours")
+    model = build_comet(cfg, device=cuda_device, seed=0,
+                        route=KernelRoute() if route == "default" else FUSED_ROUTE)
+    optimizer, scheduler = build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+    step = build_train_step(model, cfg, optimizer, scheduler)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    s, hw = cfg.seqlen, cfg.img_size
+    images = torch.randn(1, s, hw, hw, 3, generator=g, device=cuda_device)
+    queries = torch.rand(1, cfg.track_num, 2, generator=g, device=cuda_device) * (hw - 64) + 32
+    q = torch.randn(s, 4, generator=g, device=cuda_device)
+    uvz = torch.rand(s, 3, generator=g, device=cuda_device) * 100 + 3
+    gt = CameraSet(*(f[None] for f in make_camera_set(q / q.norm(dim=-1, keepdim=True),
+                                                       torch.zeros(s, 3, device=cuda_device),
+                                                       t_uvz=uvz, ratio=0.9)))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    k1 = fused_attention.launches
+    aux = step(images, queries, gt)
+    assert torch.isfinite(aux["loss"]) and fused_attention.launches > k1
+    mask = camera_only_mask(model)
+    for name, p in model.named_parameters():
+        if mask[name]:
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+            assert not torch.equal(p, before[name]), name
+        else:
+            assert p.grad is None and torch.equal(p, before[name]), name
