@@ -60,7 +60,9 @@ Phases, each of which makes the script exit nonzero when it fails:
    each route's requests and read just after, and must rise by that route's
    per-forward counts at the expected shapes;
 6. the bench: ``bench_lib.run_benchmark(get_config("ours"))`` on the
-   default route (its JSON on a line of its own), and
+   default route, whose model has its parameters cast to bf16 once (its
+   JSON on a line of its own, printed beside the main path's requests,
+   whose model keeps f32 masters cast at every use), and
    ``bench_lib.run_softmax_variants()``, printed as the TPU tool prints it;
    the counts are set to 0 before each and read after it: the forward's
    K1 and K2, and each softmax form's launches at each of the tool's shapes;
@@ -86,9 +88,40 @@ Phases, each of which makes the script exit nonzero when it fails:
    and optimizer timed between CUDA events, its peak memory, and the
    device's idle share from a profiled step; and
    ``bench_lib.run_train_benchmark`` per route (its JSON on a line of its
-   own), with the counts set to 0 before it and read after.
+   own), with the counts set to 0 before it and read after;
+9. the windowed mode (``models/windowed.py``), per route, on the model
+   cast to bf16 once: at T 16 = window_len ``windowed_forward`` equals one
+   forward (encodings within WINDOWED_ULPS ulps, tracks bit for bit, frame 0
+   the queries) and its decode; at T 48 (5 windows) the host loop and the
+   scan form ``windowed_forward_scan`` agree (tracks bit for bit, encodings
+   within WINDOWED_ULPS ulps; two forwards of one request must be bit for
+   bit equal), both finite with frame 0 the identity, and each launches
+   exactly windows x the route's per-forward counts; the host
+   synchronizations of a forward and of each form in torch's sync debug
+   mode, those inside the windows' forwards told from the form's own (the
+   scan form must have none of its own); both forms timed
+   at T 48 and 64 (5 and 7 windows); then on the f32-master model 3
+   ``build_windowed_train_step`` steps at T 32 (3 windows) without and 3
+   with teacher forcing: losses finite, launches and Function backwards 3 x
+   a step's, every tensor ``camera_only_mask`` selects moved and every
+   other bit for bit unchanged, each step split into forward, backward and
+   optimizer between CUDA events, its peak memory, and a loss on the last
+   frame (in the last window only) with a nonzero gradient on the first
+   window's encodings; and
+10. the CLI: an AMD fixture (1 train and 2 eval sequences of 32 frames) and
+   a DCA fixture (one of 48) written by ``data.fixtures`` to a temporary
+   directory, then ``cli.main`` at full width on the card: ``eval
+   --device-preprocess --eval-batch 2 --max-sequences 2``, ``demo
+   --demo-seq-len 48`` (windowed), ``train --windowed --train-seq-len 32
+   --epochs 1 --eval-interval 1 --ckpt-interval 1`` and ``bench --suite
+   infer``, each timed:
+   CSV rows finite; the demo's JSON, GLB (read back), HTML and COLMAP model
+   (read back); ``train_results.csv`` with ``tf_ratio``, ``ckpt/``,
+   ``best.pt`` and ``best.json``. Whether the reprojection video (cv2's
+   mp4 codec) was written is printed; its absence fails nothing.
 
-The line before the last holds the kernels' JSON record, and the last line
+The script prints its total time; the line before the last holds the
+kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script prints no result and exits nonzero.
 """
@@ -955,7 +988,7 @@ def main_path(torch, cfg, model, models, geom, counters, route_name, dev, n_requ
                 requests=requests)
 
 
-def bench_phase(torch, tcfg, bench_lib, attn, counters, smi):
+def bench_phase(torch, tcfg, bench_lib, attn, counters, smi, runs):
     """run_benchmark on the default route, then run_softmax_variants; the
     counts are set to 0 before each and read after it."""
     _reset(counters)
@@ -963,6 +996,11 @@ def bench_phase(torch, tcfg, bench_lib, attn, counters, smi):
     used = _launches(counters)
     print(f"bench: run_benchmark launches {used}, on {smi}", flush=True)
     print(json.dumps(result), flush=True)
+    print(f"bench: run_benchmark times a model cast to bf16 once: {result['ms_per_sequence']} ms "
+          f"per sequence on the host clock, {result['device_ms_per_sequence']} between CUDA "
+          f"events; the main path's model keeps f32 masters, cast at every use: median request "
+          f"{runs['default']['median_ms']:.1f} ms (default route), "
+          f"{runs['fused']['median_ms']:.1f} ms (FUSED_ROUTE)", flush=True)
     if used["K1"] == 0 or used["K2"] == 0:
         raise SmokeError(f"run_benchmark never launched K1 or K2: {used}")
     if not (result["value"] > 0 and result["device_ms_per_sequence"] > 0):
@@ -1372,6 +1410,390 @@ def train_phase(torch, np, tcfg, geom, training, autograd, bench_lib, cfg, model
     return results
 
 
+# phase 9: the windowed long-sequence mode. (T, windows) of the forward
+# checks and timings, and of the train steps; window_len is seqlen (16).
+WINDOWED_T = (48, 64)
+WINDOWED_TRAIN_T = 32
+# the host loop and the scan form at T 48: encodings within this many f32
+# ulps of their largest value (the scan form rewrites each window's frame 0
+# with the anchor composed with the identity,
+# ratio * ((0 / ratio + 1) * (a / ratio + 1) - 1), which need not round back
+# to the anchor a)
+WINDOWED_ULPS = 8
+FORM_NAMES = {"windowed_forward": "host loop", "windowed_forward_scan": "scan form"}
+# phase 10: the CLI's fixtures (frames per sequence)
+CLI_AMD_FRAMES, CLI_DCA_FRAMES = 32, 48
+
+
+# the text of torch's sync debug mode warning for one synchronizing call
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _window_count(windowed, total, window_len):
+    return len(windowed.window_schedule(total, window_len))
+
+
+def _sync_count(torch, form, model, *args):
+    """Host synchronizations of one call of ``form(apply, *args)``, as torch
+    counts them in its sync debug mode (one warning each), where ``apply`` is
+    the model: {"in_forwards": n, "own": n, "where": the source lines of
+    each kind}."""
+    import warnings
+
+    inside = set()
+
+    def synced(caught):  # not torch's warning that the mode is a prototype
+        return [i for i, w in enumerate(caught) if SYNC_WARNING in str(w.message)]
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def apply(images, queries):
+            before = len(caught)
+            out = model(images, queries)
+            inside.update(before + i for i in synced(caught[before:]))
+            return out
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            form(apply, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {"in_forwards": Counter(), "own": Counter()}
+    for i in synced(caught):
+        where["in_forwards" if i in inside else "own"][
+            f"{Path(caught[i].filename).name}:{caught[i].lineno}"] += 1
+    return {k: sum(v.values()) for k, v in where.items()} | {
+        "where": {k: dict(v) for k, v in where.items()}}
+
+
+def _time_call(torch, fn, reps=2):
+    """(host ms, device ms between CUDA events) of one call of fn, medians
+    over reps after a warm call."""
+    fn()
+    host, device = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.median(device)
+
+
+def windowed_phase(torch, np, tcfg, geom, models, windowed, training, autograd, serialization,
+                   cfg, model, counters, dev, smi):
+    """Phase 9: the windowed mode at full width on both routes, with the
+    checks of the module's docstring."""
+    import copy
+
+    L = cfg.seqlen
+    ratio = torch.tensor(0.9, device=dev)
+    served = serialization.cast_params_for_inference(copy.deepcopy(model), cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(300)
+    hw, n = cfg.img_size, cfg.track_num
+    longest = max(WINDOWED_T)
+    images = torch.randn(1, longest, hw, hw, 3, generator=gen, device=dev)
+    queries = torch.rand(1, n, 2, generator=gen, device=dev) * (hw - 20) + 10
+    identity = torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(8)
+    q = rng.normal(size=(L, 4)).astype(np.float32)
+    t_uvz = (rng.normal(size=(L, 3)) * 40 + [320.0, 240.0, 0.0]).astype(np.float32)
+    t_uvz[:, 2] = np.abs(t_uvz[:, 2]) + 3.0
+    cams = geom.make_camera_set(torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True)),
+                                torch.zeros(L, 3), t_uvz=torch.from_numpy(t_uvz), ratio=0.9,
+                                device=dev)
+    results = {}
+    for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
+        served.set_route(route)
+        per_forward = PER_FORWARD[route_name]
+        r = results[route_name] = {}
+        with torch.inference_mode():
+            # (a) one window of seqlen frames is the plain forward
+            one = images[:, :L]
+            direct = served(one, queries)
+            again = served(one, queries)
+            deterministic = all(torch.equal(direct[k], again[k]) for k in direct)
+            print(f"windowed, {route_name} route: two forwards of the same request are "
+                  f"{'bit for bit equal' if deterministic else 'not equal'}", flush=True)
+            if not deterministic:
+                raise SmokeError(f"windowed {route_name}: the forward is not deterministic; "
+                                 "hold the two forms to a stated tolerance with its cause")
+            enc1, trk1 = windowed.windowed_forward(served, one, queries, L, ratio)
+            d_enc = (enc1 - direct["pred_pose_enc"].float()).abs().max().item()
+            d_trk = (trk1[:, 1:] - direct["pred_track"][:, 1:].float()).abs().max().item()
+            dec_w = models.decode_predictions(cfg, enc1[0], cams)
+            dec_f = models.decode_predictions(cfg, direct["pred_pose_enc"][0].float(), cams)
+            d_dec = max((a - b).abs().max().item() for a, b in zip(dec_w, dec_f))
+            ulp = torch.finfo(torch.float32).eps * max(enc1.abs().max().item(), 1.0)
+            print(f"windowed, {route_name} route, T {L} = window_len: |windowed - forward| "
+                  f"encodings {d_enc:.3e} ({d_enc / ulp:.1f} ulps), decoded poses {d_dec:.3e}, "
+                  f"tracks of frames 1.. {d_trk:.3e}, frame 0 tracks the queries", flush=True)
+            if (not torch.equal(trk1[:, 0], queries) or d_trk != 0
+                    or d_enc > WINDOWED_ULPS * ulp):
+                raise SmokeError(f"windowed {route_name}: one window is not the forward "
+                                 f"({d_enc}, {d_trk})")
+
+            # (b) host loop and scan form, (c) launches, at T 48
+            t = WINDOWED_T[0]
+            seq = images[:, :t]
+            wins = _window_count(windowed, t, L)
+            outs = {}
+            for form in ("windowed_forward", "windowed_forward_scan"):
+                _reset(counters)
+                outs[form] = getattr(windowed, form)(served, seq, queries, L, ratio)
+                used = _launches(counters)
+                want = {k: v * wins for k, v in per_forward.items()}
+                print(f"windowed, {route_name} route, {form}, T {t} ({wins} windows): "
+                      f"launches {used}", flush=True)
+                if used != want:
+                    raise SmokeError(f"windowed {route_name} {form}: launches {used}, want {want}")
+            (enc_h, trk_h), (enc_s, trk_s) = outs.values()
+            gap = (enc_s - enc_h).abs().max().item()
+            ulp = torch.finfo(torch.float32).eps * max(enc_h.abs().max().item(), 1.0)
+            tracks_equal = torch.equal(trk_s, trk_h)
+            print(f"windowed, {route_name} route, T {t}: scan against host loop: tracks "
+                  f"{'bit for bit equal' if tracks_equal else 'differ'} (max |diff| "
+                  f"{(trk_s - trk_h).abs().max().item():.3e}), encodings max |diff| {gap:.3e} "
+                  f"= {gap / ulp:.1f} ulps of their largest (limit {WINDOWED_ULPS})", flush=True)
+            for enc, trk in outs.values():
+                if not (torch.isfinite(enc).all() and torch.isfinite(trk).all()):
+                    raise SmokeError(f"windowed {route_name}: outputs not finite")
+                if not torch.equal(enc[0, 0], identity):
+                    raise SmokeError(f"windowed {route_name}: frame 0 is not the identity")
+            if not (tracks_equal and gap <= WINDOWED_ULPS * ulp):
+                raise SmokeError(f"windowed {route_name}: scan and host loop differ: tracks "
+                                 f"equal {tracks_equal}, encodings {gap}")
+
+            # (d) host synchronizations: the scan form's own must be none; the
+            # count must see a known one first (a read of a value on the card)
+            seen = _sync_count(torch, lambda apply, x: x.sum().item(), None, one)["own"]
+            if not seen:
+                raise SmokeError(f"windowed {route_name}: the sync count saw no sync in .item()")
+            syncs = {"forward": _sync_count(torch, lambda apply, *a: apply(*a), served, one,
+                                            queries)}
+            for form in outs:
+                syncs[form] = _sync_count(torch, getattr(windowed, form), served, seq, queries,
+                                          L, ratio)
+            print(f"windowed, {route_name} route: host synchronizations per call (sync debug "
+                  f"mode): one forward {syncs['forward']}; at {wins} windows the host loop "
+                  f"{syncs['windowed_forward']}, the scan form {syncs['windowed_forward_scan']}",
+                  flush=True)
+            if syncs["windowed_forward_scan"]["own"]:
+                raise SmokeError(f"windowed {route_name}: the scan form synchronizes the host "
+                                 f"itself: {syncs['windowed_forward_scan']}")
+            r["syncs"], r["times"] = syncs, {}
+            for t in WINDOWED_T:
+                wins = _window_count(windowed, t, L)
+                for form in outs:
+                    host_ms, device_ms = _time_call(torch, lambda form=form, t=t: getattr(
+                        windowed, form)(served, images[:, :t], queries, L, ratio))
+                    r["times"][(form, t)] = (host_ms, device_ms)
+                    print(f"windowed, {route_name} route, {form}, T {t} ({wins} windows): "
+                          f"{host_ms:.1f} ms per sequence on the host clock ({host_ms / t:.2f} "
+                          f"per frame, {host_ms / wins:.1f} per window), {device_ms:.1f} between "
+                          f"CUDA events, on {smi}", flush=True)
+        r["train"] = windowed_train_steps(torch, np, tcfg, geom, windowed, training, autograd,
+                                          cfg, model, route, route_name, counters, dev, smi)
+    model.set_route(tcfg.KernelRoute())
+    del served
+    return results
+
+
+def windowed_train_steps(torch, np, tcfg, geom, windowed, training, autograd, cfg, model,
+                         route, route_name, counters, dev, smi):
+    """Phase 9 (e, f): 3 windowed train steps at T 32 without and 3 with
+    teacher forcing, with the checks of the module's docstring; then the
+    chain's gradient from a last-window frame to the first window."""
+    L, t = cfg.seqlen, WINDOWED_TRAIN_T
+    wins = _window_count(windowed, t, L)
+    model.set_route(route)
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(t, 4)).astype(np.float32)
+    t_uvz = (rng.normal(size=(t, 3)) * 40 + [320.0, 240.0, 0.0]).astype(np.float32)
+    t_uvz[:, 2] = np.abs(t_uvz[:, 2]) + 3.0
+    gt = geom.make_camera_set(torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True)),
+                              torch.from_numpy(rng.normal(size=(t, 3)).astype(np.float32)),
+                              t_uvz=torch.from_numpy(t_uvz), ratio=0.9, device=dev)
+    mask = training.camera_only_mask(model)
+    optimizer, scheduler = training.build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+    step = training.build_windowed_train_step(model, cfg, optimizer, scheduler, L)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(400)
+    backwards = Counter()
+    undo = _count_backwards(autograd, backwards)
+    want_bwd = {k: v * wins for k, v in _want_backwards(route_name).items()}
+    times, parts = [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i, tf in enumerate([False] * TRAIN_STEPS + [True] * TRAIN_STEPS):
+            images = torch.randn(1, t, cfg.img_size, cfg.img_size, 3, generator=gen, device=dev)
+            queries = (torch.rand(1, cfg.track_num, 2, generator=gen, device=dev)
+                       * (cfg.img_size - 20) + 10)
+            events = {"start": torch.cuda.Event(enable_timing=True)}
+
+            def mark(name, events=events):
+                events[name] = torch.cuda.Event(enable_timing=True)
+                events[name].record()
+
+            _reset(counters)
+            counted = Counter(backwards)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events["start"].record()
+            aux = step(images, queries, gt, teacher_force=tf, mark=mark)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            parts.append({k: events[a].elapsed_time(events[k]) for a, k in
+                          (("start", "forward"), ("forward", "backward"),
+                           ("backward", "optimizer"))})
+            loss = aux["loss"].item()
+            used, bwd = _launches(counters), dict(backwards - counted)
+            print(f"windowed train, {route_name} route, step {i} (T {t}, {wins} windows, teacher "
+                  f"forcing {tf}): loss {loss:.4f}, {times[-1]:.1f} ms (forward "
+                  f"{parts[-1]['forward']:.1f}, backward {parts[-1]['backward']:.1f}, optimizer "
+                  f"{parts[-1]['optimizer']:.1f} between events), launches {used}, Function "
+                  f"backwards {sum(bwd.values())}", flush=True)
+            if not math.isfinite(loss):
+                raise SmokeError(f"windowed train {route_name} step {i}: loss {loss}")
+            want = {k: v * wins for k, v in PER_FORWARD[route_name].items()}
+            if used != want:
+                raise SmokeError(f"windowed train {route_name} step {i}: launches {used}, want "
+                                 f"{want}")
+            if bwd != want_bwd:
+                raise SmokeError(f"windowed train {route_name} step {i}: Function backwards "
+                                 f"{bwd}, want {want_bwd}")
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    unchanged = [n for n, p in model.named_parameters() if mask[n] and torch.equal(p, before[n])]
+    moved = [n for n, p in model.named_parameters()
+             if not mask[n] and not torch.equal(p, before[n])]
+    if unchanged or moved:
+        raise SmokeError(f"windowed train {route_name}: trainable tensors unchanged "
+                         f"{unchanged[:4]}, frozen tensors changed {moved[:4]}")
+    # the chain is differentiable: a loss on the last frame, which only the
+    # last window computes, reaches the first window's outputs through the
+    # chained anchors
+    outputs = []
+
+    def apply(win_images, win_queries):
+        out = model(win_images, win_queries)
+        out["pred_pose_enc"].retain_grad()
+        outputs.append(out["pred_pose_enc"])
+        return out
+
+    enc, _ = windowed.windowed_forward_scan(apply, images, queries, L, gt.ratio)
+    enc[0, -1].sum().backward()
+    first = outputs[0].grad
+    reach = 0.0 if first is None else first.abs().max().item()
+    model.zero_grad(set_to_none=True)
+    print(f"windowed train, {route_name} route: |d loss(frame {t - 1}) / d window 1's "
+          f"encodings| max {reach:.3e} (the loss's frame is in window {len(outputs)} only)",
+          flush=True)
+    if not reach > 0:
+        raise SmokeError(f"windowed train {route_name}: no gradient reaches the first window")
+    med = statistics.median(times[1:])
+    split = {k: statistics.median(p[k] for p in parts[1:]) for k in parts[0]}
+    print(f"windowed train, {route_name} route: {2 * TRAIN_STEPS} steps at T {t} ({wins} "
+          f"windows), losses finite, every trainable tensor moved and every frozen one bitwise "
+          f"unchanged, Function backwards {wins} x a step's; median of steps 2-"
+          f"{2 * TRAIN_STEPS} {med:.1f} ms (forward {split['forward']:.1f}, backward "
+          f"{split['backward']:.1f}, optimizer {split['optimizer']:.1f}), peak memory "
+          f"{peak:.2f} GiB, on {smi}", flush=True)
+    return dict(times=times, median_ms=med, parts=split, peak_gib=peak, reach=reach)
+
+
+def cli_phase(torch, cfg, counters, smi):
+    """Phase 10: the CLI at full width on the card, on fixtures written to a
+    temporary directory, with the checks of the module's docstring."""
+    import csv
+    import os
+    import tempfile
+
+    from comet_tpu_torch import cli
+    from comet_tpu_torch.data import fixtures
+    from comet_tpu_torch.utils.colmap_io import read_model_text
+    from comet_tpu_torch.utils.scene_export import parse_glb
+
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        amd = os.path.join(tmp, "AMD")
+        fixtures.generate_amd_fixture(os.path.join(amd, "AMD_train"), n_seqs=1,
+                                      n_frames=CLI_AMD_FRAMES, seed=1)
+        fixtures.generate_amd_fixture(os.path.join(amd, "AMD_eval"), n_seqs=2,
+                                      n_frames=CLI_AMD_FRAMES, seed=2)
+        dca = fixtures.generate_dca_fixture(os.path.join(tmp, "DCA"), n_seqs=1,
+                                            n_frames=CLI_DCA_FRAMES, seed=3)
+        print(f"cli: fixtures written in {time.perf_counter() - t0:.1f} s (AMD: 1 train and 2 "
+              f"eval sequences of {CLI_AMD_FRAMES} frames; DCA: 1 sequence of "
+              f"{CLI_DCA_FRAMES})", flush=True)
+        out = {name: os.path.join(tmp, "out_" + name) for name in ("eval", "demo", "train")}
+        commands = {
+            "eval": ["eval", "--data-root", os.path.join(amd, "AMD_eval"), "--device-preprocess",
+                     "--eval-batch", "2", "--max-sequences", "2", "--output-dir", out["eval"]],
+            "demo": ["demo", "--data-root", dca, "--demo-seq-len", str(CLI_DCA_FRAMES),
+                     "--max-sequences", "1", "--output-dir", out["demo"]],
+            "train": ["train", "--data-root", amd, "--windowed", "--train-seq-len",
+                      str(CLI_AMD_FRAMES), "--epochs", "1", "--eval-interval", "1",
+                      "--ckpt-interval", "1", "--max-sequences", "1", "--output-dir", out["train"]],
+            "bench": ["bench", "--suite", "infer"],
+        }
+        for name, argv in commands.items():
+            _reset(counters)
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            shown = " ".join(a.replace(tmp, "<tmp>") for a in argv)
+            print(f"cli: python -m comet_tpu_torch.cli {shown}: {walls[name]:.1f} s wall, "
+                  f"launches {_launches(counters)}, on {smi}", flush=True)
+            if sum(_launches(counters).values()) == 0:
+                raise SmokeError(f"cli {name}: no kernel ran")
+
+        with open(os.path.join(out["eval"], "test_results.csv")) as f:
+            rows = list(csv.DictReader(f))
+        bad = [k for row in rows for k, v in row.items() if not math.isfinite(float(v))]
+        if len(rows) != 1 or bad:
+            raise SmokeError(f"cli eval: {len(rows)} rows, not finite: {bad}")
+        with open(os.path.join(out["train"], "train_results.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != 1 or "tf_ratio" not in rows[0] or not math.isfinite(float(rows[0]["loss"])):
+            raise SmokeError(f"cli train: rows {rows}")
+        ckpt = os.path.join(out["train"], "ckpt")
+        missing = [p for p in ("ckpt_000000", "best.pt", "best.json")
+                   if not os.path.exists(os.path.join(ckpt, p))]
+        (seq,) = [d for d in os.listdir(out["demo"])
+                  if os.path.isdir(os.path.join(out["demo"], d)) and not d.endswith("_colmap")]
+        base = os.path.join(out["demo"], f"{seq}_scene")
+        with open(os.path.join(out["demo"], seq, "metrics", "results.json")) as f:
+            trajectory = json.load(f)["trajectory"]
+        missing += [p for p in (".glb", ".html") if not os.path.exists(base + p)]
+        if missing:
+            raise SmokeError(f"cli: missing {missing}")
+        gltf, blob = parse_glb(base + ".glb")
+        colmap = read_model_text(base + "_colmap")
+        if (len(trajectory) != CLI_DCA_FRAMES or len(colmap.images) != CLI_DCA_FRAMES
+                or not blob or len(gltf["meshes"]) != 1 + CLI_DCA_FRAMES):
+            raise SmokeError(f"cli demo: {len(trajectory)} frames, {len(colmap.images)} COLMAP "
+                             f"images, {len(gltf['meshes'])} GLB meshes")
+        # optional: cv2's mp4 codec, and matplotlib from the second epoch on
+        video = "written" if os.path.exists(base + "_reproj.mp4") else "not written"
+        png = os.path.join(out["train"], "train_results.png")
+        png = "written" if os.path.exists(png) else "not written (one epoch: the plot starts at two)"
+        print(f"cli: CSV rows finite; demo JSON ({len(trajectory)} frames), GLB "
+              f"({len(gltf['meshes'])} meshes, read back), HTML and COLMAP model "
+              f"({len(colmap.images)} images, {len(colmap.points3d)} points, read back) written; "
+              f"train_results.csv with tf_ratio, ckpt/, best.pt and best.json; reprojection "
+              f"video {video}; metric PNG {png}", flush=True)
+    return walls
+
+
 def _profile_step(torch, step, request, gt, step_ms):
     """torch.profiler over one warm train step: its device time and the
     device's idle share of the median step."""
@@ -1448,8 +1870,10 @@ def main(argv=None) -> int:
         from comet_tpu_torch import config as tcfg
         from comet_tpu_torch import geometry as geom
         from comet_tpu_torch import models, training
+        from comet_tpu_torch.models import windowed
         from comet_tpu_torch.ops import attn, autograd, block, kernels, norm
         from comet_tpu_torch.training import loop as loop_mod
+        from comet_tpu_torch.utils import serialization
     except ImportError as exc:
         print(f"chip_smoke: the comet_tpu_torch package is not beside this script ({exc})",
               file=sys.stderr)
@@ -1466,6 +1890,7 @@ def main(argv=None) -> int:
     print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
           f"nvidia-smi: {smi}", flush=True)
     runs = {}
+    started = time.perf_counter()
     try:
         t0 = time.perf_counter()
         kernels.library()
@@ -1506,11 +1931,15 @@ def main(argv=None) -> int:
                 profile(torch, model, *runs[route_name]["requests"][0], args.profile, route_name,
                         runs[route_name]["median_ms"])
         model.set_route(tcfg.KernelRoute())
-        bench, variants, form_counts = bench_phase(torch, tcfg, bench_lib, attn, counters, smi)
+        bench, variants, form_counts = bench_phase(torch, tcfg, bench_lib, attn, counters, smi,
+                                                   runs)
         evals = eval_phase(torch, np, cfg, model, data, loop_mod, geom, counters, dev, smi)
         backward = check_backward(torch, F, attn, norm, dev)
         train = train_phase(torch, np, tcfg, geom, training, autograd, bench_lib, cfg, model,
                             counters, dev, smi)
+        windowed_runs = windowed_phase(torch, np, tcfg, geom, models, windowed, training, autograd,
+                                       serialization, cfg, model, counters, dev, smi)
+        cli_walls = cli_phase(torch, cfg, counters, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1577,7 +2006,8 @@ def main(argv=None) -> int:
               f"{run['total']} ({PER_FORWARD[route_name]} per forward); median request "
               f"{run['median_ms']:.1f} ms = {1e3 / run['median_ms']:.2f} sequences/s, peak memory "
               f"{run['peak_gib']:.2f} GiB", flush=True)
-    print(f"bench: {bench['value']} sequences/s ({bench['ms_per_sequence']} ms per sequence on "
+    print(f"bench (parameters cast to bf16 once): {bench['value']} sequences/s "
+          f"({bench['ms_per_sequence']} ms per sequence on "
           f"the host clock, {bench['device_ms_per_sequence']} between CUDA events)", flush=True)
     for eval_batch, e in evals.items():
         print(f"eval, eval_batch {eval_batch}: {EVAL_SEQUENCES / e['seconds']:.2f} sequences/s",
@@ -1589,6 +2019,18 @@ def main(argv=None) -> int:
               f"{t['idle']:.2f}; run_train_benchmark {t['bench']['value']} steps/s "
               f"({t['bench']['ms_per_step']} ms per step on the host clock, "
               f"{t['bench']['device_ms_per_step']} between CUDA events)", flush=True)
+    for route_name, w in windowed_runs.items():
+        times = ", ".join(f"{FORM_NAMES[form]} T {t} {host:.1f} ms ({host / t:.2f} per frame)"
+                          for (form, t), (host, _) in w["times"].items())
+        wt = w["train"]
+        print(f"windowed, {route_name} route: {times}; train step at T {WINDOWED_TRAIN_T} "
+              f"{wt['median_ms']:.1f} ms (forward {wt['parts']['forward']:.1f}, backward "
+              f"{wt['parts']['backward']:.1f}, optimizer {wt['parts']['optimizer']:.1f}), peak "
+              f"{wt['peak_gib']:.2f} GiB; host synchronizations (in the forwards, own) "
+              f"{ {k: (v['in_forwards'], v['own']) for k, v in w['syncs'].items()} }", flush=True)
+    print(f"cli: wall seconds {json.dumps({k: round(v, 1) for k, v in cli_walls.items()})}",
+          flush=True)
+    print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,9 +2,12 @@
 
 The port of ``comet_tpu`` (JAX, TPU), module for module: ``config``,
 ``geometry``, ``ops`` (with the CUDA kernels K1 to K5 under ``csrc``),
-``models``, the weight bridge ``weights``, and the train, eval and bench
-entry points: ``data``, ``metrics``, ``training`` (the train and eval
-loops, the optimizer, checkpoints), ``bench_lib`` and ``entry``. It
+``models`` (with the windowed long-sequence mode), the weight bridge
+``weights``, and the train, eval and bench entry points: ``data``,
+``metrics``, ``training`` (the train and eval loops, the optimizer,
+checkpoints), ``bench_lib``, ``entry`` and the command line ``cli``, with
+``twoview`` (triangulation) and ``utils`` (weight files, the one-time
+inference cast, the demo's exports) behind it. It
 imports neither JAX nor ``comet_tpu``. Public functions keep the JAX
 layouts: images [B, S, H, W, 3], queries [B, N, 2]. Entry points run on the
 CUDA card unless the caller passes ``device="cpu"``.

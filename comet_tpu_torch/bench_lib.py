@@ -73,14 +73,20 @@ def run_benchmark(
 ) -> Dict:
     """Forward throughput of the full model at batch 1, sequences/s.
 
-    Each rep draws fresh images and queries on the card from one
+    The model's parameters are cast to ``cfg.dtype`` once
+    (``utils.serialization.cast_params_for_inference``), as JAX's benchmark
+    casts them. Each rep draws fresh images and queries on the card from one
     ``torch.Generator`` (two separate draws: images, then queries) and runs
     the forward; a batch of ``reps`` reps is timed on the host clock and
     between CUDA events, and the median of 3 timed batches is kept.
     ``route`` picks the kernels (``config.KernelRoute``)."""
+    from .utils.serialization import cast_params_for_inference
+
     device = resolve_device(device, "run_benchmark")
     cfg = cfg or get_config("ours")
-    model = build_comet(cfg, device=device, seed=seed, route=route)
+    # one-time cast: the benchmark times inference, not f32 masters
+    model = cast_params_for_inference(build_comet(cfg, device=device, seed=seed, route=route),
+                                      cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     shape = (1, cfg.seqlen, cfg.img_size, cfg.img_size, 3)
 
@@ -202,17 +208,19 @@ def run_eval_data_benchmark(
 ) -> Dict:
     """End-to-end eval throughput with data: PIL decode + keypoint seeding +
     (card) preprocessing + the eval step, sequences/s. Without ``data_root``
-    a synthetic AMD-layout fixture is written to a temporary directory.
+    a synthetic AMD-layout fixture is written to a temporary directory. The
+    parameters are cast to ``cfg.dtype`` once, as in :func:`run_benchmark`.
     One warm-up pass, then the median of 3 timed passes over n sequences."""
     import os
     import tempfile
 
     from .data.datasets import AMDDataset
     from .training.loop import evaluate
+    from .utils.serialization import cast_params_for_inference
 
     device = resolve_device(device, "run_eval_data_benchmark")
     cfg = cfg or get_config("ours")
-    model = build_comet(cfg, device=device, seed=seed)
+    model = cast_params_for_inference(build_comet(cfg, device=device, seed=seed), cfg.dtype)
 
     with tempfile.TemporaryDirectory() as tmp:
         if data_root is None:

@@ -14,4 +14,18 @@ from .embeddings import (
     sincos_2d_pos_embed_grid,
     sincos_time_embed,
 )
-from .quaternions import quat_conjugate, quat_invert, quat_multiply, quat_standardize
+from .quaternions import (
+    euler_xyz_from_matrix,
+    geodesic_angle_from_matrices,
+    matrix_to_quat,
+    quat_conjugate,
+    quat_invert,
+    quat_multiply,
+    quat_normalize,
+    quat_standardize,
+    quat_to_matrix,
+    random_quaternions,
+    rotation_angle_from_quats,
+    se3_inverse_row_convention,
+    se3_matrix_row_convention,
+)

@@ -2,7 +2,10 @@
 
 Counterpart of ``comet_tpu/models/blocks.py``. Parameters are kept in f32
 (as the JAX package keeps them) and cast to the compute dtype at use, so
-the weight bridge loads them exactly. Reference quirks kept on purpose:
+the weight bridge loads them exactly; after
+``utils.serialization.cast_params_for_inference`` those casts are no-ops,
+and the norms read their scale and bias in f32, as JAX does. Reference
+quirks kept on purpose:
 
 - AttnBlock / CrossAttnBlock re-base the residual stream on the normalized
   input (``x = norm1(x); x = x + attn(x)``);
@@ -110,10 +113,15 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
+        # f32 scale and bias, also after a one-time cast to the compute dtype
+        # (JAX reads its cast parameters in f32 here)
+        w = b = None
+        if self.weight is not None:
+            w, b = self.weight.float(), self.bias.float()
         if self.route.fused_ln:
-            y = fused_layer_norm(x.contiguous(), self.weight, self.bias, self.eps)
+            y = fused_layer_norm(x.contiguous(), w, b, self.eps)
             return y.to(self.compute_dtype)
-        y = F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.float(), (self.dim,), w, b, self.eps)
         return y.to(x.dtype).to(self.compute_dtype)
 
 
@@ -132,7 +140,7 @@ class GroupNorm1(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return F.group_norm(x.float(), 1, self.weight, self.bias, self.eps)
+        return F.group_norm(x.float(), 1, self.weight.float(), self.bias.float(), self.eps)
 
 
 class InstanceNorm(nn.Module):

@@ -5,9 +5,9 @@ Counterpart of ``comet_tpu/training/loop.py`` (``make_gt_cameras``,
 ``metric_block``, ``evaluate``), itself the reference's train_or_eval_fn
 (comet/models/train_eval_func_new_cp5.py:514-823) split into a device step
 and a host loop that computes the float64 metric block (the reference's
-autocast-double section :632-675) and accumulates per-scene AUC. The
-windowed train step comes with the windowed slice, the mesh path with the
-distributed slice.
+autocast-double section :632-675) and accumulates per-scene AUC, and
+``build_windowed_train_step``, the teacher-forced train step over a long
+sequence in windows. The mesh path comes with the distributed slice.
 """
 
 from __future__ import annotations
@@ -112,6 +112,53 @@ def build_train_step(model: COMET, cfg: CometConfig, optimizer: torch.optim.Opti
             q_abs, t_abs = decode_predictions(cfg, pred, gt_cams)
         return {"pred_pose_enc": pred, "gt_pose_enc": gt_enc, "pred_q": q_abs, "pred_t": t_abs,
                 **{k: v.detach() for k, v in losses.items()}}
+
+    return step
+
+
+def build_windowed_train_step(model: COMET, cfg: CometConfig, optimizer: torch.optim.Optimizer,
+                              scheduler, window_len: int) -> Callable:
+    """The teacher-forced windowed train step (``build_windowed_train_step``'s;
+    the reference's intent in the dead ``E2Epose2.forward_window`` and
+    ``TeacherForcingScheduler``, E2Epose2.py:269-612, 40-56).
+
+    The whole chain, :func:`~..models.windowed.windowed_forward_scan` over
+    the sequence, the uvz composition and ``pose_loss`` over every stitched
+    frame against ``encode_gt``, is one autograd graph, so a late window's
+    loss reaches every earlier window's camera predictor through the
+    chained anchors. With ``teacher_force=True`` the anchors are the ground
+    truth's encodings instead of the model's own. The optimizer, the
+    scheduler, the f32 masters and the bf16 compute are those of
+    :func:`build_train_step`; the tracker and the ViT run under no_grad in
+    every window, as in the forward.
+
+    Batch 1: ``step(images [1, T, ...], queries [1, N, 2], gt_cams [T, ...],
+    teacher_force=False)`` returns JAX's aux keys (``pred_pose_enc``,
+    ``gt_pose_enc``, ``pred_q``, ``pred_t``, ``pred_track``, ``loss``,
+    ``loss_trans``, ``loss_rot``), detached; ``mark`` as in
+    :func:`build_train_step`."""
+    from ..models.windowed import windowed_forward_scan
+
+    def step(images: torch.Tensor, queries: torch.Tensor, gt_cams: CameraSet,
+             teacher_force: bool = False,
+             mark: Callable[[str], None] = lambda name: None) -> Dict[str, torch.Tensor]:
+        gt_cams = cameras_to(gt_cams, images.device)
+        optimizer.zero_grad(set_to_none=True)
+        gt_enc = encode_gt(cfg, gt_cams)  # [T, 8]
+        enc, trk = windowed_forward_scan(model, images, queries, window_len, gt_cams.ratio,
+                                         gt_enc=gt_enc, teacher_force=teacher_force)
+        losses = pose_loss(cfg, enc, gt_enc[None])
+        mark("forward")
+        losses["loss"].backward()
+        mark("backward")
+        optimizer.step()
+        scheduler.step()
+        mark("optimizer")
+        enc = enc.detach()
+        with torch.no_grad():
+            q_abs, t_abs = decode_predictions(cfg, enc, gt_cams)
+        return {"pred_pose_enc": enc, "gt_pose_enc": gt_enc, "pred_q": q_abs, "pred_t": t_abs,
+                "pred_track": trk.detach(), **{k: v.detach() for k, v in losses.items()}}
 
     return step
 

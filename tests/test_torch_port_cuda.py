@@ -602,3 +602,78 @@ def test_full_width_train_step(cuda_device, route):
             assert not torch.equal(p, before[name]), name
         else:
             assert p.grad is None and torch.equal(p, before[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", [(577, 768), (8192, 256), (16, 768)])
+def test_k5_runs_a_layer_norm_cast_to_bf16(cuda_device, rows, c):
+    """After the one-time inference cast a LayerNorm's scale and bias are
+    bf16; on FUSED_ROUTE it hands them to K5 in f32 (JAX reads its cast
+    parameters in f32), so K5 launches and matches the plain version on the
+    same bf16 values."""
+    from comet_tpu_torch.config import FUSED_ROUTE
+    from comet_tpu_torch.models.blocks import LayerNorm
+    from comet_tpu_torch.utils.serialization import cast_params_for_inference
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    ln = LayerNorm(c, affine=True, dtype=torch.bfloat16).to(cuda_device)
+    with torch.no_grad():
+        ln.weight.copy_(1 + 0.1 * torch.randn(c, generator=g, device=cuda_device))
+        ln.bias.copy_(0.1 * torch.randn(c, generator=g, device=cuda_device))
+    ln.route = FUSED_ROUTE
+    cast_params_for_inference(ln, torch.bfloat16)
+    assert ln.weight.dtype == torch.bfloat16
+    x = torch.randn(rows, c, generator=g, device=cuda_device).bfloat16()
+    before = fused_layer_norm.launches
+    got = ln(x)
+    assert fused_layer_norm.launches == before + 1 and got.dtype == torch.bfloat16
+    want = layer_norm_reference(x.float(), ln.weight.float(), ln.bias.float(), 1e-6)
+    torch.testing.assert_close(got.float(), want, atol=1e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_windowed_scan_form_waits_for_nothing_on_the_card(cuda_device):
+    """The scan form's own code issues no host synchronization: with a
+    model stand-in that runs on the card and never synchronizes, torch's
+    sync debug mode records none over 5 windows."""
+    import warnings
+
+    from comet_tpu_torch.models.windowed import windowed_forward_scan
+
+    identity = torch.tensor([0.0, 0, 0, 1, 0, 0, 0], device=cuda_device)
+
+    def apply(win_images, win_queries):  # frame 0 pinned to the identity, as the model's
+        enc = win_images.mean(dim=(2, 3))[..., :1].expand(1, win_images.shape[1], 7) * 0.01
+        enc = torch.cat([identity.expand(1, 1, 7), enc[:, 1:]], dim=1)
+        tracks = win_queries[:, None].expand(1, win_images.shape[1], *win_queries.shape[1:])
+        return {"pred_pose_enc": enc, "pred_track": tracks + 0.5}
+
+    images = torch.randn(1, 48, 4, 4, 3, device=cuda_device)
+    queries = torch.rand(1, 8, 2, device=cuda_device)
+    gt_enc = torch.zeros(48, 8, device=cuda_device)
+    gt_enc[:, 3] = 1.0
+    ratio = torch.tensor(0.9, device=cuda_device)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for tf in (False, True):
+                enc, trk = windowed_forward_scan(apply, images, queries, 16, ratio,
+                                                 gt_enc=gt_enc, teacher_force=tf)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # one warning per synchronizing call (not the mode's prototype notice)
+    synced = [f"{w.filename}:{w.lineno}" for w in caught
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not synced, synced
+    with warnings.catch_warnings(record=True) as caught:  # the count sees a known sync
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            enc.sum().item()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert any("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    assert enc.shape == (1, 48, 7) and trk.shape == (1, 48, 8, 2)
+    assert torch.equal(enc[0, 0].cpu(), torch.tensor([0.0, 0, 0, 1, 0, 0, 0]))
