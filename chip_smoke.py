@@ -18,7 +18,11 @@ Phases, each of which makes the script exit nonzero when it fails:
    PyTorch call computes the same function (``F.scaled_dot_product_attention``
    for K1 and K3, ``F.layer_norm`` for K5), that call's median device times
    over 25 runs, and the host time to issue one call of the kernel's wrapper
-   (and of the library call); for K3 and K5 two yardsticks beside the
+   (through its ``comet::`` operator, with grad mode on and under inference
+   mode, beside the direct launch function the operator runs) and of the
+   library call (and, at the camera input norm, K5 registered through the
+   ``torch.library.custom_op`` decorator against its ``comet::`` operator);
+   for K3 and K5 two yardsticks beside the
    bound, the launch floor (an empty launch between the same two events)
    and a copy of the bytes the bound counts; K3 also at every ring depth of
    its plan (1 to 3 stages); for K2 and K4 where their first CTAs
@@ -49,7 +53,7 @@ Phases, each of which makes the script exit nonzero when it fails:
    versions), on the default route and on ``FUSED_ROUTE``; then the camera
    predictor's gradients on the same inputs: every tensor that
    ``training.camera_only_mask`` selects, on the card in bf16 (the kernels'
-   autograd Functions) against the CPU in f32, within ``GRAD_RTOL`` of its
+   operators and their registered backward) against the CPU in f32, within ``GRAD_RTOL`` of its
    norm, and no frozen parameter with a gradient;
 5. the main path, once per route: ``build_comet(get_config("ours"))`` on the
    card at full width (16 frames, 512 px, 512 tracks, bf16, random weights
@@ -75,7 +79,7 @@ Phases, each of which makes the script exit nonzero when it fails:
    block's key set, each sequence's metric row at batch 2 (padded with
    itself) within ``EVAL_RTOL`` of its row at batch 1, K1 and K2 launched
    their per-forward counts once per forward, and the eval sequences/s;
-8. training: the autograd Functions' gradients at the train step's shapes
+8. training: the operators' registered gradients at the train step's shapes
    (K1 at the camera's four, K5 at the camera's LayerNorms) equal the plain
    versions' autograd on the same bf16 inputs bit for bit, timed as forward
    + backward; then per route 3 train steps of the same full-width model
@@ -118,7 +122,20 @@ Phases, each of which makes the script exit nonzero when it fails:
    CSV rows finite; the demo's JSON, GLB (read back), HTML and COLMAP model
    (read back); ``train_results.csv`` with ``tf_ratio``, ``ckpt/``,
    ``best.pt`` and ``best.json``. Whether the reprojection video (cv2's
-   mp4 codec) was written is printed; its absence fails nothing.
+   mp4 codec) was written is printed; its absence fails nothing; and
+11. serving (``utils/serving.py``) on a copy of the model cast to bf16 once
+   with frozen weights: the forward on each route and the windowed chain at
+   T 48 (default route) exported with ``torch.export`` (the graph must hold
+   each route's kernels as ``comet::`` operator nodes, as many as the
+   forward launches) and saved, the weights saved as a ``.pt`` file; a
+   fresh process (``chip_smoke.py --serve DIR``, which must not import
+   ``comet_tpu_torch.models``) loads each artifact, restores the weights
+   with ``params_from_file`` and answers 3 requests per route (the chain:
+   2 calls), counting launches; its outputs must equal the eager model's
+   on the same inputs bit for bit (the chain: tracks bit for bit,
+   encodings within WINDOWED_ULPS ulps) and its launches per call the
+   eager counts; export, save and load times, artifact bytes and the
+   served against the eager median request are printed.
 
 The script prints its total time; the line before the last holds the
 kernels' JSON record, and the last line
@@ -354,6 +371,25 @@ def _host_us(torch, fn, runs=TIMING_RUNS):
     return host
 
 
+def _host_columns(torch, wrapper, launch):
+    """Host us to issue one call: of the kernel's wrapper, which calls its
+    ``comet::`` operator (grad mode on, as the train step; under
+    ``torch.inference_mode``, as a request and the served program, which skip
+    the autograd dispatch), and of the direct launch function the operator's
+    CUDA implementation runs (the wrapper before the operators, less its
+    device test)."""
+    host_us = _host_us(torch, wrapper)
+    with torch.inference_mode():
+        inference_host_us = _host_us(torch, wrapper)
+    return dict(host_us=host_us, inference_host_us=inference_host_us,
+                launch_host_us=_host_us(torch, launch))
+
+
+def _host_text(r):
+    return (f"host us {r['host_us']:.1f} (inference mode {r['inference_host_us']:.1f}, direct "
+            f"launch {r['launch_host_us']:.1f})")
+
+
 def _floor_ms(torch):
     """The launch floor on this clock: the median device time of an empty
     launch (a sleep kernel of one cycle) between the same two events."""
@@ -391,7 +427,8 @@ def check_k1(torch, F, attn, dev, gen):
         if out.shape != (b, lq, c) or not math.isfinite(err) or err > K1_ATOL:
             raise SmokeError(f"K1 {where}: max |kernel - plain f32| = {err} > {K1_ATOL}")
         ms = _median_ms(torch, lambda: attn.fused_attention(q, k, v, h))
-        host_us = _host_us(torch, lambda: attn.fused_attention(q, k, v, h))
+        host = _host_columns(torch, lambda: attn.fused_attention(q, k, v, h),
+                             lambda: attn.k1_launch(q, k, v, h, d ** -0.5, "base"))
         plain_ms = _median_ms(torch, lambda: attn.attention_reference(q, k, v, h, d ** -0.5))
         q4, k4, v4 = (t.view(b, t.shape[1], h, d).transpose(1, 2) for t in (q, k, v))
         library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
@@ -401,12 +438,12 @@ def check_k1(torch, F, attn, dev, gen):
         bound, bound_by = _bound_ms(flops, nbytes)
         rows.append(dict(kernel="K1", where=where, shape=[b, lq, lk, c, h],
                          max_abs_err=err, tolerance=f"atol {K1_ATOL}", ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, host_us=host_us,
+                         library_ms=library_ms, **host,
                          library_host_us=library_host_us, bound_ms=bound, bound_by=bound_by,
                          flops=flops, bytes=nbytes))
         print(f"K1 {where:32s} [B={b} Lq={lq} Lk={lk} C={c} H={h}] err {err:.3e} (atol {K1_ATOL}) "
               f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
-              f"host us {host_us:.1f} (sdpa {library_host_us:.1f})",
+              f"{_host_text(host)} (sdpa {library_host_us:.1f})",
               flush=True)
     return rows
 
@@ -476,7 +513,8 @@ def check_k2(torch, block, dev, gen, shapes=K2_SHAPES):
                 f"K2 {where}: |kernel - plain f32| exceeds {K2_ATOL} + {K2_RTOL}|y| by {excess}"
             )
         ms = _median_ms(torch, lambda: block.fused_attn_block(x, *w, h))
-        host_us = _host_us(torch, lambda: block.fused_attn_block(x, *w, h))
+        host = _host_columns(torch, lambda: block.fused_attn_block(x, *w, h),
+                             lambda: block.block_launch(x, *w, h))
         plain_ms = _median_ms(torch, lambda: block.block_reference(x, *w, h))
         rows_ = b * l
         flops = rows_ * 2 * c * (3 * c + c + 2 * hid) + 4 * rows_ * l * c
@@ -486,12 +524,12 @@ def check_k2(torch, block, dev, gen, shapes=K2_SHAPES):
         _print_k2_cycles(torch, block, where, split, x, w, h, dev)
         rows.append(dict(kernel="K2", where=where, shape=[b, l, c, h, hid],
                          max_abs_err=err, tolerance=f"atol {K2_ATOL} + {K2_RTOL} |y|",
-                         ms=ms, plain_ms=plain_ms, library_ms=None, host_us=host_us,
+                         ms=ms, plain_ms=plain_ms, library_ms=None, **host,
                          library_host_us=None, bound_ms=bound,
                          bound_by=bound_by, flops=flops, bytes=nbytes))
         print(f"K2 {where:32s} [B={b} L={l} C={c} H={h} hidden={hid}] err {err:.3e} "
               f"(plain bf16 {plain_err:.3e}; atol {K2_ATOL} + {K2_RTOL:.4f}|y|, excess {excess:.3e}) "
-              f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by}) host us {host_us:.1f}",
+              f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by}) {_host_text(host)}",
               flush=True)
     return rows
 
@@ -524,7 +562,8 @@ def check_k3(torch, F, attn, dev, gen, floor_ms):
         if out.shape != (b, l, c) or not math.isfinite(err) or err > K1_ATOL:
             raise SmokeError(f"K3 {where}: max |kernel - plain f32| = {err} > {K1_ATOL}")
         ms = _median_ms(torch, lambda: attn.short_attention(q, k, v, h))
-        host_us = _host_us(torch, lambda: attn.short_attention(q, k, v, h))
+        host = _host_columns(torch, lambda: attn.short_attention(q, k, v, h),
+                             lambda: attn.short_launch(q, k, v, h, d ** -0.5))
         _time_k3_stages(torch, attn, where, q, k, v, h, want, dev)
         plain_ms = _median_ms(torch, lambda: attn.attention_reference(q, k, v, h, d ** -0.5))
         q4, k4, v4 = (t.view(b, l, h, d).transpose(1, 2) for t in (q, k, v))
@@ -536,12 +575,12 @@ def check_k3(torch, F, attn, dev, gen, floor_ms):
         copy_ms = _copy_ms(torch, nbytes, dev)
         rows.append(dict(kernel="K3", where=where, shape=[b, l, l, c, h],
                          max_abs_err=err, tolerance=f"atol {K1_ATOL}", ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, host_us=host_us,
+                         library_ms=library_ms, **host,
                          library_host_us=library_host_us, bound_ms=bound, bound_by=bound_by,
                          floor_ms=floor_ms, copy_ms=copy_ms, flops=flops, bytes=nbytes))
         print(f"K3 {where:32s} [B={b} L={l} C={c} H={h}] err {err:.3e} (atol {K1_ATOL}) "
               f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
-              f"floor {floor_ms:.4f} copy {copy_ms:.4f} host us {host_us:.1f} "
+              f"floor {floor_ms:.4f} copy {copy_ms:.4f} {_host_text(host)} "
               f"(sdpa {library_host_us:.1f})",
               flush=True)
     return rows
@@ -613,7 +652,8 @@ def check_k4(torch, block, dev, gen):
             if ex > K2_ATOL:
                 raise SmokeError(f"K4 {where} split {split}: exceeds {K2_ATOL} + {K2_RTOL}|y| by {ex}")
         ms = _median_ms(torch, lambda: block.fused_cross_block(x, ctx, *w, h))
-        host_us = _host_us(torch, lambda: block.fused_cross_block(x, ctx, *w, h))
+        host = _host_columns(torch, lambda: block.fused_cross_block(x, ctx, *w, h),
+                             lambda: block.cross_launch(x, ctx, *w, h))
         plain_ms = _median_ms(torch, lambda: block.cross_block_reference(x, ctx, *w, h))
         rq, rk = b * lq, b * lk
         flops = 2 * c * (rq * (2 * c + 2 * hid) + rk * 2 * c) + 4 * rq * lk * c
@@ -626,12 +666,12 @@ def check_k4(torch, block, dev, gen):
             _print_k4_cycles(torch, block, where, x, ctx, w, h, out8, 8, dev)
         rows.append(dict(kernel="K4", where=where, shape=[b, lq, lk, c, h, hid],
                          max_abs_err=err, tolerance=f"atol {K2_ATOL} + {K2_RTOL} |y|",
-                         ms=ms, plain_ms=plain_ms, library_ms=None, host_us=host_us,
+                         ms=ms, plain_ms=plain_ms, library_ms=None, **host,
                          library_host_us=None, bound_ms=bound,
                          bound_by=bound_by, flops=flops, bytes=nbytes))
         print(f"K4 {where:32s} [B={b} Lq={lq} Lk={lk} C={c} H={h} hidden={hid}] err {err:.3e} "
               f"(plain bf16 {plain_err:.3e}; atol {K2_ATOL} + {K2_RTOL:.4f}|y|, excess {excess:.3e}) "
-              f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by}) host us {host_us:.1f}",
+              f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound:.5f} ({bound_by}) {_host_text(host)}",
               flush=True)
     return rows
 
@@ -685,7 +725,8 @@ def check_k5(torch, F, norm, dev, gen, floor_ms):
                 f"K5 {where}: |kernel - plain f32| exceeds {K5_ATOL} + {K5_RTOL}|y| by {excess}"
             )
         ms = _median_ms(torch, lambda: norm.fused_layer_norm(x, s, b))
-        host_us = _host_us(torch, lambda: norm.fused_layer_norm(x, s, b))
+        host = _host_columns(torch, lambda: norm.fused_layer_norm(x, s, b),
+                             lambda: norm.launch(x, s, b, 1e-6))
         plain_ms = _median_ms(torch, lambda: norm.layer_norm_reference(x, s, b))
         s16, b16 = (t.bfloat16() if t is not None else None for t in (s, b))
         library_ms = _median_ms(torch, lambda: F.layer_norm(x, (c,), s16, b16, 1e-6))
@@ -696,7 +737,7 @@ def check_k5(torch, F, norm, dev, gen, floor_ms):
         copy_ms = _copy_ms(torch, nbytes, dev)
         rows.append(dict(kernel="K5", where=where, shape=[r, c, "bfloat16", affine],
                          max_abs_err=err, tolerance=f"atol {K5_ATOL} + {K5_RTOL} |y|",
-                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, host_us=host_us,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, **host,
                          library_host_us=library_host_us, bound_ms=bound,
                          bound_by=bound_by, floor_ms=floor_ms, copy_ms=copy_ms, flops=flops,
                          bytes=nbytes))
@@ -704,9 +745,35 @@ def check_k5(torch, F, norm, dev, gen, floor_ms):
               f"(atol {K5_ATOL} + {K5_RTOL:.4f}|y|, excess {excess:.3e}) ms {ms:.4f} "
               f"plain {plain_ms:.4f} F.layer_norm {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
               f"floor {floor_ms:.4f} copy {copy_ms:.4f} "
-              f"host us {host_us:.1f} (F.layer_norm {library_host_us:.1f})",
+              f"{_host_text(host)} (F.layer_norm {library_host_us:.1f})",
               flush=True)
     return rows
+
+
+def decorator_probe(torch, norm, dev):
+    """The host cost of the other registration form: K5's launch registered
+    through the ``torch.library.custom_op`` decorator (namespace
+    ``comet_probe``, this check only) against the ``comet::layer_norm``
+    operator's wrapper, at the camera input norm's shape, with grad mode on
+    and under inference mode."""
+    @torch.library.custom_op("comet_probe::layer_norm", mutates_args=(),
+                             schema="(Tensor x, Tensor? scale, Tensor? bias, float eps) -> Tensor")
+    def probe(x, scale, bias, eps):
+        return norm.launch(x, scale, bias, eps)
+
+    probe.register_fake(lambda x, scale, bias, eps: x.new_empty(x.shape))
+    x = torch.randn(16 * 576, 768, device=dev).bfloat16()
+    if not torch.equal(probe(x, None, None, 1e-6), norm.fused_layer_norm(x)):
+        raise SmokeError("the decorator-registered K5 differs from comet::layer_norm")
+    got = {}
+    for form, fn in (("decorator", lambda: probe(x, None, None, 1e-6)),
+                     ("comet::", lambda: norm.fused_layer_norm(x))):
+        got[form] = _host_us(torch, fn)
+        with torch.inference_mode():
+            got[form + " inference"] = _host_us(torch, fn)
+    print(f"K5 registration forms, host us per call [rows=9216 C=768]: "
+          f"{ {k: round(v, 1) for k, v in got.items()} }", flush=True)
+    return got
 
 
 def _k2_inputs(torch, gen, dev, b, l, c, hid):
@@ -1280,24 +1347,23 @@ def gradient_check(torch, tcfg, training, model, cpu, dev):
     model.set_route(tcfg.KernelRoute())
 
 
-def _count_backwards(autograd, counts):
-    """Count each Function backward by kernel and shape (K1: B, Lq, Lk, C;
+def _count_backwards(library, counts):
+    """Count each operator backward by kernel and shape (K1: B, Lq, Lk, C;
     K5: rows, C, affine) into ``counts``; returns the undo."""
-    backward = autograd.PlainBackward.backward
+    plain_vjp = library.plain_vjp
 
-    def counted(ctx, grad):
-        x, *rest = ctx.saved_tensors
-        kind = ctx.plain.__qualname__.split(".")[0]
-        if kind == "fused_attention":
-            counts[("K1", *x.shape[:2], rest[0].shape[1], x.shape[2])] += 1
-        elif kind == "fused_layer_norm":
-            counts[("K5", x.numel() // x.shape[-1], x.shape[-1], rest[0] is not None)] += 1
+    def counted(name, inputs, needs, grad):
+        x = inputs[0]
+        if name == "attention":
+            counts[("K1", *x.shape[:2], inputs[1].shape[1], x.shape[2])] += 1
+        elif name == "layer_norm":
+            counts[("K5", x.numel() // x.shape[-1], x.shape[-1], inputs[1] is not None)] += 1
         else:
-            counts[(kind,)] += 1
-        return backward(ctx, grad)
+            counts[(name,)] += 1
+        return plain_vjp(name, inputs, needs, grad)
 
-    autograd.PlainBackward.backward = staticmethod(counted)
-    return lambda: setattr(autograd.PlainBackward, "backward", staticmethod(backward))
+    library.plain_vjp = counted
+    return lambda: setattr(library, "plain_vjp", plain_vjp)
 
 
 def _want_backwards(route_name):
@@ -1311,7 +1377,7 @@ def _want_backwards(route_name):
     return want
 
 
-def train_phase(torch, np, tcfg, geom, training, autograd, bench_lib, cfg, model, counters,
+def train_phase(torch, np, tcfg, geom, training, library, bench_lib, cfg, model, counters,
                 dev, smi):
     """TRAIN_STEPS train steps of the full-width model per route, with the
     checks of the module's docstring, the parts of a step timed between CUDA
@@ -1335,7 +1401,7 @@ def train_phase(torch, np, tcfg, geom, training, autograd, bench_lib, cfg, model
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         requests = [_request(torch, cfg, 200 + i, dev) for i in range(TRAIN_STEPS)]
         backwards = Counter()
-        undo = _count_backwards(autograd, backwards)
+        undo = _count_backwards(library, backwards)
         times, parts, losses = [], [], []
         torch.cuda.reset_peak_memory_stats()
         try:
@@ -1485,7 +1551,7 @@ def _time_call(torch, fn, reps=2):
     return statistics.median(host), statistics.median(device)
 
 
-def windowed_phase(torch, np, tcfg, geom, models, windowed, training, autograd, serialization,
+def windowed_phase(torch, np, tcfg, geom, models, windowed, training, library, serialization,
                    cfg, model, counters, dev, smi):
     """Phase 9: the windowed mode at full width on both routes, with the
     checks of the module's docstring."""
@@ -1597,14 +1663,14 @@ def windowed_phase(torch, np, tcfg, geom, models, windowed, training, autograd, 
                           f"{host_ms:.1f} ms per sequence on the host clock ({host_ms / t:.2f} "
                           f"per frame, {host_ms / wins:.1f} per window), {device_ms:.1f} between "
                           f"CUDA events, on {smi}", flush=True)
-        r["train"] = windowed_train_steps(torch, np, tcfg, geom, windowed, training, autograd,
+        r["train"] = windowed_train_steps(torch, np, tcfg, geom, windowed, training, library,
                                           cfg, model, route, route_name, counters, dev, smi)
     model.set_route(tcfg.KernelRoute())
     del served
     return results
 
 
-def windowed_train_steps(torch, np, tcfg, geom, windowed, training, autograd, cfg, model,
+def windowed_train_steps(torch, np, tcfg, geom, windowed, training, library, cfg, model,
                          route, route_name, counters, dev, smi):
     """Phase 9 (e, f): 3 windowed train steps at T 32 without and 3 with
     teacher forcing, with the checks of the module's docstring; then the
@@ -1625,7 +1691,7 @@ def windowed_train_steps(torch, np, tcfg, geom, windowed, training, autograd, cf
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     gen = torch.Generator(device=dev).manual_seed(400)
     backwards = Counter()
-    undo = _count_backwards(autograd, backwards)
+    undo = _count_backwards(library, backwards)
     want_bwd = {k: v * wins for k, v in _want_backwards(route_name).items()}
     times, parts = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -1794,6 +1860,207 @@ def cli_phase(torch, cfg, counters, smi):
     return walls
 
 
+# phase 11: serving. The windowed artifact's length (5 windows of seqlen 16),
+# and the serving process's time limit (it loads three artifacts)
+SERVE_WINDOWED_T = 48
+SERVE_TIMEOUT = 1200
+# the artifacts: the forward on each route, the windowed chain on the default
+SERVED = ("default", "fused", "windowed")
+# the comet:: operators by kernel
+OPERATORS = dict(attention="K1", attn_block="K2", short_attention="K3", cross_block="K4",
+                 layer_norm="K5")
+
+
+def _kernel_nodes(torch, exported):
+    """The exported program's comet:: operator nodes, counted by kernel."""
+    found = Counter()
+    for gm in exported.graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in gm.graph.nodes:
+                name = str(node.target)
+                if name.startswith("comet."):
+                    found[OPERATORS[name.split(".")[1]]] += 1
+    return dict(found)
+
+
+def _counters():
+    """Each kernel's wrapper, which holds its launch counts."""
+    from comet_tpu_torch.ops import attn, block, norm
+
+    return dict(K1=attn.fused_attention, K2=block.fused_attn_block, K3=attn.short_attention,
+                K4=block.fused_cross_block, K5=norm.fused_layer_norm)
+
+
+def _timed_call(torch, counters, fn, *args):
+    """(result, host ms, launches) of one synchronized call."""
+    _reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, _launches(counters)
+
+
+def serve_child(directory):
+    """``chip_smoke.py --serve DIR``: the serving side of phase 11, run by the
+    phase in a fresh process. It imports ``comet_tpu_torch.utils.serving``
+    and ``comet_tpu_torch.ops`` (the operators), never the models; loads
+    each artifact the phase wrote to DIR, restores the weights with
+    ``params_from_file``, answers the requests (the windowed artifact: one
+    warm call, one timed), counting the launches of each, saves the
+    outputs to DIR and prints its timings as one JSON line."""
+    import os
+
+    import torch
+
+    from comet_tpu_torch.utils import serving
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --serve: no CUDA device", file=sys.stderr)
+        return 2
+    counters = _counters()
+    inputs = torch.load(os.path.join(directory, "inputs.pt"))
+    weights = os.path.join(directory, "weights.pt")
+    result = {}
+    for route_name in SERVED:
+        r = result[route_name] = {}
+        t0 = time.perf_counter()
+        exported = serving.load_exported(os.path.join(directory, f"{route_name}.pt2"))
+        r["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = serving.serving_call(exported)
+        params = serving.params_from_file(weights, exported)
+        r["call_and_params_s"] = time.perf_counter() - t0
+        calls = (inputs["requests"] if route_name != "windowed"
+                 else [inputs["windowed"], inputs["windowed"]])
+        outs, r["ms"], r["launches"] = [], [], []
+        for args in calls:
+            out, ms, used = _timed_call(torch, counters, fn, params, *args)
+            outs.append(out)
+            r["ms"].append(ms)
+            r["launches"].append(used)
+        torch.save(outs, os.path.join(directory, f"served_{route_name}.pt"))
+        del exported, fn, params
+    result["imported"] = sorted(m for m in sys.modules if m.startswith("comet_tpu"))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def _largest_diffs(torch, got, want):
+    return {k: (got[k].float() - want[k].float()).abs().max().item() for k in want}
+
+
+def serving_phase(torch, tcfg, windowed, serialization, serving, cfg, model, counters, dev, smi):
+    """Phase 11: serving at full width, with the checks of the module's
+    docstring. Returns the timings."""
+    import copy
+    import os
+    import tempfile
+
+    served = serialization.cast_params_for_inference(copy.deepcopy(model), cfg.dtype)
+    # frozen, as a server holds its weights: with requires_grad parameters
+    # aten.matmul reduces a one-column Linear (the visibility head) in
+    # another order than the served graph, whose weights are plain inputs
+    served.requires_grad_(False)
+    L, t = cfg.seqlen, SERVE_WINDOWED_T
+    hw, n = cfg.img_size, cfg.track_num
+    requests = [_request(torch, cfg, 400 + i, dev) for i in range(REQUESTS)]
+    gen = torch.Generator(device=dev).manual_seed(410)
+    long = (torch.randn(1, t, hw, hw, 3, generator=gen, device=dev),
+            torch.rand(1, n, 2, generator=gen, device=dev) * (hw - 20) + 10,
+            torch.tensor(0.9, device=dev))
+    wins = len(windowed.window_schedule(t, L))
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        serialization.save_params(os.path.join(tmp, "weights.pt"), served)
+        torch.save({"requests": requests, "windowed": long}, os.path.join(tmp, "inputs.pt"))
+        eager = {}
+        for route_name in SERVED:
+            served.set_route(tcfg.FUSED_ROUTE if route_name == "fused" else tcfg.KernelRoute())
+            r = results[route_name] = {}
+            per_forward = PER_FORWARD["default" if route_name == "windowed" else route_name]
+            r["per_call"] = {k: v * (wins if route_name == "windowed" else 1)
+                             for k, v in per_forward.items()}
+            t0 = time.perf_counter()
+            if route_name == "windowed":
+                exported = serving.export_windowed(served, cfg, t, device=dev)
+            else:
+                exported = serving.export_forward(served, cfg, device=dev)
+            r["export_s"] = time.perf_counter() - t0
+            nodes = _kernel_nodes(torch, exported)
+            r["graph_nodes"] = sum(len(gm.graph.nodes) for gm in exported.graph_module.modules()
+                                   if isinstance(gm, torch.fx.GraphModule))
+            want = {k: v for k, v in r["per_call"].items() if v}
+            if nodes != want:
+                raise SmokeError(f"serving {route_name}: the exported graph holds the operators "
+                                 f"{nodes}, want {want}")
+            t0 = time.perf_counter()
+            r["manifest"] = serving.save_exported(
+                exported, os.path.join(tmp, f"{route_name}.pt2"), cfg=cfg,
+                extra_manifest={"preset": "ours", "route": route_name})
+            r["save_s"] = time.perf_counter() - t0
+            del exported
+            # the eager forward of the same cast model on the same inputs
+            with torch.inference_mode():
+                calls = requests if route_name != "windowed" else [long, long]
+                fn = served if route_name != "windowed" else (
+                    lambda im, q, ratio: windowed.windowed_forward_scan(served, im, q, L, ratio))
+                runs = [_timed_call(torch, counters, fn, *args) for args in calls]
+            eager[route_name] = [out for out, _, _ in runs]
+            r["eager_ms"] = [ms for _, ms, _ in runs]
+            print(f"serving, {route_name}: exported in {r['export_s']:.1f} s ({r['graph_nodes']} "
+                  f"graph nodes, operator nodes {nodes}), saved in {r['save_s']:.1f} s, "
+                  f"{r['manifest']['artifact_bytes']} bytes; eager "
+                  f"{['%.1f' % ms for ms in r['eager_ms']]} ms, on {smi}", flush=True)
+
+        root = Path(__file__).resolve().parent
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--serve", tmp],
+                              cwd=root, capture_output=True, text=True, timeout=SERVE_TIMEOUT,
+                              env={**os.environ, "PYTHONPATH": str(root)})
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise SmokeError(f"serving: the serving process failed:\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        if any(m.startswith("comet_tpu_torch.models") for m in child["imported"]):
+            raise SmokeError(f"serving: the serving process imported {child['imported']}")
+        print(f"serving: a fresh process ({wall:.1f} s) loaded the three artifacts and "
+              f"imported {child['imported']}", flush=True)
+        for route_name in results:
+            r, c = results[route_name], child[route_name]
+            got = torch.load(os.path.join(tmp, f"served_{route_name}.pt"))
+            if any(used != r["per_call"] for used in c["launches"]):
+                raise SmokeError(f"serving {route_name}: launches per served call "
+                                 f"{c['launches']}, want {r['per_call']}")
+            if route_name == "windowed":
+                diffs = [_largest_diffs(torch, dict(enumerate(g)), dict(enumerate(e)))
+                         for g, e in zip(got, eager[route_name])]
+                enc, trk = eager[route_name][0]
+                ulp = torch.finfo(torch.float32).eps * max(enc.abs().max().item(), 1.0)
+                ok = all(torch.equal(g[1], e[1]) and (g[0] - e[0]).abs().max().item()
+                         <= WINDOWED_ULPS * ulp for g, e in zip(got, eager[route_name]))
+                shown = f"encodings, tracks: {diffs} (limit {WINDOWED_ULPS} ulps = " \
+                        f"{WINDOWED_ULPS * ulp:.3e}, tracks 0)"
+            else:
+                diffs = [_largest_diffs(torch, g, e) for g, e in zip(got, eager[route_name])]
+                ok = all(torch.equal(g[k], e[k]) for g, e in zip(got, eager[route_name])
+                         for k in e)
+                shown = f"largest |served - eager| per output {diffs}"
+            r.update(served_ms=c["ms"], load_s=c["load_s"], diffs=diffs,
+                     launches=c["launches"][-1])
+            med = statistics.median(c["ms"][1:])
+            eager_med = statistics.median(r["eager_ms"][1:])
+            print(f"serving, {route_name}: served {['%.1f' % ms for ms in c['ms']]} ms (median "
+                  f"of calls 2.. {med:.1f}) against eager {eager_med:.1f}; artifact loaded in "
+                  f"{c['load_s']:.1f} s (+ {c['call_and_params_s']:.1f} s callable and weights); "
+                  f"launches per call {c['launches'][-1]}; {shown}; on {smi}", flush=True)
+            if not ok:
+                raise SmokeError(f"serving {route_name}: the served outputs are not the eager "
+                                 f"ones: {shown}")
+    del served, eager
+    return results
+
+
 def _profile_step(torch, step, request, gt, step_ms):
     """torch.profiler over one warm train step: its device time and the
     device's idle share of the median step."""
@@ -1854,7 +2121,11 @@ def main(argv=None) -> int:
                              "(PATH with the route's name added)")
     parser.add_argument("--requests", type=int, default=REQUESTS,
                         help=f"requests the main path answers on each route (default {REQUESTS})")
+    parser.add_argument("--serve", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.serve:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return serve_child(args.serve)
 
     import torch
 
@@ -1871,9 +2142,9 @@ def main(argv=None) -> int:
         from comet_tpu_torch import geometry as geom
         from comet_tpu_torch import models, training
         from comet_tpu_torch.models import windowed
-        from comet_tpu_torch.ops import attn, autograd, block, kernels, norm
+        from comet_tpu_torch.ops import attn, library, block, kernels, norm
         from comet_tpu_torch.training import loop as loop_mod
-        from comet_tpu_torch.utils import serialization
+        from comet_tpu_torch.utils import serialization, serving
     except ImportError as exc:
         print(f"chip_smoke: the comet_tpu_torch package is not beside this script ({exc})",
               file=sys.stderr)
@@ -1882,12 +2153,11 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {name} was imported", file=sys.stderr)
         return 2
 
-    counters = dict(K1=attn.fused_attention, K2=block.fused_attn_block, K3=attn.short_attention,
-                    K4=block.fused_cross_block, K5=norm.fused_layer_norm)
+    counters = _counters()
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    card_name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
-    print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
+    print(f"device: {card_name} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
           f"nvidia-smi: {smi}", flush=True)
     runs = {}
     started = time.perf_counter()
@@ -1912,6 +2182,7 @@ def main(argv=None) -> int:
                        K3=check_k3(torch, F, attn, dev, gen, floor_ms),
                        K4=check_k4(torch, block, dev, gen),
                        K5=check_k5(torch, F, norm, dev, gen, floor_ms))
+        decorator_probe(torch, norm, dev)
         check_edges(torch, attn, block, dev, gen)
         check_edges_k3_k5(torch, attn, norm, dev, gen)
         cfg = tcfg.get_config("ours")
@@ -1935,11 +2206,13 @@ def main(argv=None) -> int:
                                                    runs)
         evals = eval_phase(torch, np, cfg, model, data, loop_mod, geom, counters, dev, smi)
         backward = check_backward(torch, F, attn, norm, dev)
-        train = train_phase(torch, np, tcfg, geom, training, autograd, bench_lib, cfg, model,
+        train = train_phase(torch, np, tcfg, geom, training, library, bench_lib, cfg, model,
                             counters, dev, smi)
-        windowed_runs = windowed_phase(torch, np, tcfg, geom, models, windowed, training, autograd,
+        windowed_runs = windowed_phase(torch, np, tcfg, geom, models, windowed, training, library,
                                        serialization, cfg, model, counters, dev, smi)
         cli_walls = cli_phase(torch, cfg, counters, smi)
+        serve = serving_phase(torch, tcfg, windowed, serialization, serving, cfg, model, counters,
+                              dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1967,6 +2240,7 @@ def main(argv=None) -> int:
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
                 host_us=r["host_us"], library_host_us=r["library_host_us"], tolerance=r["tolerance"],
+                inference_host_us=r["inference_host_us"], launch_host_us=r["launch_host_us"],
                 floor_ms=r.get("floor_ms"), copy_ms=r.get("copy_ms"),
             ))
     for r in checked["K1_forms"]:
@@ -1993,7 +2267,7 @@ def main(argv=None) -> int:
         by_route = {rn: t["backwards"].get(key, 0) for rn, t in train.items()}
         record.append(dict(
             name=f"{r['kernel']} backward {r['where']} {r['shape']}", route="cuda",
-            source="comet_tpu_torch/ops/autograd.py",
+            source="comet_tpu_torch/ops/library.py",
             replaces=("comet_tpu/ops/pallas_attn.py:196" if r["kernel"] == "K1"
                       else "comet_tpu/ops/pallas_norm.py:82"),
             launches=sum(by_route.values()), launches_by_route=by_route,
@@ -2030,10 +2304,17 @@ def main(argv=None) -> int:
               f"{ {k: (v['in_forwards'], v['own']) for k, v in w['syncs'].items()} }", flush=True)
     print(f"cli: wall seconds {json.dumps({k: round(v, 1) for k, v in cli_walls.items()})}",
           flush=True)
+    for served_name, r in serve.items():
+        print(f"serving, {served_name}: served median {statistics.median(r['served_ms'][1:]):.1f} ms "
+              f"against eager {statistics.median(r['eager_ms'][1:]):.1f}; largest |served - "
+              f"eager| {max(max(d.values()) for d in r['diffs']):.3e}; export "
+              f"{r['export_s']:.1f} s, save {r['save_s']:.1f} s, load {r['load_s']:.1f} s, "
+              f"{r['manifest']['artifact_bytes']} bytes; launches per call {r['launches']}",
+              flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -7,7 +7,8 @@ The port of ``comet_tpu`` (JAX, TPU), module for module: ``config``,
 ``metrics``, ``training`` (the train and eval loops, the optimizer,
 checkpoints), ``bench_lib``, ``entry`` and the command line ``cli``, with
 ``twoview`` (triangulation) and ``utils`` (weight files, the one-time
-inference cast, the demo's exports) behind it. It
+inference cast, the demo's exports, the serving export, profiling) behind
+it. It
 imports neither JAX nor ``comet_tpu``. Public functions keep the JAX
 layouts: images [B, S, H, W, 3], queries [B, N, 2]. Entry points run on the
 CUDA card unless the caller passes ``device="cpu"``.

@@ -1,4 +1,4 @@
-"""Command-line interface of the port: ``python -m comet_tpu_torch.cli <eval|train|demo|bench>``.
+"""Command-line interface of the port: ``python -m comet_tpu_torch.cli <eval|train|demo|bench|export>``.
 
 Counterpart of ``comet_tpu/cli.py``, with its arguments and outputs:
 
@@ -6,6 +6,7 @@ Counterpart of ``comet_tpu/cli.py``, with its arguments and outputs:
   train --preset ours --data-root datasets/AMD --epochs 300 [--windowed]
   demo  --preset ours --data-root datasets/DCA_SpaceNet/model1/testing
   bench --preset ours --suite infer|train|data|all
+  export --preset ours [--seq-frames 48] [--batch 1] [--output path.pt2]
 
 Every command runs on the CUDA card unless ``--device cpu`` is given, and
 raises without a card. ``eval`` writes ``test_results.csv`` rows compatible
@@ -13,8 +14,10 @@ with the reference's CsvLogger; ``train`` writes ``train_results.csv``,
 ``ckpt/ckpt_NNNNNN`` (the port's ``torch.save`` format) and the best
 weights as ``ckpt/best.pt`` beside ``best.json``; ``demo`` writes per
 sequence the results JSON, a GLB and an HTML scene, a reprojection video and
-a COLMAP text model, and runs sequences longer than ``seqlen`` in windows.
-The ``export`` and ``match`` subcommands, the native loader, the
+a COLMAP text model, and runs sequences longer than ``seqlen`` in windows;
+``export`` writes a ``torch.export`` artifact of the forward (or of the
+windowed chain for ``--seq-frames`` frames) and its JSON manifest
+(``utils/serving.py``). The ``match`` subcommand, the native loader, the
 ``superpoint`` keypoints and more than one device are not ported yet and
 raise.
 """
@@ -28,6 +31,8 @@ import os
 import time
 
 NOT_PORTED = "not ported yet"
+# the devices an artifact is exported for (JAX's --platforms)
+EXPORT_DEVICES = ("cuda", "cpu")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -488,18 +493,65 @@ def cmd_bench(args):
             device=device))))
 
 
+def cmd_export(args):
+    """Serving export: the forward (or, with ``--seq-frames``, the windowed
+    chain for that many frames) traced by ``torch.export`` with the
+    weights as a runtime input, written to ``<output-dir>/comet_<preset>_
+    forward.pt2`` (or ``..._windowed<T>.pt2``) with a JSON manifest beside
+    it; prints the artifact's path and the manifest. JAX's ``--platforms``
+    names the device here: ``cuda`` (the default) or ``cpu``."""
+    from .utils import serving
+
+    _check_ported(args)
+    if args.platforms is not None:
+        if args.platforms not in EXPORT_DEVICES:
+            raise ValueError(f"export: --platforms {args.platforms!r}: this port exports for one "
+                             f"of {EXPORT_DEVICES}")
+        if args.device is not None and args.device != args.platforms:
+            raise ValueError(f"export: --platforms {args.platforms} and --device {args.device} "
+                             "disagree")
+        args.device = args.platforms
+    cfg = _build(args)
+    device = _device(args)
+    # random weights: the artifact takes its weights as an input
+    model = _init_model(cfg, seed=args.seed, inference=True, device=device)
+    extra = {"preset": args.preset, "batch": args.batch}
+    if args.seq_frames:
+        exported = serving.export_windowed(model, cfg, args.seq_frames, device=device,
+                                           params_dtype=cfg.dtype)
+        stem = f"comet_{args.preset}_windowed{args.seq_frames}"
+        extra.update(batch=1, total_frames=args.seq_frames)
+    else:
+        exported = serving.export_forward(model, cfg, batch=args.batch, device=device,
+                                          params_dtype=cfg.dtype)
+        stem = f"comet_{args.preset}_forward"
+    out = args.output or os.path.join(args.output_dir, stem + ".pt2")
+    manifest = serving.save_exported(exported, out, cfg=cfg, extra_manifest=extra)
+    print(json.dumps({"artifact": out, **manifest}, sort_keys=True))
+
+
 def cmd_not_ported(args):
-    raise _not_ported(f"the {args.command} subcommand",
-                      "6" if args.command == "export" else "8")
+    raise _not_ported(f"the {args.command} subcommand", "8")
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser("comet_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     for name, fn in [("eval", cmd_eval), ("train", cmd_train), ("demo", cmd_demo),
-                     ("bench", cmd_bench)]:
+                     ("bench", cmd_bench), ("export", cmd_export)]:
         p = sub.add_parser(name)
         _common(p)
+        if name == "export":
+            p.add_argument("--output", default=None,
+                           help="artifact path (default <output-dir>/comet_<preset>_forward.pt2); "
+                                "a JSON manifest is written next to it")
+            p.add_argument("--batch", type=int, default=1,
+                           help="serving batch size fixed in the artifact")
+            p.add_argument("--platforms", default=None,
+                           help="the device the artifact is for: cuda (default) or cpu")
+            p.add_argument("--seq-frames", type=int, default=None,
+                           help="export the windowed chain for sequences of this many frames "
+                                "instead of the seqlen forward")
         if name == "bench":
             p.add_argument("--suite", default="infer", choices=["infer", "train", "data", "all"],
                            help="infer: pure-tensor forward; train: the train step; data: eval "
@@ -534,8 +586,7 @@ def main(argv=None):
             p.add_argument("--num-processes", type=int, default=None)
             p.add_argument("--process-id", type=int, default=None)
         p.set_defaults(fn=fn)
-    for name in ("export", "match"):
-        sub.add_parser(name, help=NOT_PORTED).set_defaults(fn=cmd_not_ported)
+    sub.add_parser("match", help=NOT_PORTED).set_defaults(fn=cmd_not_ported)
     args, unknown = parser.parse_known_args(argv)
     if unknown and args.fn is not cmd_not_ported:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")

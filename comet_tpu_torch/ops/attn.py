@@ -6,9 +6,11 @@ sequences (Lq <= 64, Lk <= 64 and B*Lq >= 256, the JAX packed regime) to
 K3, :func:`short_attention` (``csrc/short_attn.cu``), and every other call
 to K1 (``csrc/attn.cu``), including the shapes the JAX package sends to its
 reference. On a CPU tensor both run :func:`attention_reference`, the plain
-PyTorch version of the same function. Both are differentiable: the
-gradient is the plain version's, recomputed from the saved inputs
-(``ops/autograd.py``), as the JAX package's ``custom_vjp`` does.
+PyTorch version of the same function. Both call the registered operators
+``comet::attention`` and ``comet::short_attention`` (``ops/library.py``),
+whose dispatch key picks the kernel or the plain version, and which are
+differentiable: the gradient is the plain version's, recomputed from the
+saved inputs, as the JAX package's ``custom_vjp`` does.
 
 ``fused_attention(..., softmax=form)`` computes one of the two inexact A/B
 softmax forms of ``tools/micro_softmax_variants.py`` (``nomax``: the
@@ -26,7 +28,6 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import kernels
-from .autograd import plain_backward
 
 SUPPORTED_HEAD_DIMS = (32, 48, 64, 96)
 # the softmax forms of fused_attention: K1's own, then the A/B forms (their
@@ -246,16 +247,19 @@ def short_attention(
     """K3: :func:`fused_attention` for Lq, Lk <= 64, each (sequence, head)
     computed directly by one warp per 16 query rows. Same arguments and
     result, differentiable through the plain version. ``plan``, for tests
-    and measurement: launch with this plan instead of :func:`short_plan`'s."""
+    and measurement on the card: launch K3 directly (:func:`short_launch`,
+    not differentiable) with this plan instead of :func:`short_plan`'s."""
     c = q.shape[2]
     if scale is None:
         scale = 1.0 / (c // num_heads) ** 0.5
-    return plain_backward(lambda q, k, v: _short_launch(q, k, v, num_heads, scale, plan),
-                          lambda q, k, v: attention_reference(q, k, v, num_heads, scale),
-                          q, k, v)
+    if plan is not None:
+        return short_launch(q, k, v, num_heads, scale, plan)
+    return torch.ops.comet.short_attention.default(q, k, v, num_heads, float(scale))
 
 
-def _short_launch(q, k, v, num_heads: int, scale: float, plan: Optional[ShortPlan]):
+def short_launch(q, k, v, num_heads: int, scale: float, plan: Optional[ShortPlan] = None):
+    """K3 on CUDA tensors (``comet::short_attention``'s CUDA implementation):
+    check, plan (or take ``plan``), launch and count."""
     b, lq, c = q.shape
     lk = k.shape[1]
     if lq > SHORT_MAX_LEN or lk > SHORT_MAX_LEN:
@@ -298,12 +302,12 @@ def fused_attention(
         raise ValueError(f"attention: softmax form {softmax!r} not in {SOFTMAX_FORMS}")
     if softmax == "base" and is_short(b, lq, lk):
         return short_attention(q, k, v, num_heads, scale)
-    return plain_backward(
-        lambda q, k, v: _k1_launch(q, k, v, num_heads, scale, softmax),
-        lambda q, k, v: attention_form_reference(q, k, v, num_heads, scale, softmax), q, k, v)
+    return torch.ops.comet.attention.default(q, k, v, num_heads, float(scale), softmax)
 
 
-def _k1_launch(q, k, v, num_heads: int, scale: float, softmax: str):
+def k1_launch(q, k, v, num_heads: int, scale: float, softmax: str):
+    """K1 or one of its softmax forms on CUDA tensors (``comet::attention``'s
+    CUDA implementation): check, launch and count."""
     b, lq, c = q.shape
     lk = k.shape[1]
     if softmax != "base":

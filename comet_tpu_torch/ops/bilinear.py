@@ -46,13 +46,21 @@ def sample_features(
     return top * (1 - dy) + bot * dy
 
 
-@functools.lru_cache(maxsize=None)
 def interp_matrix_align_corners(
     n_in: int, n_out: int, device=None, dtype=torch.float32
 ) -> torch.Tensor:
     """[n_out, n_in] 1-D align-corners bilinear weights: output i reads the
-    source coordinate i * (n_in - 1) / (n_out - 1). Cached; made outside
-    inference mode so that autograd may save them."""
+    source coordinate i * (n_in - 1) / (n_out - 1). Cached, except while
+    ``torch.export`` traces (its tensors are fake: the graph computes the
+    weights itself)."""
+    if torch.compiler.is_compiling():
+        return _interp_matrix(n_in, n_out, device).to(dtype)
+    return _cached_interp_matrix(n_in, n_out, device, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_interp_matrix(n_in: int, n_out: int, device, dtype) -> torch.Tensor:
+    # made outside inference mode so that autograd may save them
     with torch.inference_mode(False):
         return _interp_matrix(n_in, n_out, device).to(dtype)
 

@@ -5,10 +5,11 @@ Counterparts of ``comet_tpu/ops/pallas_block.py::fused_attn_block`` and
 ``fused_cross_block``. On a CUDA tensor every call launches the hand-written
 kernel (``csrc/block.cu``, ``csrc/cross_block.cu``) or raises; on a CPU
 tensor it runs :func:`block_reference` or :func:`cross_block_reference`, the
-plain PyTorch versions with the kernels' rounding points. Weights are in the
+plain PyTorch versions with the kernels' rounding points: the wrappers call
+the registered operators ``comet::attn_block`` and ``comet::cross_block``
+(``ops/library.py``), whose dispatch key picks one. Weights are in the
 port's [out, in] layout. The gradient is the plain version's, recomputed
-from the saved inputs (``ops/autograd.py``), as ``pallas_block.py::_fb_bwd``
-and ``_cb_bwd``.
+from the saved inputs, as ``pallas_block.py::_fb_bwd`` and ``_cb_bwd``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import torch.nn.functional as F
 
 from . import kernels
 from .attn import attention_reference
-from .autograd import plain_backward
 
 # (C, num_heads) K2 and K4 are compiled for: the coarse (384, 8) and fine
 # (256, 8) update-former widths.
@@ -168,13 +168,17 @@ def fused_attn_block(
     ``clocks``, for measurement only: an int64 tensor of 18 on x's device
     that receives where the kernel's first CTA spends its cycles, from a
     separately compiled timed instance of the kernel (the layout is
-    ``comet_attn_block_fwd``'s in ``csrc/block.cu``)."""
-    return plain_backward(lambda *args: _block_launch(*args, num_heads, clocks),
-                          lambda *args: block_reference(*args, num_heads),
-                          x, wqkv, bqkv, wout, bout, w1, b1, w2, b2)
+    ``comet_attn_block_fwd``'s in ``csrc/block.cu``); the kernel is then
+    launched directly (:func:`block_launch`, not differentiable)."""
+    args = (x, wqkv, bqkv, wout, bout, w1, b1, w2, b2, num_heads)
+    if clocks is not None:
+        return block_launch(*args, clocks)
+    return torch.ops.comet.attn_block.default(*args)
 
 
-def _block_launch(x, wqkv, bqkv, wout, bout, w1, b1, w2, b2, num_heads: int, clocks):
+def block_launch(x, wqkv, bqkv, wout, bout, w1, b1, w2, b2, num_heads: int, clocks=None):
+    """K2 on CUDA tensors (``comet::attn_block``'s CUDA implementation):
+    check, plan, launch and count."""
     b, l, c = x.shape
     hidden = w1.shape[0]
     if (c, num_heads) not in SUPPORTED_WIDTHS:
@@ -261,14 +265,20 @@ def fused_cross_block(
     (1, 2, 4 or 8), and ``clocks``, an int64 tensor of 30 on x's device,
     receives where the kernel's first CTAs spend their cycles, from
     separately compiled timed instances (the layout is
-    ``comet_cross_block_fwd``'s in ``csrc/cross_block.cu``)."""
-    return plain_backward(lambda *args: _cross_launch(args, num_heads, split, clocks),
-                          lambda *args: cross_block_reference(*args, num_heads),
-                          x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2)
+    ``comet_cross_block_fwd``'s in ``csrc/cross_block.cu``). With either,
+    the kernel is launched directly (:func:`cross_launch`, not
+    differentiable)."""
+    args = (x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2, num_heads)
+    if split is not None or clocks is not None:
+        return cross_launch(*args, split, clocks)
+    return torch.ops.comet.cross_block.default(*args)
 
 
-def _cross_launch(args, num_heads: int, split: Optional[int], clocks):
-    x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2 = args
+def cross_launch(x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2,
+                 num_heads: int, split: Optional[int] = None, clocks=None):
+    """K4 on CUDA tensors (``comet::cross_block``'s CUDA implementation):
+    check, plan (or take ``split``), launch and count."""
+    args = (x, ctx, gamma, beta, wq, bq, wkv, bkv, wout, bout, w1, b1, w2, b2)
     b, lq, c = x.shape
     lk = ctx.shape[1]
     hidden = w1.shape[0]

@@ -3,8 +3,10 @@
 Counterpart of ``comet_tpu/ops/pallas_norm.py::fused_layer_norm``. On a
 CUDA tensor every call launches the hand-written kernel ``csrc/norm.cu``; on
 a CPU tensor it runs :func:`layer_norm_reference`, the plain PyTorch version
-of the same function. The gradient is the plain version's, recomputed from
-the saved inputs (``ops/autograd.py``), as ``pallas_norm.py::_ln_bwd``.
+of the same function: the wrapper calls the registered operator
+``comet::layer_norm`` (``ops/library.py``), whose dispatch key picks one.
+The gradient is the plain version's, recomputed from the saved inputs, as
+``pallas_norm.py::_ln_bwd``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,6 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import kernels
-from .autograd import plain_backward
 
 MAX_WIDTH = 1024
 # K5 as compiled: CTAs of 256 threads, at most 8 16-byte vectors a lane
@@ -111,11 +112,12 @@ def fused_layer_norm(
     tensor of x's shape and dtype."""
     if (scale is None) != (bias is None):
         raise ValueError("fused_layer_norm: give scale and bias together, or neither")
-    return plain_backward(lambda x, s, b: _launch(x, s, b, eps),
-                          lambda x, s, b: layer_norm_reference(x, s, b, eps), x, scale, bias)
+    return torch.ops.comet.layer_norm.default(x, scale, bias, float(eps))
 
 
-def _launch(x, scale, bias, eps: float) -> torch.Tensor:
+def launch(x, scale, bias, eps: float) -> torch.Tensor:
+    """K5 on CUDA tensors (``comet::layer_norm``'s CUDA implementation):
+    check, plan, launch and count."""
     c = x.shape[-1]
     kind = _DTYPES.get(x.dtype)
     if kind is None:

@@ -17,10 +17,13 @@ same bf16 inputs, with the forms' casts, at K1's atol 3e-2 plus one bf16
 step of the output (2^-7 |y|: the kernel rounds the weights at other points,
 and at Lk 1 moves an output of |y| >= 4 by one step, 0.03125); the
 preprocessing on the card to its CPU run at 1e-5 (f32 products, no TF32).
-Each kernel wrapper's gradient (its autograd Function, whose backward
-recomputes through the plain version) equals the plain version's autograd on
-the same bf16 inputs bit for bit, and one full-width train step per route
-trains the camera predictor alone.
+Each kernel wrapper's gradient (its ``comet::`` operator's registered
+backward, which recomputes through the plain version) equals the plain
+version's autograd on the same bf16 inputs bit for bit, and one full-width
+train step per route trains the camera predictor alone. Each operator
+called directly launches its kernel within the same tolerances, and the
+exported full-width forward, served on each route, launches the eager
+forward's kernels and equals its outputs bit for bit.
 """
 
 import ctypes
@@ -677,3 +680,93 @@ def test_windowed_scan_form_waits_for_nothing_on_the_card(cuda_device):
     assert any("called a synchronizing CUDA operation" in str(w.message) for w in caught)
     assert enc.shape == (1, 48, 7) and trk.shape == (1, 48, 8, 2)
     assert torch.equal(enc[0, 0].cpu(), torch.tensor([0.0, 0, 0, 1, 0, 0, 0]))
+
+
+def _operator_case(g, dev, kernel):
+    """(operator, arguments, the plain version's f32 result, atol, rtol,
+    wrapper whose count the launch raises) at one main-path shape of
+    ``kernel``, in bf16 on the card."""
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).bfloat16()
+
+    def f32(args):
+        return [a.float() if isinstance(a, torch.Tensor) else a for a in args]
+
+    if kernel in ("K1", "K3"):
+        b, l, c = (16, 577, 768) if kernel == "K1" else (576, 16, 384)
+        args = [rnd(b, l, c), rnd(b, l, c), rnd(b, l, c), 8, (c // 8) ** -0.5]
+        if kernel == "K1":
+            return (torch.ops.comet.attention.default, args + ["base"],
+                    attention_reference(*f32(args)), 3e-2, 0, fused_attention)
+        return (torch.ops.comet.short_attention.default, args, attention_reference(*f32(args)),
+                3e-2, 0, short_attention)
+    c, hid = 384, 1536
+    if kernel == "K2":
+        w = [rnd(3 * c, c, std=c ** -0.5), rnd(3 * c, std=0.02), rnd(c, c, std=c ** -0.5),
+             rnd(c, std=0.02), rnd(hid, c, std=c ** -0.5), rnd(hid, std=0.02),
+             rnd(c, hid, std=hid ** -0.5), rnd(c, std=0.02)]
+        args = [rnd(576, 16, c), *w, 8]
+        return (torch.ops.comet.attn_block.default, args, block_reference(*f32(args)), 3e-2,
+                2.0 ** -6, fused_attn_block)
+    if kernel == "K4":
+        args = [rnd(16, 512, c), rnd(16, 64, c), *_cross_weights(g, dev, c, hid), 8]
+        return (torch.ops.comet.cross_block.default, args, cross_block_reference(*f32(args)),
+                3e-2, 2.0 ** -6, fused_cross_block)
+    x = rnd(16 * 581, 768) * 3 + 1
+    scale, bias = (torch.randn(768, generator=g, device=dev) for _ in range(2))
+    args = [x, scale, bias, 1e-6]
+    return (torch.ops.comet.layer_norm.default, args, layer_norm_reference(x.float(), scale, bias),
+            1e-3, 2.0 ** -7, fused_layer_norm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5"])
+def test_operator_cuda_implementation_matches_plain(cuda_device, kernel):
+    """Each ``comet::`` operator called directly on CUDA tensors launches its
+    kernel (the launch counted) and matches the plain version in f32 within
+    the kernel's tolerance above."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    op, args, want, atol, rtol, wrapper = _operator_case(g, cuda_device, kernel)
+    before = wrapper.launches
+    got = op(*args)
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["default", "fused"])
+def test_served_forward_on_the_card(cuda_device, route, tmp_path):
+    """The full-width forward, cast to bf16 once, exported, saved, loaded and
+    served: its graph holds the route's kernels as operator nodes, it
+    launches them as often as the eager forward, and its outputs equal the
+    eager forward's bit for bit."""
+    from comet_tpu_torch.config import FUSED_ROUTE, KernelRoute, get_config
+    from comet_tpu_torch.models import build_comet
+    from comet_tpu_torch.utils import serving
+    from comet_tpu_torch.utils.serialization import cast_params_for_inference
+
+    cfg = get_config("ours")
+    model = build_comet(cfg, device=cuda_device, seed=0,
+                        route=KernelRoute() if route == "default" else FUSED_ROUTE)
+    cast_params_for_inference(model, cfg.dtype).requires_grad_(False)
+    path = str(tmp_path / "forward.pt2")
+    serving.save_exported(serving.export_forward(model, cfg), path, cfg=cfg)
+    served = serving.serving_call(serving.load_exported(path))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    s, hw = cfg.seqlen, cfg.img_size
+    images = torch.randn(1, s, hw, hw, 3, generator=g, device=cuda_device)
+    queries = torch.rand(1, cfg.track_num, 2, generator=g, device=cuda_device) * (hw - 20) + 10
+    counters = (fused_attention, fused_attn_block, short_attention, fused_cross_block,
+                fused_layer_norm)
+
+    def run(call):
+        before = [c.launches for c in counters]
+        with torch.inference_mode():
+            out = call()
+        return out, [c.launches - n for c, n in zip(counters, before)]
+
+    want, eager_launches = run(lambda: model(images, queries))
+    got, served_launches = run(lambda: served(model.state_dict(), images, queries))
+    assert served_launches == eager_launches and sum(eager_launches) > 0
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

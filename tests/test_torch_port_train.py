@@ -1,8 +1,8 @@
 """The port's training path against the JAX package's, on the CPU.
 
 The schedule, the trainable mask, the gradient of every kernel wrapper
-(through its ``PlainBackward`` Function, whose forward on the CPU is the
-plain version), the losses, three train steps, the stop-gradients of the
+(through its registered ``comet::`` operator's backward, whose forward on
+the CPU is the plain version), the losses, three train steps, the stop-gradients of the
 frozen tracker and backbone, checkpoints, the CSV logger and the anomaly
 monitor, ``fit_epoch``, ``run_train_benchmark``, and the overfit check of
 tests/test_overfit.py. Both packages get the same numpy inputs and the same
@@ -49,7 +49,7 @@ from comet_tpu_torch.data import keypoints as tkp
 from comet_tpu_torch.geometry import cameras as tcam
 from comet_tpu_torch.models import build_comet
 from comet_tpu_torch.models import losses as tlosses
-from comet_tpu_torch.ops import attn, autograd, block, norm
+from comet_tpu_torch.ops import attn, block, library, norm
 from comet_tpu_torch.training import (
     CsvLogger, TrainingMonitor, auto_resume, batch_metrics, build_batch, build_optimizer,
     build_train_step, camera_only_mask, fit_epoch,
@@ -214,7 +214,7 @@ def _grads_jax(fn, arrays, cot):
 def _grads_port(fn, arrays, cot):
     ts = [torch.from_numpy(a.copy()).requires_grad_(True) for a in arrays]
     out = fn(*ts)
-    assert isinstance(out.grad_fn, autograd.PlainBackward._backward_cls)
+    assert type(out.grad_fn).__name__.startswith("GeneratedBackwardFor_comet_")
     out.backward(torch.from_numpy(cot))
     return out.detach().numpy(), [t.grad.numpy() for t in ts]
 
@@ -435,13 +435,13 @@ def test_unfrozen_tracker_runs_the_block_functions(monkeypatch, route):
     batch = _batch(jc, seed=4)
     params = _jax_params(jc, batch[0], batch[1], seed=6)
     seen = []
-    backward = autograd.PlainBackward.backward
+    plain_vjp = library.plain_vjp
 
-    def spy(ctx, grad):
-        seen.append(ctx.plain.__qualname__.split(".")[0])
-        return backward(ctx, grad)
+    def spy(name, *args):
+        seen.append(name)
+        return plain_vjp(name, *args)
 
-    monkeypatch.setattr(autograd.PlainBackward, "backward", staticmethod(spy))
+    monkeypatch.setattr(library, "plain_vjp", spy)
     r = tcfg.KernelRoute() if route == "default" else tcfg.FUSED_ROUTE
     runs = {}
     for freeze in (True, False):
@@ -450,9 +450,9 @@ def test_unfrozen_tracker_runs_the_block_functions(monkeypatch, route):
         aux = _port_steps(model, model.cfg, batch, 1)[0]
         runs[freeze] = (aux, model, set(seen))
     (aux_f, frozen, seen_f), (aux_u, unfrozen, seen_u) = runs[True], runs[False]
-    want = {"fused_attn_block"} if route == "default" else {
-        "short_attention", "fused_cross_block", "fused_layer_norm"}
-    assert want <= seen_u and not want & seen_f - {"fused_layer_norm"}
+    want = {"attn_block"} if route == "default" else {
+        "short_attention", "cross_block", "layer_norm"}
+    assert want <= seen_u and not want & seen_f - {"layer_norm"}
     assert torch.equal(aux_f["loss"], aux_u["loss"])
     for name, p in unfrozen.named_parameters():
         if name.startswith(("coarse_tracker.", "fine_tracker.")) and "updateformer" in name:
