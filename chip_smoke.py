@@ -135,7 +135,33 @@ Phases, each of which makes the script exit nonzero when it fails:
    on the same inputs bit for bit (the chain: tracks bit for bit,
    encodings within WINDOWED_ULPS ulps) and its launches per call the
    eager counts; export, save and load times, artifact bytes and the
-   served against the eager median request are printed.
+   served against the eager median request are printed; and
+12. distributed (``comet_tpu_torch/parallel``) on the one card, where NCCL
+   takes one rank only: (a) NCCL at world size 1 through the production
+   path (``init_distributed``, ``make_mesh(n_data=1)``,
+   ``replicate_train_state``, ``fit_epoch(mesh=)``, 2 steps) against
+   ``fit_epoch(mesh=None)`` from the same starting copy on the same
+   sequences: camera parameters, losses and launches per step equal bit for
+   bit; then two ranks on card 0 over gloo, the backend named explicitly,
+   started as ``chip_smoke.py --dist RANK PORT DIR`` (which first probe
+   which gloo collectives take CUDA tensors of f32 and bf16, and fail the
+   phase, printing the probe, where one is missing):
+   (b) data parallelism, each rank a batch of one of the full-width model
+   from seed 0 through DDP for 2 steps, against this process running the
+   same two halves with gradients (g0 + g1) / 2: the losses equal, every
+   tensor ``camera_only_mask`` selects bit for bit (else within
+   ``DIST_FALLBACK`` of the summed learning rates, printed as a miss), every
+   other tensor unchanged, and the gradient bytes reduced per step and a gloo
+   all-reduce of them timed; (c) tensor parallelism, phase 4's modules and
+   inputs under ``shard_params_tp`` on a (data 1, model 2) mesh against the
+   replicated modules on the card, each route, within ``REF_RTOL``: K1 at
+   the local head count (4 of 8; the ViT's gathered 12), K2 and K4 at their
+   whole widths with gathered weights, each rank's parameter bytes against
+   the replicated model's; (d) ``evaluate(mesh=)`` over the eval phase's 4
+   sequences with a callable keypoint backend, the merged averages within
+   ``EVAL_RTOL`` of one process's ``evaluate(eval_batch=2)`` and each
+   rank's scenes its own. The phase's time and launches are printed, and
+   each kernel's record carries its phase-12 launches.
 
 The script prints its total time; the line before the last holds the
 kernels' JSON record, and the last line
@@ -1383,15 +1409,7 @@ def train_phase(torch, np, tcfg, geom, training, library, bench_lib, cfg, model,
     checks of the module's docstring, the parts of a step timed between CUDA
     events, one profiled step for the device's idle share, then
     run_train_benchmark per route."""
-    s = cfg.seqlen
-    rng = np.random.default_rng(5)
-    q = rng.normal(size=(1, s, 4)).astype(np.float32)
-    t_uvz = (rng.normal(size=(1, s, 3)) * 40 + [320.0, 240.0, 0.0]).astype(np.float32)
-    t_uvz[..., 2] = np.abs(t_uvz[..., 2]) + 3.0
-    gt = geom.CameraSet(*(torch.as_tensor(f, device=dev)[None] for f in geom.make_camera_set(
-        torch.from_numpy(q[0] / np.linalg.norm(q[0], axis=-1, keepdims=True)),
-        torch.from_numpy(rng.normal(size=(s, 3)).astype(np.float32)),
-        t_uvz=torch.from_numpy(t_uvz[0]), ratio=0.9)))
+    gt = _train_gt(torch, np, geom, cfg, dev)
     mask = training.camera_only_mask(model)
     results = {}
     for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
@@ -2061,6 +2079,459 @@ def serving_phase(torch, tcfg, windowed, serialization, serving, cfg, model, cou
     return results
 
 
+# phase 12: distributed on the one card. Two ranks cannot share a card under
+# NCCL ("Duplicate GPU detected"), so NCCL runs at world size 1 through the
+# production path, and the 2-rank checks run gloo on CUDA tensors (the
+# backend named explicitly). The 2-rank train steps, the eval sequences, the
+# child group's time limit (s); the data-parallel steps use build_optimizer's
+# schedule at steps_per_epoch 100, whose first two learning rates are summed
+# for DIST_FALLBACK.
+DIST_STEPS = 2
+DIST_TIMEOUT = 900
+# the 2-rank step against one process running the same two halves with
+# gradients (g0 + g1) / 2: bit for bit (the same kernels at the same shapes
+# on the same card, and a 2-rank average is exact in f32). Were it not, each
+# trained element within this fraction of the steps' summed learning rates
+# (Adam moves an element by about lr per step), printed as a miss of bitwise
+DIST_FALLBACK = 0.1
+# gloo's collectives on CUDA tensors, probed by dtype before the phase uses
+# them (the data-parallel step reduces f32, the tensor-parallel forward bf16);
+# one missing fails the phase, printed with the probe
+DIST_PROBE = ("all_reduce", "broadcast", "all_gather")
+
+
+def _train_gt(torch, np, geom, cfg, dev):
+    """The train steps' ground-truth cameras, a batch of one."""
+    s = cfg.seqlen
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(s, 4)).astype(np.float32)
+    t_uvz = (rng.normal(size=(s, 3)) * 40 + [320.0, 240.0, 0.0]).astype(np.float32)
+    t_uvz[..., 2] = np.abs(t_uvz[..., 2]) + 3.0
+    return geom.CameraSet(*(torch.as_tensor(f, device=dev)[None] for f in geom.make_camera_set(
+        torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True)),
+        torch.from_numpy(rng.normal(size=(s, 3)).astype(np.float32)),
+        t_uvz=torch.from_numpy(t_uvz), ratio=0.9)))
+
+
+def _dist_request(torch, cfg, step, rank, dev):
+    """Rank ``rank``'s batch of one at train step ``step``."""
+    return _request(torch, cfg, 300 + 2 * step + rank, dev)
+
+
+def _grid_seed(np, data, cfg):
+    """Query points from the "grid" backend and a fixed generator: the same
+    for a sequence whichever rank or batch it is in."""
+    def seed(sample):
+        frame0 = sample.images[0]
+        frame0 = frame0.float().cpu().numpy() if hasattr(frame0, "cpu") else np.asarray(frame0)
+        return data.seed_query_points(frame0, sample.first_mask, cfg.track_num,
+                                      cfg.min_track_num, backend="grid",
+                                      rng=np.random.default_rng(1234))
+    return seed
+
+
+def _shape_counts(counters):
+    return [[k, list(shape), n] for k, fn in counters.items() for shape, n in
+            fn.launch_shapes.items()]
+
+
+def _probe_gloo(torch, dist, dev):
+    """Which gloo collectives take CUDA tensors of each dtype: name -> "ok"
+    or the error's first line."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for op in DIST_PROBE:
+            x = torch.ones(4, dtype=dtype, device=dev)
+            try:
+                if op == "all_reduce":
+                    dist.all_reduce(x)
+                    ok = bool((x == dist.get_world_size()).all())
+                elif op == "broadcast":
+                    dist.broadcast(x, src=0)
+                    ok = bool((x == 1).all())
+                else:
+                    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+                    dist.all_gather(parts, x)
+                    ok = all(bool((p == 1).all()) for p in parts)
+                out[f"{op} {str(dtype)[6:]}"] = "ok" if ok else "wrong result"
+            except RuntimeError as exc:
+                out[f"{op} {str(dtype)[6:]}"] = str(exc).splitlines()[0][:160]
+    return out
+
+
+def dist_child(rank, port, directory):
+    """``chip_smoke.py --dist RANK PORT DIR``: one of phase 12's two gloo
+    ranks on card 0: (b) DIST_STEPS data-parallel train steps on its batch
+    of one, (d) ``evaluate(mesh=)`` over the eval phase's sequences (rank 0
+    also ``evaluate(eval_batch=2)`` alone), (c) the reference check's
+    modules under ``shard_params_tp`` on a (data 1, model 2) mesh against
+    the replicated modules; writes its results to DIR/rank{RANK}.pt."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from comet_tpu_torch import config as tcfg
+    from comet_tpu_torch import data, geometry as geom, models, parallel, training
+    from comet_tpu_torch.training import data_parallel
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --dist: no CUDA device", file=sys.stderr)
+        return 2
+    counters = _counters()
+    dev = parallel.init_distributed(f"localhost:{port}", 2, rank, device="cuda:0",
+                                    backend="gloo", timeout_s=DIST_TIMEOUT)
+    res = {"probe": _probe_gloo(torch, dist, dev)}
+    if any(v != "ok" for v in res["probe"].values()):
+        # the data-parallel step reduces f32, the tensor-parallel forward bf16
+        torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
+        return 3
+    cfg = tcfg.get_config("ours")
+    model = models.build_comet(cfg, device=dev, seed=0)
+    mask = training.camera_only_mask(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if not mask[n]}
+    mesh = parallel.make_mesh(n_data=2, device="cuda")
+
+    # (b) data parallelism
+    optimizer, scheduler = training.build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+    ddp = data_parallel.replicate_train_state(mesh, model, optimizer)
+    step = training.build_train_step(ddp, cfg, optimizer, scheduler)
+    gt = _train_gt(torch, np, geom, cfg, dev)
+    losses, launches, ms = [], [], []
+    for i in range(DIST_STEPS):
+        images, queries = _dist_request(torch, cfg, i, rank, dev)
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = step(images, queries, gt)
+        losses.append(aux["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(_launches(counters))
+    res["dp"] = dict(losses=losses, launches=launches, ms=ms,
+                     lrs=[scheduler.lr_lambdas[0](i) for i in range(DIST_STEPS)],
+                     unchanged=[n for n, p in model.named_parameters()
+                                if not mask[n] and not torch.equal(p, before[n])])
+    del before
+    grads = [p for n, p in model.named_parameters() if mask[n]]
+    res["dp"]["grad_bytes"] = sum(p.numel() * p.element_size() for p in grads)
+    flat = torch.zeros(sum(p.numel() for p in grads), device=dev)
+    reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, group=mesh.get_group("data"))
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    res["dp"]["reduce_ms"] = reduce_ms
+    del flat
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters() if mask[n]},
+               os.path.join(directory, f"dp_params{rank}.pt"))
+    del ddp, step, optimizer, scheduler, aux
+
+    # (d) the mesh eval
+    raw = make_sequences(np, data, geom, cfg, EVAL_SEQUENCES)
+    seqs = InMemorySequences(torch, np, data, cfg, dev, raw)
+    quiet = dict(keypoint_backend=_grid_seed(np, data, cfg), print_fn=lambda *a: None)
+    _reset(counters)
+    t0 = time.perf_counter()
+    res["eval"] = training.evaluate(model, seqs, cfg, mesh=mesh, **quiet)
+    res["eval_s"] = time.perf_counter() - t0
+    res["eval_launches"] = _launches(counters)
+    if rank == 0:
+        res["eval_one"] = training.evaluate(model, seqs, cfg, eval_batch=2, device=dev, **quiet)
+    dist.barrier()
+
+    # (c) tensor parallelism, each route: the replicated outputs first, then
+    # the same modules sharded over a (data 1, model 2) mesh
+    tp_mesh = parallel.make_mesh(n_data=1, n_model=2, device="cuda")
+    cases = _reference_cases(torch, model)
+    routes = (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE))
+    ref = {}
+    with torch.inference_mode():
+        for route_name, route in routes:
+            model.set_route(route)
+            for where, path, args in cases:
+                out = model.get_submodule(path)(*(a.to(dev) for a in args))
+                ref[route_name, where] = (out.pred_pose_enc if path == "camera_predictor"
+                                          else out).float().cpu()
+    replicated_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    with torch.no_grad():
+        parallel.shard_params_tp(tp_mesh, model)
+    res["tp_bytes"] = (replicated_bytes,
+                       sum(p.numel() * p.element_size() for p in model.parameters()))
+    res["tp"] = {}
+    with torch.inference_mode():
+        for route_name, route in routes:
+            model.set_route(route)
+            _reset(counters)
+            errs = {}
+            for where, path, args in cases:
+                out = model.get_submodule(path)(*(a.to(dev) for a in args))
+                got = (out.pred_pose_enc if path == "camera_predictor" else out).float().cpu()
+                want = ref[route_name, where]
+                errs[where] = ((got - want).abs().max().item(), want.abs().max().item(),
+                               bool(torch.isfinite(got).all()))
+            res["tp"][route_name] = dict(errs=errs, launches=_launches(counters),
+                                         shapes=_shape_counts(counters))
+    torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _halves_reference(torch, np, geom, tcfg, models, training, cfg, dev):
+    """The 2-rank step in one process: each rank's batch of one through the
+    forward and backward on its own, the gradients averaged as DDP averages
+    them, then the optimizer (build_train_step's operations)."""
+    from comet_tpu_torch.training.loop import cameras_to
+
+    model = models.build_comet(cfg, device=dev, seed=0)
+    mask = training.camera_only_mask(model)
+    optimizer, scheduler = training.build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+    trained = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    gt = cameras_to(_train_gt(torch, np, geom, cfg, dev), dev)
+    losses = []
+    for i in range(DIST_STEPS):
+        grads, row = [], []
+        for rank in range(2):
+            optimizer.zero_grad(set_to_none=True)
+            images, queries = _dist_request(torch, cfg, i, rank, dev)
+            out = model(images, queries)
+            loss = models.pose_loss(cfg, out["pred_pose_enc"], models.encode_gt(cfg, gt))["loss"]
+            loss.backward()
+            row.append(loss.item())
+            grads.append([p.grad.clone() for _, p in trained])
+        for (_, p), g0, g1 in zip(trained, *grads):
+            p.grad = (g0 + g1) / 2
+        del grads
+        optimizer.step()
+        scheduler.step()
+        losses.append(row)
+    params = {n: p.detach().cpu() for n, p in trained}
+    del model, optimizer
+    return losses, params
+
+
+def _nccl_world_one(torch, np, data, geom, tcfg, training, parallel, cfg, model, counters, dev,
+                    smi):
+    """Phase 12 (a): NCCL at world size 1 through the production path
+    (init_distributed, make_mesh, replicate_train_state, fit_epoch(mesh=))
+    against fit_epoch(mesh=None), each from its own copy of ``model`` on the
+    same sequences: camera parameters, losses and launches per step equal."""
+    import copy
+
+    from comet_tpu_torch.parallel.launch import free_port
+    from comet_tpu_torch.training import data_parallel
+
+    raw = make_sequences(np, data, geom, cfg, 2, seed=1)
+    seqs = InMemorySequences(torch, np, data, cfg, dev, raw)
+    seed = _grid_seed(np, data, cfg)
+    runs = {}
+    for name in ("mesh=None", "mesh"):
+        m = copy.deepcopy(model)
+        optimizer, scheduler = training.build_optimizer(m, cfg.train.lr, steps_per_epoch=100)
+        mesh = None
+        trained = m
+        if name == "mesh":
+            dev_rank = parallel.init_distributed(f"localhost:{free_port()}", 1, 0, device=dev)
+            mesh = parallel.make_mesh(n_data=1, device="cuda")
+            trained = data_parallel.replicate_train_state(mesh, m, optimizer)
+            backend = torch.distributed.get_backend()
+        step = training.build_train_step(trained, cfg, optimizer, scheduler)
+        losses, launches = [], []
+
+        def counted(*args, step=step, losses=losses, launches=launches):
+            before = _launches(counters)
+            aux = step(*args)
+            launches.append({k: v - before[k] for k, v in _launches(counters).items()})
+            losses.append(aux["loss"].item())
+            return aux
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = training.fit_epoch(counted, seqs, seed, 1, np.arange(2),
+                               device=dev if mesh is None else None, mesh=mesh)
+        torch.cuda.synchronize()
+        mask = training.camera_only_mask(m)
+        runs[name] = dict(steps=n, losses=losses, launches=launches,
+                          seconds=time.perf_counter() - t0,
+                          params={k: p.detach().clone() for k, p in m.named_parameters()
+                                  if mask[k]})
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+        del m, trained, optimizer, step
+    a, b = runs["mesh=None"], runs["mesh"]
+    diff = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+    print(f"distributed (a): NCCL at world size 1 ({backend}, rank device {dev_rank}): "
+          f"fit_epoch(mesh=) {b['steps']} steps in {b['seconds']:.1f} s, losses {b['losses']}, "
+          f"launches per step {b['launches']}; fit_epoch(mesh=None) {a['seconds']:.1f} s, losses "
+          f"{a['losses']}; camera tensors differing {len(diff)} of {len(a['params'])}, on {smi}",
+          flush=True)
+    if backend != "nccl" or a["steps"] != 2 or b["steps"] != 2:
+        raise SmokeError(f"distributed (a): backend {backend}, steps {a['steps']}, {b['steps']}")
+    if a["losses"] != b["losses"] or a["launches"] != b["launches"] or diff:
+        raise SmokeError(f"distributed (a): mesh and mesh-less epochs differ: losses "
+                         f"{a['losses']} / {b['losses']}, launches {a['launches']} / "
+                         f"{b['launches']}, tensors {diff[:4]}")
+    if any(ln != PER_FORWARD["default"] for ln in b["launches"]):
+        raise SmokeError(f"distributed (a): launches per step {b['launches']}")
+    return b
+
+
+def distributed_phase(torch, np, data, geom, tcfg, models, training, parallel, cfg, model,
+                      counters, dev, smi):
+    """Phase 12: (a) NCCL at world size 1 in this process; then 2 gloo ranks
+    on the card (``--dist``) for (b) data parallelism, (c) tensor
+    parallelism and (d) the mesh eval, checked against this process's
+    two-halves step and the ranks' own replicated runs. Returns the
+    phase's record."""
+    import os
+    import tempfile
+
+    from comet_tpu_torch.parallel.launch import free_port
+
+    t_phase = time.perf_counter()
+    model.set_route(tcfg.KernelRoute())
+    nccl = _nccl_world_one(torch, np, data, geom, tcfg, training, parallel, cfg, model, counters,
+                           dev, smi)
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--dist", str(r),
+                                   str(port), tmp], cwd=root, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env={**os.environ, "PYTHONPATH": str(root)})
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        probes = [torch.load(os.path.join(tmp, f"rank{r}.pt"))["probe"] for r in range(2)
+                  if os.path.exists(os.path.join(tmp, f"rank{r}.pt"))]
+        if any(v != "ok" for probe in probes for v in probe.values()):
+            raise SmokeError(f"distributed: gloo does not take these collectives on CUDA "
+                             f"tensors: {probes}")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode:
+                raise SmokeError(f"distributed: rank {r} failed ({p.returncode}):\n{log[-4000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+        dp_params = [torch.load(os.path.join(tmp, f"dp_params{r}.pt")) for r in range(2)]
+    probe = ranks[0]["probe"]
+    print(f"distributed: 2 gloo ranks on card 0 ran in {wall:.1f} s (wall); gloo on CUDA tensors: "
+          f"{json.dumps(probe)}", flush=True)
+
+    # (b) against one process running the same two halves
+    t0 = time.perf_counter()
+    losses, params = _halves_reference(torch, np, geom, tcfg, models, training, cfg, dev)
+    ref_s = time.perf_counter() - t0
+    lr_sum = sum(ranks[0]["dp"]["lrs"])
+    worst, bitwise = 0.0, True
+    for r in range(2):
+        d = ranks[r]["dp"]
+        if d["losses"] != [row[r] for row in losses]:
+            raise SmokeError(f"distributed (b): rank {r} losses {d['losses']}, one process "
+                             f"{[row[r] for row in losses]}")
+        if d["unchanged"]:
+            raise SmokeError(f"distributed (b): rank {r} moved frozen tensors {d['unchanged'][:4]}")
+        if any(ln != PER_FORWARD["default"] for ln in d["launches"]):
+            raise SmokeError(f"distributed (b): rank {r} launches per step {d['launches']}")
+        for k, p in params.items():
+            if not torch.equal(dp_params[r][k], p):
+                bitwise = False
+                worst = max(worst, (dp_params[r][k] - p).abs().max().item())
+    d = ranks[0]["dp"]
+    print(f"distributed (b): 2 ranks x batch 1, {DIST_STEPS} steps: losses {d['losses']} / "
+          f"{ranks[1]['dp']['losses']} equal the one-process halves'; {len(params)} camera "
+          f"tensors {'bit for bit equal' if bitwise else f'max |diff| {worst:.3e}'} (halves in "
+          f"{ref_s:.1f} s); gradient bytes reduced per step {d['grad_bytes']}, gloo all-reduce "
+          f"of them on the card {['%.1f' % x for x in d['reduce_ms']]} ms; step ms "
+          f"{['%.1f' % x for x in d['ms']]}; on {smi}", flush=True)
+    if not bitwise and not worst <= DIST_FALLBACK * lr_sum:
+        raise SmokeError(f"distributed (b): camera tensors differ by {worst} > {DIST_FALLBACK} x "
+                         f"{lr_sum}")
+    if not bitwise:
+        print(f"distributed (b): MISS of bitwise, within {DIST_FALLBACK} x the summed learning "
+              f"rates {lr_sum:.3e}", flush=True)
+
+    # (c) tensor parallelism
+    full, mine = ranks[0]["tp_bytes"]
+    for route_name in ("default", "fused"):
+        for r in range(2):
+            t = ranks[r]["tp"][route_name]
+            for where, (err, scale, finite) in t["errs"].items():
+                if not finite or not err <= REF_RTOL * scale:
+                    raise SmokeError(f"distributed (c) {route_name} rank {r} {where}: max |TP - "
+                                     f"replicated| {err} > {REF_RTOL} * {scale}")
+        t = ranks[0]["tp"][route_name]
+        k1_heads = sorted({s[-1] for k, s, _ in t["shapes"] if k == "K1"})
+        whole = {k: sorted({tuple(s) for kk, s, _ in t["shapes"] if kk == k}) for k in
+                 ("K2", "K4")}
+        widths = {s[-3:] for k in whole for s in whole[k]}
+        print(f"distributed (c), {route_name} route: model axis 2, launches {t['launches']}, K1 "
+              f"at head counts {k1_heads}, K2/K4 shapes {whole}; max |TP - replicated| / max "
+              f"|replicated| " + ", ".join(f"{w}: {e / s:.2e}" for w, (e, s, _) in
+                                             t["errs"].items())
+              + f" (limit {REF_RTOL}); on {smi}", flush=True)
+        want_used = ("K1", "K2") if route_name == "default" else ("K1", "K3", "K4", "K5")
+        if any(t["launches"][k] == 0 for k in want_used):
+            raise SmokeError(f"distributed (c) {route_name}: a kernel never ran: {t['launches']}")
+        # every multi-head attention's 8 heads split 4 + 4; the ViT's qkv is
+        # gathered (12 heads); K2 and K4 take whole-block weights
+        if k1_heads != [4, 12]:
+            raise SmokeError(f"distributed (c) {route_name}: K1 at head counts {k1_heads}, want "
+                             "the local 4 of 8 and the ViT's 12")
+        if not widths or not widths <= {(384, 8, 1536), (256, 8, 1024)}:
+            raise SmokeError(f"distributed (c) {route_name}: K2/K4 at {whole}, not at their "
+                             "whole widths")
+    print(f"distributed (c): parameter bytes per rank {mine} against {full} replicated "
+          f"({mine / full:.3f}), on {smi}", flush=True)
+
+    # (d) the mesh eval
+    one = ranks[0]["eval_one"]
+    worst = 0.0
+    for r in range(2):
+        got = ranks[r]["eval"]
+        for k in sorted(k for k in one if k != "sec/it" and not k.startswith("Auc_scene")):
+            gap = abs(got[k] - one[k]) - EVAL_RTOL * abs(one[k])
+            worst = max(worst, gap)
+            if gap > EVAL_ATOL or not math.isfinite(got[k]):
+                raise SmokeError(f"distributed (d) rank {r} {k}: {got[k]} merged, {one[k]} in "
+                                 "one process at eval_batch 2")
+    scenes = [sorted(k for k in ranks[r]["eval"] if k.startswith("Auc_scene")) for r in range(2)]
+    print(f"distributed (d): evaluate(mesh=) over {EVAL_SEQUENCES} sequences in "
+          f"{ranks[0]['eval_s']:.1f} s per rank, launches per rank {ranks[0]['eval_launches']}; "
+          f"merged averages within {EVAL_ATOL} + {EVAL_RTOL}|x| of evaluate(eval_batch=2) "
+          f"(largest excess {worst:.3e}); R_avg {ranks[0]['eval']['R_avg']:.4f} against "
+          f"{one['R_avg']:.4f}; scenes per rank {[len(s) for s in scenes]}, on {smi}", flush=True)
+    if set(scenes[0]) & set(scenes[1]) or len(scenes[0]) + len(scenes[1]) != EVAL_SEQUENCES:
+        raise SmokeError(f"distributed (d): scenes per rank {scenes}")
+    seconds = time.perf_counter() - t_phase
+    print(f"distributed: phase 12 in {seconds:.1f} s, on {smi}", flush=True)
+    # the TP forwards' launches by shape (the train steps' and the evals' are
+    # the main path's shapes)
+    shapes = Counter()
+    for r in range(2):
+        for route_name in ("default", "fused"):
+            for k, s, n in ranks[r]["tp"][route_name]["shapes"]:
+                shapes[k, tuple(s)] += n
+    launches = {k: sum(ln[k] for ln in nccl["launches"]) for k in KERNELS}
+    for r in range(2):
+        for k in KERNELS:
+            launches[k] += ranks[r]["eval_launches"][k] + sum(
+                ln[k] for ln in ranks[r]["dp"]["launches"]) + sum(
+                ranks[r]["tp"][rn]["launches"][k] for rn in ("default", "fused"))
+    return dict(seconds=seconds, launches=launches, shapes=shapes, probe=probe,
+                grad_bytes=d["grad_bytes"], reduce_ms=d["reduce_ms"], tp_bytes=(mine, full))
+
+
 def _profile_step(torch, step, request, gt, step_ms):
     """torch.profiler over one warm train step: its device time and the
     device's idle share of the median step."""
@@ -2122,10 +2593,14 @@ def main(argv=None) -> int:
     parser.add_argument("--requests", type=int, default=REQUESTS,
                         help=f"requests the main path answers on each route (default {REQUESTS})")
     parser.add_argument("--serve", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--dist", nargs=3, metavar=("RANK", "PORT", "DIR"), help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.serve:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         return serve_child(args.serve)
+    if args.dist:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return dist_child(int(args.dist[0]), int(args.dist[1]), args.dist[2])
 
     import torch
 
@@ -2140,7 +2615,7 @@ def main(argv=None) -> int:
         from comet_tpu_torch import bench_lib, data
         from comet_tpu_torch import config as tcfg
         from comet_tpu_torch import geometry as geom
-        from comet_tpu_torch import models, training
+        from comet_tpu_torch import models, parallel, training
         from comet_tpu_torch.models import windowed
         from comet_tpu_torch.ops import attn, library, block, kernels, norm
         from comet_tpu_torch.training import loop as loop_mod
@@ -2213,6 +2688,8 @@ def main(argv=None) -> int:
         cli_walls = cli_phase(torch, cfg, counters, smi)
         serve = serving_phase(torch, tcfg, windowed, serialization, serving, cfg, model, counters,
                               dev, smi)
+        distributed = distributed_phase(torch, np, data, geom, tcfg, models, training, parallel,
+                                        cfg, model, counters, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2242,6 +2719,7 @@ def main(argv=None) -> int:
                 host_us=r["host_us"], library_host_us=r["library_host_us"], tolerance=r["tolerance"],
                 inference_host_us=r["inference_host_us"], launch_host_us=r["launch_host_us"],
                 floor_ms=r.get("floor_ms"), copy_ms=r.get("copy_ms"),
+                phase12_launches_of_kernel=distributed["launches"][kernel],
             ))
     for r in checked["K1_forms"]:
         # launches: this form at this shape in run_softmax_variants
@@ -2311,6 +2789,13 @@ def main(argv=None) -> int:
               f"{r['export_s']:.1f} s, save {r['save_s']:.1f} s, load {r['load_s']:.1f} s, "
               f"{r['manifest']['artifact_bytes']} bytes; launches per call {r['launches']}",
               flush=True)
+    print(f"distributed: phase 12 {distributed['seconds']:.1f} s; launches per kernel "
+          f"{distributed['launches']}; gradient bytes per step {distributed['grad_bytes']}, "
+          f"all-reduce {['%.1f' % x for x in distributed['reduce_ms']]} ms (gloo, one card); "
+          f"TP parameter bytes per rank {distributed['tp_bytes'][0]} of "
+          f"{distributed['tp_bytes'][1]}; TP launches by shape "
+          f"{ {f'{k} {s}': n for (k, s), n in sorted(distributed['shapes'].items())} }",
+          flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -5,7 +5,9 @@ The port of ``comet_tpu`` (JAX, TPU), module for module: ``config``,
 ``models`` (with the windowed long-sequence mode), the weight bridge
 ``weights``, and the train, eval and bench entry points: ``data``,
 ``metrics``, ``training`` (the train and eval loops, the optimizer,
-checkpoints), ``bench_lib``, ``entry`` and the command line ``cli``, with
+checkpoints), ``bench_lib``, ``entry`` and the command line ``cli``, the
+distributed layer ``parallel`` (the (data, model) mesh over
+``torch.distributed``, data and tensor parallelism), with
 ``twoview`` (triangulation) and ``utils`` (weight files, the one-time
 inference cast, the demo's exports, the serving export, profiling) behind
 it. It

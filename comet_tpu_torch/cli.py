@@ -17,9 +17,12 @@ sequence the results JSON, a GLB and an HTML scene, a reprojection video and
 a COLMAP text model, and runs sequences longer than ``seqlen`` in windows;
 ``export`` writes a ``torch.export`` artifact of the forward (or of the
 windowed chain for ``--seq-frames`` frames) and its JSON manifest
-(``utils/serving.py``). The ``match`` subcommand, the native loader, the
-``superpoint`` keypoints and more than one device are not ported yet and
-raise.
+(``utils/serving.py``). ``train`` runs data-parallel with one process per
+device: ``--n-devices N`` starts N local ranks, ``--coordinator HOST:PORT
+--num-processes P --process-id I`` joins a group of P processes (NCCL on the
+cards, gloo on the CPU); rank 0 alone writes the CSV, the checkpoints and
+``best.*``. The ``match`` subcommand, the native loader and the
+``superpoint`` keypoints are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import argparse
 import json
 import math
 import os
+import sys
 import time
 
 NOT_PORTED = "not ported yet"
@@ -108,8 +112,6 @@ def _check_ported(args):
         raise _not_ported("--loader native", "2a")
     if getattr(args, "keypoints", "corners") == "superpoint":
         raise _not_ported("--keypoints superpoint", "2c")
-    if (getattr(args, "n_devices", None) or 1) > 1 or getattr(args, "coordinator", None):
-        raise _not_ported("training on more than one device (--n-devices, --coordinator)", "5")
 
 
 def _finite_json(obj):
@@ -195,12 +197,16 @@ def cmd_train(args):
     import dataclasses
 
     import numpy as np
+    import torch.distributed as dist
 
     from .data import AMDDataset, seed_query_points
+    from .parallel import init_distributed, make_mesh
     from .training import (
         CsvLogger, RunningStats, TrainingMonitor, auto_resume, build_optimizer,
         build_train_step, evaluate, fit_epoch, process_local_order, save_checkpoint,
     )
+    from .training.data_parallel import agreed_steps, replicate_train_state
+    from .training.loop import _merge_process_averages
     from .training.stats import TO_PLOT_METRICS
 
     _check_ported(args)
@@ -214,64 +220,94 @@ def cmd_train(args):
         train_over["eval_interval"] = args.eval_interval
     if train_over:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train_over))
-    device = _device(args)
-    model = _init_model(cfg, args.seed, args.checkpoint, inference=False, device=device)
 
     windowed = args.windowed
     train_seq_len = (args.train_seq_len or 2 * cfg.seqlen) if windowed else cfg.seqlen
     train_ds = AMDDataset(os.path.join(cfg.data_root, "AMD_train"), crop_size=cfg.img_size,
                           seq_len=train_seq_len, use_augs=True, seed=cfg.train.seed)
+
+    # data-parallel topology, one process per device: --coordinator joins a
+    # group (every process passes it); --n-devices N > 1 alone starts N
+    # local ranks that do; else one process on one device
+    if args.coordinator:
+        device = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                  device=args.device)
+        world, rank = dist.get_world_size(), dist.get_rank()
+        global_batch = max(args.global_batch or world, 1)
+    else:
+        world, rank = 1, 0
+        n_devices = max(args.n_devices or 1, 1)
+        global_batch = max(args.global_batch or n_devices, 1)
+        if 0 < len(train_ds) < global_batch:
+            # batches are whole, so a batch wider than the data would give
+            # no step: clamp it, and the devices to a count that divides it
+            global_batch = len(train_ds)
+            print(f"note: dataset smaller than the requested batch — clamped to global batch "
+                  f"{global_batch}")
+        n_devices = math.gcd(n_devices, global_batch)
+        if n_devices > 1:
+            return _spawn_local_ranks(args, n_devices, global_batch)
+        device = _device(args)
+    local_len = len(range(rank, len(train_ds), world))
+    if world > 1:
+        # an uneven global batch would silently floor each process's share
+        if global_batch % world:
+            raise SystemExit(f"--global-batch {global_batch} must be divisible by the process "
+                             f"count {world}")
+        local_batch = global_batch // world
+        if 0 < local_len < local_batch:
+            raise SystemExit(f"dataset shard ({local_len} sequences/process) smaller than the "
+                             f"per-process batch {local_batch}; lower --global-batch")
+    else:
+        local_batch = global_batch = min(global_batch, max(local_len, 1))
+    mesh = make_mesh(n_data=world, device=device) if world > 1 else None
+    lead = rank == 0  # writes the CSV, the checkpoints and best.*
+    steps_per_epoch = max(local_len // local_batch, 1)
+    print(f"data-parallel: {world} device(s) x {world} process(es), global batch {global_batch}, "
+          f"{steps_per_epoch} steps/epoch")
+
+    model = _init_model(cfg, args.seed, args.checkpoint, inference=False, device=device)
     eval_ds = AMDDataset(os.path.join(cfg.data_root, "AMD_eval"), crop_size=cfg.img_size,
                          seq_len=cfg.seqlen, use_augs=False)
     train_ds = _maybe_device_preprocess(train_ds, args, device)
     eval_ds = _maybe_device_preprocess(eval_ds, args, device)
-
-    # one device, one process: the batch is clamped to the data, as JAX
-    # clamps it (batches are whole, so a batch wider than the data would
-    # give no step)
-    local_len = len(train_ds)
-    batch = max(args.global_batch or 1, 1)
-    if 0 < local_len < batch:
-        batch = local_len
-        print(f"note: dataset smaller than the requested batch — clamped to global batch {batch}")
-    steps_per_epoch = max(local_len // batch, 1)
-    print(f"data-parallel: 1 device(s) x 1 process(es), global batch {batch}, "
-          f"{steps_per_epoch} steps/epoch")
     optimizer, scheduler = build_optimizer(
         model, cfg.train.lr, steps_per_epoch, cfg.train.restart_num, cfg.train.warmup_ratio,
         cfg.train.warmup_lr_init, cfg.train.clip_grad)
     schedule = scheduler.lr_lambdas[0]
+    ckpt_dir = os.path.join(args.output_dir, "ckpt")
+    start_epoch, _ = auto_resume(
+        ckpt_dir, {"model": model, "optimizer": optimizer, "scheduler": scheduler})
+    if start_epoch > 0:
+        print(f"resumed from epoch {start_epoch}")
+    # the step trains the data-parallel wrapper; checkpoints hold the model
+    trained = replicate_train_state(mesh, model, optimizer) if mesh is not None else model
     tf_sched = None
     if windowed:
         from .models.windowed import TeacherForcingScheduler
         from .training import build_windowed_train_step
 
-        train_step = build_windowed_train_step(model, cfg, optimizer, scheduler, cfg.seqlen)
+        train_step = build_windowed_train_step(trained, cfg, optimizer, scheduler, cfg.seqlen)
         if args.tf_start > 0:
             tf_sched = TeacherForcingScheduler(args.tf_start, args.tf_end, args.tf_epochs)
         print(f"windowed training: T={train_seq_len} frames in windows of {cfg.seqlen}, teacher "
               f"forcing " + (f"{args.tf_start} -> {args.tf_end} over {args.tf_epochs} epochs"
                              if tf_sched else "off"))
     else:
-        train_step = build_train_step(model, cfg, optimizer, scheduler)
-
-    ckpt_dir = os.path.join(args.output_dir, "ckpt")
-    start_epoch, _ = auto_resume(
-        ckpt_dir, {"model": model, "optimizer": optimizer, "scheduler": scheduler})
-    if start_epoch > 0:
-        print(f"resumed from epoch {start_epoch}")
+        train_step = build_train_step(trained, cfg, optimizer, scheduler)
 
     # the training CSV adds loss columns ahead of the reference's metric
     # tuple; eval CSVs keep the reference's fieldnames
     logger = CsvLogger(os.path.join(args.output_dir, "train_results.csv"),
                        fieldnames=("loss", "loss_rot", "loss_trans", "tf_ratio", *TO_PLOT_METRICS))
-    try:
-        from .training.stats import write_live_dashboard
+    if lead:
+        try:
+            from .training.stats import write_live_dashboard
 
-        dash = write_live_dashboard(logger.path)
-        print(f"live dashboard: {dash} (open in a browser; auto-refreshes)")
-    except OSError as exc:  # pragma: no cover - fs dependent
-        print(f"warning: dashboard write failed ({exc!r})")
+            dash = write_live_dashboard(logger.path)
+            print(f"live dashboard: {dash} (open in a browser; auto-refreshes)")
+        except OSError as exc:  # pragma: no cover - fs dependent
+            print(f"warning: dashboard write failed ({exc!r})")
     monitor = TrainingMonitor(os.path.join(args.output_dir, "anomaly_checkpoints"))
     rng = np.random.default_rng(cfg.train.seed)
     global_step = start_epoch * steps_per_epoch
@@ -290,7 +326,8 @@ def cmd_train(args):
         def on_metrics(step_i, rows, _epoch=epoch):
             nonlocal global_step
             for row in rows:
-                monitor.check(row["loss"], global_step, {"epoch": _epoch})
+                if lead:
+                    monitor.check(row["loss"], global_step, {"epoch": _epoch})
                 row["lr"] = float(schedule(global_step))
                 stats.update(row)
             global_step += 1
@@ -298,9 +335,12 @@ def cmd_train(args):
                 print(stats.status_string(step_i, steps_per_epoch, "train"))
 
         if windowed:
-            # long sequences, batch 1: one windowed chain per sequence
+            # long sequences, batch 1 per rank: one windowed chain per
+            # sequence, the ranks' gradients averaged step by step
             from .training import make_gt_cameras, metric_block
 
+            if mesh is not None:
+                order = order[:agreed_steps(mesh, len(order))]
             tf_ratio = tf_sched.ratio(epoch) if tf_sched else 0.0
             for step_i, seq_idx in enumerate(order):
                 sample = train_ds[int(seq_idx)]
@@ -313,27 +353,57 @@ def cmd_train(args):
                 row["tf_ratio"] = tf_ratio
                 on_metrics(step_i, [row])
         else:
-            fit_epoch(train_step, train_ds, seed_fn, batch, order, device=device,
+            fit_epoch(train_step, train_ds, seed_fn, local_batch, order, device=device, mesh=mesh,
                       on_metrics=on_metrics)
 
-        logger.log(epoch, stats.averages())
-        if epoch > 0:
-            # chart failures (no matplotlib, a headless backend) never stop training
-            try:
-                from .training.stats import plot_metrics_png
+        # the epoch's row: the averages over every rank's rows
+        row = _merge_process_averages(stats, mesh) if mesh is not None else stats.averages()
+        if lead:
+            logger.log(epoch, row)
+            if epoch > 0:
+                # chart failures (no matplotlib, a headless backend) never stop training
+                try:
+                    from .training.stats import plot_metrics_png
 
-                plot_metrics_png(logger.path)
-            except Exception as exc:  # pragma: no cover - env dependent
-                print(f"warning: metric plot failed ({exc!r})")
-        if (epoch + 1) % cfg.train.ckpt_interval == 0:
+                    plot_metrics_png(logger.path)
+                except Exception as exc:  # pragma: no cover - env dependent
+                    print(f"warning: metric plot failed ({exc!r})")
+        if lead and (epoch + 1) % cfg.train.ckpt_interval == 0:
             save_checkpoint(ckpt_dir, epoch, {"model": model, "optimizer": optimizer,
                                               "scheduler": scheduler})
         if (epoch + 1) % cfg.train.eval_interval == 0:
             eval_metrics = evaluate(model, eval_ds, cfg, keypoint_backend=args.keypoints,
-                                    max_sequences=args.max_sequences, device=device)
+                                    max_sequences=args.max_sequences, mesh=mesh, device=device)
             print("eval:", {k: round(v, 4) for k, v in eval_metrics.items()
                             if not k.startswith("Auc_scene")})
-            _maybe_save_best(ckpt_dir, model, eval_metrics, epoch, key=args.best_key)
+            if lead:
+                _maybe_save_best(ckpt_dir, model, eval_metrics, epoch, key=args.best_key)
+    if args.coordinator:
+        dist.destroy_process_group()
+
+
+# the command a local rank of ``train --n-devices N`` runs, before its arguments
+RANK_COMMAND = ("-m", "comet_tpu_torch.cli")
+
+
+def _spawn_local_ranks(args, n: int, global_batch: int) -> None:
+    """``train --n-devices n`` in one launch: n processes on this machine,
+    one per device (cards 0 .. n-1, or the CPU), joined over localhost with
+    the same arguments and ``--global-batch``; returns when all have ended,
+    and raises if one fails."""
+    import torch
+
+    from .parallel.launch import free_port, run_local_ranks
+
+    device = _device(args)
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise RuntimeError(f"train --n-devices {n}: one rank per card, and this machine has "
+                           f"{torch.cuda.device_count()} CUDA card(s)")
+    coordinator = f"localhost:{free_port()}"
+    print(f"data-parallel: starting {n} local ranks ({device.type}), rendezvous at {coordinator}")
+    run_local_ranks([[sys.executable, *RANK_COMMAND, *args.argv, "--global-batch", str(global_batch),
+                      "--coordinator", coordinator, "--num-processes", str(n),
+                      "--process-id", str(i)] for i in range(n)])
 
 
 def _maybe_save_best(ckpt_dir, model, eval_metrics, epoch, key="Auc_30"):
@@ -559,9 +629,10 @@ def main(argv=None):
         if name == "train":
             p.add_argument("--epochs", type=int, default=None)
             p.add_argument("--n-devices", type=int, default=None,
-                           help="data-parallel devices (more than 1: not ported yet)")
+                           help="data-parallel devices on this machine: more than 1 starts one "
+                                "process per device (cards 0..N-1, or the CPU with --device cpu)")
             p.add_argument("--global-batch", type=int, default=None,
-                           help="sequences per step (default 1)")
+                           help="sequences per step over every device (default: one per device)")
             p.add_argument("--best-key", default="Auc_30",
                            help="eval metric selecting ckpt/best.pt (*_err/R_avg/T_avg "
                                 "minimize, everything else maximizes)")
@@ -582,14 +653,20 @@ def main(argv=None):
             p.add_argument("--tf-epochs", type=int, default=300,
                            help="windowed: epochs over which the ratio anneals")
             p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                           help="multi-process training: not ported yet")
-            p.add_argument("--num-processes", type=int, default=None)
-            p.add_argument("--process-id", type=int, default=None)
+                           help="multi-process training: every process joins the group at "
+                                "tcp://HOST:PORT (one process per device; on several machines "
+                                "give each process its card with --device cuda:K)")
+            p.add_argument("--num-processes", type=int, default=None,
+                           help="multi-process training: the processes in the group")
+            p.add_argument("--process-id", type=int, default=None,
+                           help="multi-process training: this process's rank")
         p.set_defaults(fn=fn)
     sub.add_parser("match", help=NOT_PORTED).set_defaults(fn=cmd_not_ported)
+    argv = list(sys.argv[1:] if argv is None else argv)
     args, unknown = parser.parse_known_args(argv)
     if unknown and args.fn is not cmd_not_ported:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args.argv = argv
     args.fn(args)
 
 

@@ -20,6 +20,17 @@ JAX gates: an AttnBlock over short sequences (L <= 64, rows >= 256) runs as
 with Lq <= 512, Lk <= 1024 and rows >= 256 as ``ops.block.fused_cross_block``
 (K4) under ``fused_cross``; every LayerNorm as ``ops.norm.fused_layer_norm``
 (K5) under ``fused_ln``. :func:`set_route` sets the route on a whole model.
+
+Tensor parallelism (``parallel.shard_params_tp``, the Megatron layout over
+the mesh's model axis) leaves each rank a slice of the weights the rules
+name and hands the modules the axis: a :class:`Linear` alone still gives its
+whole output (a column-parallel one all-gathers its features, a row-parallel
+one takes its slice of the input and sums over the axis), :func:`megatron_pair`
+runs fc1 column-parallel, the activation on the local slice and fc2
+row-parallel with one all-reduce, and :class:`MultiHeadAttention` runs K1 on
+this rank's heads. K2 and K4 take whole-block weights: their blocks
+all-gather the slices and launch the kernel unchanged, as GSPMD does for the
+JAX package's Pallas calls.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from ..ops.norm import fused_layer_norm
 __all__ = [
     "AttnBlock", "Conv2d", "CrossAttnBlock", "GroupNorm1", "InstanceNorm", "LayerNorm",
     "Linear", "Mlp", "MultiHeadAttention", "ResidualBlock", "gelu", "init_params",
-    "lecun_normal_", "set_route",
+    "lecun_normal_", "megatron_pair", "set_route",
 ]
 
 
@@ -60,7 +71,16 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator]) -> None
 
 
 class Linear(nn.Linear):
-    """nn.Dense: f32 parameters, computes in ``dtype``."""
+    """nn.Dense: f32 parameters, computes in ``dtype``.
+
+    Under tensor parallelism ``tp`` is the model axis and the weight this
+    rank's slice: column-parallel (``tp_dim`` 0, output features) or
+    row-parallel (1, input features); the bias stays whole. The call still
+    gives the whole output; :meth:`local` and :meth:`row` are the two halves
+    of a Megatron pair, with no collective between them."""
+
+    tp = None  # parallel.ModelAxis under tensor parallelism
+    tp_dim = None
 
     def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
         super().__init__(in_features, out_features)
@@ -71,8 +91,36 @@ class Linear(nn.Linear):
         self.bias.zero_()
 
     def forward(self, x):
+        if self.tp is None:
+            dt = self.compute_dtype
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.tp_dim == 0:
+            return self.tp.all_gather(self.local(x), -1)
+        return self.row(self.tp.chunk(x, -1))
+
+    def local(self, x):
+        """Column-parallel: this rank's output features."""
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt), self.tp.chunk(self.bias, 0).to(dt))
+
+    def row(self, x_local):
+        """Row-parallel on this rank's input features: the whole output,
+        summed over the model axis, then the bias."""
+        dt = self.compute_dtype
+        return self.tp.all_reduce(F.linear(x_local.to(dt), self.weight.to(dt))) + self.bias.to(dt)
+
+    def full_weight(self, dt):
+        """The whole weight in ``dt`` (all-gathered under tensor parallelism)."""
+        w = self.weight.to(dt)
+        return w if self.tp is None else self.tp.all_gather(w, self.tp_dim)
+
+
+def megatron_pair(fc1: Linear, act, fc2: Linear, x):
+    """``fc2(act(fc1(x)))``. With fc1 column- and fc2 row-parallel on one
+    model axis the activation stays split between them: one all-reduce."""
+    if fc1.tp is not None and fc1.tp_dim == 0 and fc2.tp is fc1.tp and fc2.tp_dim == 1:
+        return fc2.row(act(fc1.local(x)))
+    return fc2(act(fc1(x)))
 
 
 class Conv2d(nn.Conv2d):
@@ -167,13 +215,17 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, out_features or in_features, dtype)
 
     def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+        return megatron_pair(self.fc1, gelu, self.fc2, x)
 
 
 class MultiHeadAttention(nn.Module):
     """torch nn.MultiheadAttention semantics with a packed in-projection
     (``in_proj_weight`` [3E, E]); the projections are handed to K1 as column
-    slices, with no head-split copy."""
+    slices, with no head-split copy. Under tensor parallelism (``tp``) the
+    in-projection holds the q, k and v rows of this rank's heads, K1 runs on
+    those heads, and ``out_proj`` is row-parallel: one all-reduce."""
+
+    tp = None  # parallel.ModelAxis under tensor parallelism
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
         super().__init__()
@@ -189,10 +241,14 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias.zero_()
 
     def forward(self, q, k, v):
-        e = q.shape[-1]
         dt = self.compute_dtype
         w = self.in_proj_weight.to(dt)
-        b = self.in_proj_bias.to(dt)
+        b, heads = self.in_proj_bias, self.num_heads
+        if self.tp is not None:  # this rank's heads: their entries of q, k and v
+            b = torch.cat([self.tp.chunk(part, 0) for part in b.chunk(3)])
+            heads //= self.tp.size
+        b = b.to(dt)
+        e = w.shape[0] // 3  # the width of (this rank's heads of) q, k and v
         if q is k and k is v:
             wq, wk, wv = F.linear(q.to(dt), w, b).split(e, dim=-1)
         else:
@@ -205,9 +261,18 @@ class MultiHeadAttention(nn.Module):
         lead = wq.shape[:-2]
         lq, lk = wq.shape[-2], wk.shape[-2]
         out = fused_attention(
-            wq.reshape(-1, lq, e), wk.reshape(-1, lk, e), wv.reshape(-1, lk, e), self.num_heads
+            wq.reshape(-1, lq, e), wk.reshape(-1, lk, e), wv.reshape(-1, lk, e), heads
         ).reshape(*lead, lq, e)
-        return self.out_proj(out)
+        return self.out_proj(out) if self.tp is None else self.out_proj.row(out)
+
+    def full_in_proj(self, dt):
+        """The whole [3E, E] in-projection in ``dt``, q | k | v (all-gathered
+        and put back in that order under tensor parallelism)."""
+        w = self.in_proj_weight.to(dt)
+        if self.tp is None:
+            return w
+        n, e = self.tp.size, w.shape[1]
+        return self.tp.all_gather(w, 0).reshape(n, 3, e // n, e).transpose(0, 1).reshape(3 * e, e)
 
 
 class AttnBlock(nn.Module):
@@ -234,10 +299,10 @@ class AttnBlock(nn.Module):
             a, m = self.attn, self.mlp
             return fused_attn_block(
                 x.to(dt).contiguous(),
-                a.in_proj_weight.to(dt), a.in_proj_bias.to(dt),
-                a.out_proj.weight.to(dt), a.out_proj.bias.to(dt),
-                m.fc1.weight.to(dt), m.fc1.bias.to(dt),
-                m.fc2.weight.to(dt), m.fc2.bias.to(dt),
+                a.full_in_proj(dt), a.in_proj_bias.to(dt),
+                a.out_proj.full_weight(dt), a.out_proj.bias.to(dt),
+                m.fc1.full_weight(dt), m.fc1.bias.to(dt),
+                m.fc2.full_weight(dt), m.fc2.bias.to(dt),
                 self.num_heads,
             )
         x = self.norm1(x)
@@ -270,14 +335,14 @@ class CrossAttnBlock(nn.Module):
         ):
             dt, e = self.compute_dtype, x.shape[-1]
             a, m, nc = self.cross_attn, self.mlp, self.norm_context
-            w, b = a.in_proj_weight.to(dt), a.in_proj_bias.to(dt)
+            w, b = a.full_in_proj(dt), a.in_proj_bias.to(dt)
             return fused_cross_block(
                 x.to(dt).contiguous(), context.to(dt).contiguous(),
                 nc.weight.to(dt), nc.bias.to(dt),
                 w[:e], b[:e], w[e:], b[e:],
-                a.out_proj.weight.to(dt), a.out_proj.bias.to(dt),
-                m.fc1.weight.to(dt), m.fc1.bias.to(dt),
-                m.fc2.weight.to(dt), m.fc2.bias.to(dt),
+                a.out_proj.full_weight(dt), a.out_proj.bias.to(dt),
+                m.fc1.full_weight(dt), m.fc1.bias.to(dt),
+                m.fc2.full_weight(dt), m.fc2.bias.to(dt),
                 self.num_heads,
             )
         x = self.norm1(x)

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..geometry.embeddings import sincos_2d_pos_embed, sincos_time_embed
 from ..ops.bilinear import resize_bilinear_align_corners
-from .blocks import AttnBlock, CrossAttnBlock, LayerNorm, Linear, Mlp
+from .blocks import AttnBlock, CrossAttnBlock, LayerNorm, Linear, Mlp, megatron_pair
 from .vit import DinoViT
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
@@ -33,7 +33,10 @@ class CameraPredictions(NamedTuple):
 
 
 class TrajectoryEncoder(nn.Module):
-    """Linear(2 -> 256), LN, ReLU, Linear(256 -> out), LN."""
+    """Linear(2 -> 256), LN, ReLU, Linear(256 -> out), LN. Under tensor
+    parallelism fc1 (column-parallel) feeds a LayerNorm, which needs whole
+    features, so its call all-gathers them; fc2 (row-parallel) then takes
+    its slice of them and sums over the model axis."""
 
     def __init__(self, hidden_dim: int = 256, out_dim: int = 768, dtype=torch.float32):
         super().__init__()
@@ -47,7 +50,8 @@ class TrajectoryEncoder(nn.Module):
 
 
 class ConfidenceAttention(nn.Module):
-    """Linear(1 -> 32), ReLU, Linear(32 -> 1), sigmoid."""
+    """Linear(1 -> 32), ReLU, Linear(32 -> 1), sigmoid; a Megatron pair under
+    tensor parallelism (the ReLU needs no whole features)."""
 
     def __init__(self, dtype=torch.float32):
         super().__init__()
@@ -55,7 +59,7 @@ class ConfidenceAttention(nn.Module):
         self.fc2 = Linear(32, 1, dtype)
 
     def forward(self, conf):
-        return torch.sigmoid(self.fc2(F.relu(self.fc1(conf))))
+        return torch.sigmoid(megatron_pair(self.fc1, F.relu, self.fc2, conf))
 
 
 class CameraPredictor(nn.Module):

@@ -16,7 +16,10 @@ from .blocks import Conv2d, LayerNorm, Linear, gelu
 
 
 class ViTAttention(nn.Module):
-    """Fused-qkv attention; Q, K and V reach K1 as column slices of qkv."""
+    """Fused-qkv attention; Q, K and V reach K1 as column slices of qkv.
+    Under tensor parallelism qkv is column-parallel and ``proj`` (no
+    row-parallel name) replicated, so the qkv call all-gathers its output
+    features before the heads are split."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
         super().__init__()

@@ -1,7 +1,9 @@
 """Correlation-pyramid sampling and patch extraction for the trackers.
 
-Counterpart of ``comet_tpu/ops/corr.py`` (``corr_volume_pyramid_sample`` and
-``extract_patches_ex``). The TPU version replaced gathers by two-hot
+Counterpart of ``comet_tpu/ops/corr.py`` (``corr_volume_pyramid_sample``,
+``extract_patches_ex``, and the feature-pyramid form ``avg_pool_2x2``,
+``build_fmap_pyramid`` and ``corr_pyramid_sample``, the semantic reference
+the trackers' volume form equals). The TPU version replaced gathers by two-hot
 selection matmuls; here the windows are plain gathers, with the same
 semantics:
 
@@ -16,7 +18,7 @@ semantics:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +83,58 @@ def corr_volume_pyramid_sample(
         if lvl > 0 and vol.shape[-2] >= 2 and vol.shape[-1] >= 2:
             vol = F.avg_pool2d(vol, 2)
         outs.append(_sample_windows(vol[:, 0], pts / (2.0 ** lvl), radius))
+    return torch.cat(outs, dim=-1).reshape(b, s, n, -1).to(track_feats.dtype)
+
+
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool, stride 2, on [..., H, W, C] (floor sizes); a map
+    with a side below 2 is kept as it is, so deep pyramids on tiny inputs
+    bottom out at 1x1."""
+    h, w = x.shape[-3], x.shape[-2]
+    if h < 2 or w < 2:
+        return x
+    h2, w2 = h // 2, w // 2
+    a = x[..., 0:h2 * 2:2, 0:w2 * 2:2, :]
+    b = x[..., 0:h2 * 2:2, 1:w2 * 2:2, :]
+    c = x[..., 1:h2 * 2:2, 0:w2 * 2:2, :]
+    d = x[..., 1:h2 * 2:2, 1:w2 * 2:2, :]
+    return (a + b + c + d) * 0.25
+
+
+def build_fmap_pyramid(fmaps: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
+    """fmaps [B, S, H, W, C] -> num_levels maps, each 2x2-average-pooled
+    from the one before."""
+    pyramid = [fmaps]
+    for _ in range(num_levels - 1):
+        pyramid.append(avg_pool_2x2(pyramid[-1]))
+    return pyramid
+
+
+def corr_pyramid_sample(
+    pyramid: Sequence[torch.Tensor],
+    coords: torch.Tensor,
+    track_feats: torch.Tensor,
+    radius: int,
+) -> torch.Tensor:
+    """Correlation features <track_feat, fmap(window)> / sqrt(C) on a
+    feature pyramid (the reference's CorrBlock.corr + CorrBlock.sample,
+    with its zero padding).
+
+    pyramid: [B, S, Hl, Wl, C] maps, level l downsampled 2^l; coords
+    [B, S, N, 2] at level 0 (x, y); track_feats [B, S, N, C]. Returns
+    [B, S, N, L * (2r+1)^2] in track_feats' dtype, levels in pyramid order.
+    Every track is sampled on its own, so the result of a slice of the track
+    axis is that slice of the result (track sharding).
+    """
+    b, s, n, _ = coords.shape
+    c = track_feats.shape[-1]
+    tf = (track_feats * (1.0 / c ** 0.5)).reshape(b * s, n, c)
+    pts = coords.reshape(b * s * n, 2).float()
+    outs = []
+    for lvl, f in enumerate(pyramid):
+        hl, wl = f.shape[2], f.shape[3]
+        vol = torch.matmul(tf, f.reshape(b * s, hl * wl, c).transpose(1, 2)).float()
+        outs.append(_sample_windows(vol.reshape(b * s * n, hl, wl), pts / (2.0 ** lvl), radius))
     return torch.cat(outs, dim=-1).reshape(b, s, n, -1).to(track_feats.dtype)
 
 

@@ -7,7 +7,9 @@ Counterpart of ``comet_tpu/training/loop.py`` (``make_gt_cameras``,
 and a host loop that computes the float64 metric block (the reference's
 autocast-double section :632-675) and accumulates per-scene AUC, and
 ``build_windowed_train_step``, the teacher-forced train step over a long
-sequence in windows. The mesh path comes with the distributed slice.
+sequence in windows, and ``evaluate``'s mesh path with
+``_merge_process_averages``. A train step built on
+``data_parallel.replicate_train_state``'s model trains data-parallel.
 """
 
 from __future__ import annotations
@@ -83,7 +85,9 @@ def build_train_step(model: COMET, cfg: CometConfig, optimizer: torch.optim.Opti
     """The train step (``build_train_step``'s): forward, ``encode_gt``,
     ``pose_loss``, backward, then the optimizer (``training.optim``: the
     global-norm clip and AdamW over the camera parameters) and the
-    scheduler. The model's parameters are the f32 master copy and it
+    scheduler. ``model`` may be ``data_parallel.replicate_train_state``'s
+    wrapped model: its ``backward()`` then averages the gradients over the
+    data ranks before the clip. The model's parameters are the f32 master copy and it
     computes in ``cfg.dtype`` (bf16 in every preset), as JAX's
     ``run_train_benchmark`` trains.
 
@@ -225,6 +229,29 @@ def metric_block(
     return out
 
 
+def _merge_process_averages(stats: RunningStats, mesh) -> Dict[str, float]:
+    """Every data rank's partial (sum, count) pairs merged into global
+    averages (the mesh eval): the metric-block keys are the same on every
+    rank, in the same sorted order, so an all-gather of the aligned [2, K]
+    float64 (sums, counts) matrix over the data group suffices. The
+    per-scene AUC keys are disjoint across ranks and stay local (each rank
+    keeps its own scenes, as the reference's per-rank scene dicts)."""
+    from ..parallel.mesh import DATA, mesh_device
+
+    global_keys = sorted(k for k in stats._sums if not k.startswith("Auc_scene"))
+    vec = torch.tensor([[stats._sums[k] for k in global_keys],
+                        [float(stats._counts[k]) for k in global_keys]],
+                       dtype=torch.float64, device=mesh_device(mesh))
+    parts = [torch.empty_like(vec) for _ in range(mesh.size(0))]
+    torch.distributed.all_gather(parts, vec, group=mesh.get_group(DATA))
+    total = torch.stack(parts).sum(0).cpu().numpy()  # [2, K]
+    out = {k: float(total[0, i]) / max(float(total[1, i]), 1.0) for i, k in enumerate(global_keys)}
+    for k in stats._sums:
+        if k.startswith("Auc_scene"):
+            out[k] = stats._sums[k] / max(stats._counts[k], 1)
+    return out
+
+
 def evaluate(
     model: COMET,
     dataset,
@@ -251,15 +278,26 @@ def evaluate(
     metric copies and the float64 metric block hide behind the card's work.
     ``eval_batch`` > 1 groups sequences into batches; the tail batch pads by
     repeating the last sequence, and the padded rows' metrics are dropped.
-    ``mesh`` (sharded eval) comes with the distributed slice and raises."""
-    from ..data.prefetch import prefetch
-    from .data_parallel import batch_metrics, build_batch, start_metric_fetch
 
-    if mesh is not None:
-        raise NotImplementedError("evaluate: the mesh path comes with the distributed slice "
-                                  "(ROADMAP Queue 1 item 5)")
+    With a ``mesh`` of more than one rank every chunk holds one row per
+    rank (``eval_batch`` is not used), and each data rank evaluates its own
+    rows of each chunk on its device (the ranks of a model group the same
+    rows); each seeds the query points of its rows only, from its own
+    generator, as the JAX package does under a mesh, so the points differ
+    from one process's unless ``keypoint_backend`` is a callable. The ranks'
+    partial averages merge at the end (:func:`_merge_process_averages`)."""
+    from ..data.prefetch import prefetch
+    from ..parallel.mesh import mesh_device
+    from .data_parallel import batch_metrics, build_batch, shard_train_inputs, start_metric_fetch
+
     if eval_batch < 1:
         raise ValueError(f"evaluate: eval_batch must be >= 1, not {eval_batch}")
+    meshed = mesh is not None and mesh.size() > 1
+    if meshed:
+        mine = mesh_device(mesh)
+        if device is not None and torch.device(device) != mine:
+            raise ValueError(f"evaluate: device {device}, and this rank's mesh device is {mine}")
+        device = mine
     device = resolve_device(device, "evaluate")
     param = next(model.parameters())
     if param.device.type != device.type or (device.index is not None
@@ -268,7 +306,10 @@ def evaluate(
     stats = RunningStats()
     rng = np.random.default_rng(cfg.train.seed)
     n = len(dataset) if max_sequences is None else min(len(dataset), max_sequences)
-    d = int(eval_batch)
+    d = mesh.size() if meshed else int(eval_batch)
+    # this rank's rows of each chunk: [p_lo, p_lo + d_local)
+    d_local = d // mesh.size(0) if meshed else d
+    p_lo = mesh.get_local_rank("data") * d_local if meshed else 0
 
     def seed(sample):
         if callable(keypoint_backend):
@@ -284,14 +325,14 @@ def evaluate(
     def produce_chunk(ci: int):
         chunk = list(range(ci * d, min(ci * d + d, n)))
         padded = chunk + [chunk[-1]] * (d - len(chunk))
-        samples = [dataset[j] for j in padded]
+        samples = [dataset[j] for j in padded[p_lo:p_lo + d_local]]
         return chunk, samples, [seed(s) for s in samples]
 
     def flush(pend):
         p_ci, p_chunk, p_fetch, p_gt, p_names = pend
         rows = batch_metrics(p_fetch, p_gt, seq_names=p_names)
         for r, row in enumerate(rows):
-            if r < len(p_chunk):  # a padded row is dropped
+            if p_lo + r < len(p_chunk):  # a padded row is dropped
                 stats.update(row)
         if p_ci % print_interval == 0:
             print_fn(stats.status_string(p_ci * d, n, "eval"))
@@ -302,6 +343,8 @@ def evaluate(
     pending = None
     for ci, (chunk, samples, queries) in enumerate(prefetch(produce_chunk, n_chunks)):
         images, q, gt_b, gt_list = build_batch(samples, queries, device)
+        if meshed:
+            images, q, gt_b = shard_train_inputs(mesh, images, q, gt_b)
         out = eval_step(model, cfg, images, q, gt_b)
         fetch = start_metric_fetch(out)
         if pending is not None:
@@ -309,4 +352,6 @@ def evaluate(
         pending = (ci, chunk, fetch, gt_list, [s.seq_name for s in samples])
     if pending is not None:
         flush(pending)
+    if meshed and mesh.size(0) > 1:
+        return _merge_process_averages(stats, mesh)
     return stats.averages()

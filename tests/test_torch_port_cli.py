@@ -214,10 +214,8 @@ def test_bench_prints_json(tiny_cli, capsys):
 @pytest.mark.parametrize("argv", [
     ["eval", "--loader", "native"],
     ["eval", "--keypoints", "superpoint"],
-    ["train", "--n-devices", "2"],
-    ["train", "--coordinator", "localhost:1234"],
     ["match", "--list"],
-], ids=["native loader", "superpoint", "n-devices", "coordinator", "match"])
+], ids=["native loader", "superpoint", "match"])
 def test_what_is_not_ported_raises(argv):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tcli.main(argv + (["--device", "cpu"] if argv[0] in ("eval", "train") else []))

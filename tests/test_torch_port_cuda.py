@@ -23,7 +23,9 @@ version's autograd on the same bf16 inputs bit for bit, and one full-width
 train step per route trains the camera predictor alone. Each operator
 called directly launches its kernel within the same tolerances, and the
 exported full-width forward, served on each route, launches the eager
-forward's kernels and equals its outputs bit for bit.
+forward's kernels and equals its outputs bit for bit. Two full-width epochs
+of two steps through ``fit_epoch(mesh=)`` over NCCL at world size 1 equal the
+mesh-less epoch bit for bit, and a rank without a card of its own raises.
 """
 
 import ctypes
@@ -770,3 +772,101 @@ def test_served_forward_on_the_card(cuda_device, route, tmp_path):
     assert served_launches == eager_launches and sum(eager_launches) > 0
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+class _Sequences:
+    """Two full-width sequences of random frames, made from a seed, as a
+    dataset of ``fit_epoch``."""
+
+    def __init__(self, cfg):
+        import numpy as np
+
+        from comet_tpu_torch.data import SequenceSample
+
+        rng = np.random.default_rng(3)
+        s, hw = cfg.seqlen, cfg.img_size
+        self.samples = []
+        for i in range(2):
+            q = rng.normal(size=(s, 4)).astype(np.float32)
+            uvz = (rng.random((s, 3)) * 100 + 3).astype(np.float32)
+            self.samples.append(SequenceSample(
+                images=rng.normal(size=(s, hw, hw, 3)).astype(np.float32),
+                t_xyz=rng.normal(size=(s, 3)).astype(np.float32),
+                q_wxyz=q / np.linalg.norm(q, axis=-1, keepdims=True), t_uvz=uvz,
+                r_matrix=np.zeros((s, 3, 3), np.float32), ratio=0.9, seq_name=f"seq{i}",
+                image_names=[], first_mask=np.ones((hw, hw), bool)))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_fit_epoch_equals_the_meshless_epoch(cuda_device):
+    """NCCL at world size 1 through the production path (init_distributed,
+    make_mesh, replicate_train_state, fit_epoch(mesh=)): the camera
+    parameters and losses of two steps bit for bit those of
+    fit_epoch(mesh=None) from the same weights on the same data."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from comet_tpu_torch import parallel
+    from comet_tpu_torch.config import get_config
+    from comet_tpu_torch.data import seed_query_points
+    from comet_tpu_torch.models import build_comet
+    from comet_tpu_torch.parallel.launch import free_port
+    from comet_tpu_torch.training import (
+        build_optimizer, build_train_step, camera_only_mask, fit_epoch,
+    )
+    from comet_tpu_torch.training.data_parallel import replicate_train_state
+
+    cfg = get_config("ours")
+    ds = _Sequences(cfg)
+
+    def seed(sample):
+        return seed_query_points(sample.images[0], sample.first_mask, cfg.track_num,
+                                 cfg.min_track_num, backend="grid",
+                                 rng=np.random.default_rng(0))
+
+    runs = []
+    for meshed in (False, True):
+        model = build_comet(cfg, device=cuda_device, seed=0)
+        optimizer, scheduler = build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+        mesh, trained = None, model
+        if meshed:
+            parallel.init_distributed(f"localhost:{free_port()}", 1, 0, device="cuda:0")
+            assert dist.get_backend() == "nccl"
+            mesh = parallel.make_mesh(n_data=1)
+            trained = replicate_train_state(mesh, model, optimizer)
+        losses = []
+        step = build_train_step(trained, cfg, optimizer, scheduler)
+        try:
+            n = fit_epoch(lambda *a: losses.append(step(*a)["loss"].item()) or {}, ds, seed, 1,
+                          np.arange(2), device=None if meshed else "cuda:0", mesh=mesh)
+        finally:
+            if meshed:
+                dist.destroy_process_group()
+        mask = camera_only_mask(model)
+        runs.append((n, losses, {k: p.detach().clone() for k, p in model.named_parameters()
+                                 if mask[k]}))
+        del model, trained, optimizer
+    (n0, l0, p0), (n1, l1, p1) = runs
+    assert n0 == n1 == 2 and l0 == l1 and all(np.isfinite(l0))
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+
+
+@pytest.mark.cuda
+def test_no_fallback_of_device_or_backend(cuda_device):
+    """A rank without a card of its own raises with both counts; a mesh
+    without a process group raises."""
+    from comet_tpu_torch import parallel
+
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match=f"rank {n} needs CUDA card {n}, and this machine has "
+                                           f"{n} card"):
+        parallel.init_distributed("localhost:1", n + 1, n, device="cuda")
+    with pytest.raises(RuntimeError, match="no process group"):
+        parallel.make_mesh(n_data=1)

@@ -470,10 +470,20 @@ def test_evaluate_seeds_as_jax(eval_model, monkeypatch):
     np.testing.assert_array_equal(np.concatenate(seen), np.stack(want))
 
 
+class _CpuMesh:
+    """A 2-rank CPU mesh, as far as evaluate looks at one."""
+
+    device_type = "cpu"
+
+    def size(self, dim=None):
+        return 2
+
+
 def test_evaluate_refuses_what_it_does_not_run(eval_model, monkeypatch):
     args = (eval_model["model"], eval_model["tds"], eval_model["tc"])
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tloop.evaluate(*args, mesh=object(), device="cpu")
+    # the mesh path runs on the rank's device (tests/test_torch_port_distributed.py)
+    with pytest.raises(ValueError, match="mesh device is cpu"):
+        tloop.evaluate(*args, mesh=_CpuMesh(), device="meta")
     with pytest.raises(ValueError, match="eval_batch"):
         tloop.evaluate(*args, eval_batch=0, device="cpu")
     with pytest.raises(ValueError, match="model is on cpu"):

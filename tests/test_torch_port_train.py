@@ -552,8 +552,19 @@ def test_fit_epoch_equals_its_steps_run_by_hand(train, fixture_root):
         images, q, gt_b, gt_list = build_batch(samples, [seed_fn(s) for s in samples], "cpu")
         rows = batch_metrics(start_metric_fetch(step(images, q, gt_b)), gt_list)
         assert len(rows) == 2 and rows == seen[i][1]
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        fit_epoch(step, ds, seed_fn, 2, order, device="cpu", mesh=object())
+    # the mesh path trains on the rank's device (tests/test_torch_port_distributed.py);
+    # a device that is not the mesh's is refused
+    with pytest.raises(ValueError, match="mesh device is cpu"):
+        fit_epoch(step, ds, seed_fn, 2, order, device="meta", mesh=_CpuMesh())
+
+
+class _CpuMesh:
+    """A 2-rank CPU mesh, as far as fit_epoch and evaluate look at one."""
+
+    device_type = "cpu"
+
+    def size(self, dim=None):
+        return 2
 
 
 # -------------------------------------------------------- benchmark
