@@ -125,7 +125,7 @@ Phases, each of which makes the script exit nonzero when it fails:
    mp4 codec) was written is printed; its absence fails nothing; and
 11. serving (``utils/serving.py``) on a copy of the model cast to bf16 once
    with frozen weights: the forward on each route and the windowed chain at
-   T 48 (default route) exported with ``torch.export`` (the graph must hold
+   T 32 (default route) exported with ``torch.export`` (the graph must hold
    each route's kernels as ``comet::`` operator nodes, as many as the
    forward launches) and saved, the weights saved as a ``.pt`` file; a
    fresh process (``chip_smoke.py --serve DIR``, which must not import
@@ -134,8 +134,10 @@ Phases, each of which makes the script exit nonzero when it fails:
    2 calls), counting launches; its outputs must equal the eager model's
    on the same inputs bit for bit (the chain: tracks bit for bit,
    encodings within WINDOWED_ULPS ulps) and its launches per call the
-   eager counts; export, save and load times, artifact bytes and the
-   served against the eager median request are printed; and
+   eager counts; ``load_exported`` checks each manifest's kernel digest
+   against the library's (the phase asserts that the served process's
+   digests are this checkout's); export, save and load times, artifact
+   bytes and the served against the eager median request are printed;
 12. distributed (``comet_tpu_torch/parallel``) on the one card, where NCCL
    takes one rank only: (a) NCCL at world size 1 through the production
    path (``init_distributed``, ``make_mesh(n_data=1)``,
@@ -160,8 +162,32 @@ Phases, each of which makes the script exit nonzero when it fails:
    the replicated model's; (d) ``evaluate(mesh=)`` over the eval phase's 4
    sequences with a callable keypoint backend, the merged averages within
    ``EVAL_RTOL`` of one process's ``evaluate(eval_batch=2)`` and each
-   rank's scenes its own. The phase's time and launches are printed, and
-   each kernel's record carries its phase-12 launches.
+   rank's scenes its own; (e) tensor-parallel training, per route: in each
+   rank TP_TRAIN_STEPS camera-only train steps of the full-width model from
+   seed 0, replicated, then sharded by ``shard_params_tp`` over a (data 1,
+   model 2) mesh (``replicate_train_state`` over its data group of one), on
+   the same batches: losses and global norms within ``REF_RTOL``, every
+   camera tensor's first-step gradient (this rank's part) within
+   ``GRAD_RTOL`` of its norm (floored at ``GRAD_FLOOR`` of the largest; the
+   tensors over ``REF_RTOL`` of their range printed as a miss),
+   the replicated camera tensors equal bit for bit across the two ranks
+   after each step, frozen tensors unchanged; each rank's parameter and
+   optimizer-state bytes, ms and launches per step printed. The phase's
+   time and launches are printed, and each kernel's record carries its
+   phase-12 launches; and
+13. the load paths: (a) the native C++ loader (``native/cometio.cpp``)
+   built with ``g++`` on this machine, timed, with its version, or the
+   compiler's error on a line of its own; (b) an AMD fixture of
+   ``data.fixtures`` (LOAD_SEQUENCES sequences of seqlen 480 x 640 frames)
+   through ``NativeLoaderDataset``, equal to the PIL path bit for bit, and
+   ``DevicePreprocessDataset(decode="native")`` on the card, equal to
+   ``decode="pil"`` bit for bit, with host ms per sequence of each decode;
+   (c) ``cli.main eval --loader native --device-preprocess`` at full width,
+   a finite CSV. Where the library does not build, (b) and (c) are printed
+   as not run, and the phase checks instead that each of them raises with
+   the build error (no fall back to PIL). The flax ``.msgpack`` reader is
+   host code and is held on the CPU only (the card's machine has no flax
+   to write a file with).
 
 The script prints its total time; the line before the last holds the
 kernels' JSON record, and the last line
@@ -1878,9 +1904,11 @@ def cli_phase(torch, cfg, counters, smi):
     return walls
 
 
-# phase 11: serving. The windowed artifact's length (5 windows of seqlen 16),
-# and the serving process's time limit (it loads three artifacts)
-SERVE_WINDOWED_T = 48
+# phase 11: serving. The windowed artifact's length (3 windows of seqlen 16:
+# the chain at T 48, 5 windows, took 182 s to export, 48 to save and 58 to
+# load on the H100, a third of the script), and the serving process's time
+# limit (it loads three artifacts)
+SERVE_WINDOWED_T = 32
 SERVE_TIMEOUT = 1200
 # the artifacts: the forward on each route, the windowed chain on the default
 SERVED = ("default", "fused", "windowed")
@@ -1931,6 +1959,7 @@ def serve_child(directory):
 
     import torch
 
+    from comet_tpu_torch.ops import kernels
     from comet_tpu_torch.utils import serving
 
     if not torch.cuda.is_available():
@@ -1959,6 +1988,13 @@ def serve_child(directory):
             r["launches"].append(used)
         torch.save(outs, os.path.join(directory, f"served_{route_name}.pt"))
         del exported, fn, params
+    # load_exported refused any artifact whose manifest names other kernel
+    # sources than this checkout's: each of the three passed that check
+    manifests = []
+    for route_name in SERVED:
+        with open(os.path.join(directory, f"{route_name}.pt2.json")) as f:
+            manifests.append(json.load(f)["kernels_digest"])
+    result["digest"] = dict(library=kernels._digest(), manifests=manifests)
     result["imported"] = sorted(m for m in sys.modules if m.startswith("comet_tpu"))
     print(json.dumps(result), flush=True)
     return 0
@@ -1968,7 +2004,8 @@ def _largest_diffs(torch, got, want):
     return {k: (got[k].float() - want[k].float()).abs().max().item() for k in want}
 
 
-def serving_phase(torch, tcfg, windowed, serialization, serving, cfg, model, counters, dev, smi):
+def serving_phase(torch, tcfg, windowed, serialization, serving, kernels, cfg, model, counters,
+                  dev, smi):
     """Phase 11: serving at full width, with the checks of the module's
     docstring. Returns the timings."""
     import copy
@@ -2042,7 +2079,13 @@ def serving_phase(torch, tcfg, windowed, serialization, serving, cfg, model, cou
         child = json.loads(proc.stdout.strip().splitlines()[-1])
         if any(m.startswith("comet_tpu_torch.models") for m in child["imported"]):
             raise SmokeError(f"serving: the serving process imported {child['imported']}")
-        print(f"serving: a fresh process ({wall:.1f} s) loaded the three artifacts and "
+        digest = child["digest"]
+        if digest["library"] != kernels._digest() or set(digest["manifests"]) != {
+                digest["library"]}:
+            raise SmokeError(f"serving: the kernel digests differ: {digest}, this process "
+                             f"{kernels._digest()}")
+        print(f"serving: a fresh process ({wall:.1f} s) loaded the three artifacts (each "
+              f"manifest's kernel digest checked by load_exported: {digest['library']}) and "
               f"imported {child['imported']}", flush=True)
         for route_name in results:
             r, c = results[route_name], child[route_name]
@@ -2156,6 +2199,108 @@ def _probe_gloo(torch, dist, dev):
                 out[f"{op} {str(dtype)[6:]}"] = "ok" if ok else "wrong result"
             except RuntimeError as exc:
                 out[f"{op} {str(dtype)[6:]}"] = str(exc).splitlines()[0][:160]
+    return out
+
+
+# phase 12 (e): tensor-parallel train steps per route, on a (data 1, model 2)
+# mesh of the two ranks, each against the replicated steps on the same batch.
+# Each camera gradient is held to the replicated one by phase 4's rule for a
+# bf16 gradient, GRAD_RTOL of its norm (a missing or doubled collective moves
+# a gradient by its whole size), and its largest |difference| against
+# REF_RTOL x its range is printed, each tensor over it named. TP_NOISE: the
+# trajectory encoder (2-dim pixel tracks in bf16, then LayerNorms) misses
+# that range bar by its bf16 rounding alone: on the H100 fc1.bias at 4.26e-2
+# of its range while the loss and the global norm agree within 4e-3 and
+# 6e-5; tools/torch_tp_bf16_noise.py measures the same on the CPU against an
+# f32 step, and in f32 the two steps agree within 1e-5
+# (tests/test_torch_port_distributed.py)
+TP_TRAIN_STEPS = 2
+
+
+def _camera_grads(model, mask):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if mask[n] and p.grad is not None}
+
+
+def tp_train_steps(torch, dist, models, training, parallel, data_parallel, cfg, route, mesh,
+                   counters, dev, gt):
+    """Phase 12 (e) on one rank, one route: TP_TRAIN_STEPS train steps of the
+    full-width model from seed 0, replicated in this rank, then sharded with
+    ``shard_params_tp`` over ``mesh``'s model axis (``replicate_train_state``
+    over its data group of one), on the same batches: the losses, each
+    camera tensor's first-step gradient against this rank's part of the
+    replicated one (|difference| against REF_RTOL x its range and against
+    GRAD_RTOL x its norm, both floored at GRAD_FLOOR of the largest
+    tensor's), each
+    step's global norm, the replicated camera tensors compared bit for bit
+    with model-rank 0's after each step, the frozen tensors, the bytes of
+    this rank's parameters and optimizer state, ms and launches per step."""
+    requests = [_dist_request(torch, cfg, 10 + i, 0, dev) for i in range(TP_TRAIN_STEPS)]
+    out = {}
+    for name in ("replicated", "tp"):
+        model = models.build_comet(cfg, device=dev, seed=0, route=route)
+        mask = training.camera_only_mask(model)
+        if name == "tp":
+            parallel.shard_params_tp(mesh, model)
+            frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not mask[n]}
+        optimizer, scheduler = training.build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+        trained = (data_parallel.replicate_train_state(mesh, model, optimizer) if name == "tp"
+                   else model)
+        step = training.build_train_step(trained, cfg, optimizer, scheduler)
+        r = out[name] = dict(losses=[], norms=[], ms=[], launches=[], unequal=[])
+        for i, (images, queries) in enumerate(requests):
+            grads = {}
+
+            def mark(part, grads=grads, i=i, model=model, mask=mask):
+                if part == "backward" and i == 0:
+                    grads.update(_camera_grads(model, mask))
+
+            _reset(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = step(images, queries, gt, mark=mark)
+            r["losses"].append(aux["loss"].item())
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            r["launches"].append(_launches(counters))
+            r["norms"].append(optimizer.last_norm.item())
+            if i == 0:
+                r["grads"] = grads
+            if name == "tp":
+                # the replicated camera tensors against model-rank 0's
+                group = mesh.get_group("model")
+                unequal = 0
+                for n, p in model.named_parameters():
+                    if mask[n] and parallel.tp_axis(p) is None:
+                        other = p.detach().clone()
+                        dist.broadcast(other, src=dist.get_process_group_ranks(group)[0],
+                                       group=group)
+                        unequal += not torch.equal(other, p)
+                r["unequal"].append(unequal)
+        if name == "tp":
+            # each tensor's range and norm floored at GRAD_FLOOR of the largest
+            # one's, as in phase 4: the confidence MLP's gradient is rounding
+            # noise
+            ref = {n: parallel.shard_of(model, n, g) for n, g in
+                   out["replicated"].pop("grads").items()}
+            range_floor = GRAD_FLOOR * max(g.abs().max().item() for g in ref.values())
+            norm_floor = GRAD_FLOOR * max(g.norm().item() for g in ref.values())
+            by_range, by_norm = {}, {}
+            for n, g in r.pop("grads").items():
+                by_range[n] = (g - ref[n]).abs().max().item() / max(ref[n].abs().max().item(),
+                                                                     range_floor)
+                by_norm[n] = (g - ref[n]).norm().item() / max(ref[n].norm().item(), norm_floor)
+            r["grad_range"] = max((v, n) for n, v in by_range.items())
+            r["grad_norm"] = max((v, n) for n, v in by_norm.items())
+            r["over_range"] = {n: v for n, v in by_range.items() if v > REF_RTOL}
+            r["frozen_moved"] = [n for n, p in model.named_parameters()
+                                 if not mask[n] and not torch.equal(p, frozen[n])]
+            r["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+            r["state_bytes"] = sum(v.numel() * v.element_size() for st in optimizer.state.values()
+                                   for v in st.values() if isinstance(v, torch.Tensor))
+            r["sharded"] = sum(parallel.tp_axis(p) is not None for p in model.parameters())
+            del frozen
+        del model, trained, optimizer, scheduler, step, aux
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2274,6 +2419,16 @@ def dist_child(rank, port, directory):
                                bool(torch.isfinite(got).all()))
             res["tp"][route_name] = dict(errs=errs, launches=_launches(counters),
                                          shapes=_shape_counts(counters))
+
+    # (e) tensor-parallel training, each route
+    del model, cases, ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["tp_train"] = {route_name: tp_train_steps(torch, dist, models, training, parallel,
+                                                  data_parallel, cfg, route, tp_mesh, counters,
+                                                  dev, gt)
+                       for route_name, route in routes}
+    res["tp_train_s"] = time.perf_counter() - t0
     torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
     dist.destroy_process_group()
     return 0
@@ -2513,6 +2668,50 @@ def distributed_phase(torch, np, data, geom, tcfg, models, training, parallel, c
           f"{one['R_avg']:.4f}; scenes per rank {[len(s) for s in scenes]}, on {smi}", flush=True)
     if set(scenes[0]) & set(scenes[1]) or len(scenes[0]) + len(scenes[1]) != EVAL_SEQUENCES:
         raise SmokeError(f"distributed (d): scenes per rank {scenes}")
+    # (e) tensor-parallel training against the replicated steps
+    tp_train = {}
+    for route_name in ("default", "fused"):
+        want_used = ("K1", "K2") if route_name == "default" else ("K1", "K3", "K4", "K5")
+        for r in range(2):
+            rep, t = (ranks[r]["tp_train"][route_name][k] for k in ("replicated", "tp"))
+            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(t["losses"], rep["losses"]))
+            norm_gap = max(abs(a - b) / abs(b) for a, b in zip(t["norms"], rep["norms"]))
+            print(f"distributed (e), {route_name} route, rank {r}: {TP_TRAIN_STEPS} "
+                  f"tensor-parallel steps (model axis 2, {t['sharded']} shards): losses "
+                  f"{t['losses']} against replicated {rep['losses']} (largest relative gap "
+                  f"{loss_gap:.2e}), global norms {['%.4g' % x for x in t['norms']]} against "
+                  f"{['%.4g' % x for x in rep['norms']]} ({norm_gap:.2e}); first-step camera "
+                  f"gradients, |TP - replicated| largest / range {t['grad_range'][0]:.2e} "
+                  f"({t['grad_range'][1]}), largest / norm {t['grad_norm'][0]:.2e} "
+                  f"({t['grad_norm'][1]}; limit {GRAD_RTOL}; ranges and norms floored at "
+                  f"{GRAD_FLOOR} of the largest); replicated camera "
+                  f"tensors differing from model-rank 0's after each step {t['unequal']}; frozen "
+                  f"tensors moved {len(t['frozen_moved'])}; parameter bytes {t['param_bytes']}, "
+                  f"optimizer-state bytes {t['state_bytes']} (replicated step: "
+                  f"{['%.1f' % x for x in rep['ms']]} ms); step ms "
+                  f"{['%.1f' % x for x in t['ms']]}; launches per step {t['launches']}; on {smi}",
+                  flush=True)
+            if t["over_range"]:
+                print(f"distributed (e), {route_name} route, rank {r}: MISS of {REF_RTOL} x the "
+                      f"range (bf16 rounding of the trajectory encoder, TP_NOISE): "
+                      + ", ".join(f"{n} {v:.2e}" for n, v in sorted(t["over_range"].items())),
+                      flush=True)
+            if not (loss_gap <= REF_RTOL and norm_gap <= REF_RTOL
+                    and t["grad_norm"][0] <= GRAD_RTOL
+                    and all(math.isfinite(x) for x in t["losses"])):
+                raise SmokeError(f"distributed (e) {route_name} rank {r}: losses {t['losses']} / "
+                                 f"{rep['losses']}, norms {t['norms']} / {rep['norms']}, gradient "
+                                 f"{t['grad_norm']} of the norm (limit {GRAD_RTOL})")
+            if any(t["unequal"]) or t["frozen_moved"]:
+                raise SmokeError(f"distributed (e) {route_name} rank {r}: replicated tensors "
+                                 f"unequal across the model ranks {t['unequal']}, frozen moved "
+                                 f"{t['frozen_moved'][:4]}")
+            if any(ln[k] == 0 for ln in t["launches"] for k in want_used):
+                raise SmokeError(f"distributed (e) {route_name} rank {r}: a kernel never ran: "
+                                 f"{t['launches']}")
+        tp_train[route_name] = ranks[0]["tp_train"][route_name]["tp"]
+    print(f"distributed (e): in {ranks[0]['tp_train_s']:.1f} s per rank (both routes, with the "
+          f"replicated reference steps), on {smi}", flush=True)
     seconds = time.perf_counter() - t_phase
     print(f"distributed: phase 12 in {seconds:.1f} s, on {smi}", flush=True)
     # the TP forwards' launches by shape (the train steps' and the evals' are
@@ -2527,9 +2726,130 @@ def distributed_phase(torch, np, data, geom, tcfg, models, training, parallel, c
         for k in KERNELS:
             launches[k] += ranks[r]["eval_launches"][k] + sum(
                 ln[k] for ln in ranks[r]["dp"]["launches"]) + sum(
-                ranks[r]["tp"][rn]["launches"][k] for rn in ("default", "fused"))
+                ranks[r]["tp"][rn]["launches"][k] for rn in ("default", "fused")) + sum(
+                ln[k] for rn in ("default", "fused")
+                for ln in ranks[r]["tp_train"][rn]["tp"]["launches"])
     return dict(seconds=seconds, launches=launches, shapes=shapes, probe=probe,
-                grad_bytes=d["grad_bytes"], reduce_ms=d["reduce_ms"], tp_bytes=(mine, full))
+                grad_bytes=d["grad_bytes"], reduce_ms=d["reduce_ms"], tp_bytes=(mine, full),
+                tp_train=tp_train)
+
+
+# phase 13: the load paths, on an AMD fixture of data.fixtures (frames of the
+# fixture's 480 x 640) with LOAD_SEQUENCES sequences of seqlen frames
+LOAD_SEQUENCES = 2
+SAMPLE_FIELDS = ("images", "first_mask", "t_xyz", "q_wxyz", "t_uvz", "r_matrix")
+
+
+def _per_sequence_ms(fn, n):
+    """(the results of fn(0..n-1), host ms per call)."""
+    t0 = time.perf_counter()
+    out = [fn(i) for i in range(n)]
+    return out, (time.perf_counter() - t0) * 1e3 / n
+
+
+def _same_sample(np, a, b):
+    return (all(np.array_equal(getattr(a, f), getattr(b, f)) for f in SAMPLE_FIELDS)
+            and (a.ratio, a.seq_name, a.image_names) == (b.ratio, b.seq_name, b.image_names))
+
+
+def load_phase(torch, np, data, cfg, counters, dev, smi):
+    """Phase 13: (a) the native library's build on this machine, timed, with
+    its version or the compiler's error on a line of its own; (b) the AMD
+    fixture through ``NativeLoaderDataset`` (equal to the PIL path bit for
+    bit) and ``DevicePreprocessDataset(decode="native")`` on the card (its
+    images equal ``decode="pil"``'s bit for bit), host ms per sequence of
+    each decode; (c) ``cli.main eval --loader native --device-preprocess``
+    at full width, a finite CSV. Where the library does not build, (b) and
+    (c) are reported as not run, and the phase checks instead that the
+    native loader, the native decode and the CLI's ``--loader native``
+    raise with the build error: nothing falls back to PIL. Returns the
+    phase's record."""
+    import csv
+    import os
+    import tempfile
+
+    from comet_tpu_torch import cli, native
+    from comet_tpu_torch.data.device_pipeline import wait_ready
+    from comet_tpu_torch.data.native_loader import NativeLoaderDataset
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    built = native.available()
+    rec = dict(native=built, build_s=time.perf_counter() - t0)
+    if built:
+        print(f"load (a): the native library built and loaded in {rec['build_s']:.1f} s: "
+              f"{native.version()}", flush=True)
+    else:
+        print(f"load (a): the native library did not build on this machine "
+              f"({rec['build_s']:.1f} s); the compiler's error follows on one line", flush=True)
+        print(native.build_error().replace("\n", " | "), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "AMD_eval")
+        data.generate_amd_fixture(root, n_seqs=LOAD_SEQUENCES, n_frames=cfg.seqlen, seed=5)
+        base = data.AMDDataset(root, crop_size=cfg.img_size, seq_len=cfg.seqlen)
+        want, rec["pil_ms"] = _per_sequence_ms(lambda i: base[i], len(base))
+        _, rec["pil_raw_ms"] = _per_sequence_ms(
+            lambda i: base.load_sequence_raw(base.seq_names[i]), len(base))
+        argv = ["eval", "--data-root", root, "--loader", "native", "--device-preprocess",
+                "--max-sequences", str(LOAD_SEQUENCES), "--output-dir", os.path.join(tmp, "out")]
+        if not built:
+            refused = []
+            for name, make in (
+                    ("NativeLoaderDataset", lambda: NativeLoaderDataset(base)),
+                    ("DevicePreprocessDataset(decode='native')",
+                     lambda: data.DevicePreprocessDataset(base, decode="native", device=dev)),
+                    ("cli eval --loader native --device-preprocess", lambda: cli.main(argv))):
+                try:
+                    make()
+                except RuntimeError as exc:
+                    if native.build_error() not in str(exc):
+                        raise SmokeError(f"load: {name} raised without the build error: {exc}")
+                    refused.append(name)
+                    continue
+                raise SmokeError(f"load: {name} ran without the native library")
+            print(f"load (b), (c): NOT RUN: the native library does not build on this machine "
+                  f"(the compiler's error above); checked instead that {', '.join(refused)} "
+                  f"raise with that error and never fall back to PIL; the PIL path takes "
+                  f"{rec['pil_ms']:.1f} ms per sequence on the host ({rec['pil_raw_ms']:.1f} ms "
+                  f"to decode alone), on {smi}", flush=True)
+        else:
+            nds = NativeLoaderDataset(base)
+            got, rec["native_ms"] = _per_sequence_ms(lambda i: nds[i], len(base))
+            if not all(_same_sample(np, g, w) for g, w in zip(got, want)):
+                raise SmokeError("load (b): NativeLoaderDataset's samples are not the PIL path's")
+            nat = data.DevicePreprocessDataset(base, decode="native", keep_on_device=True,
+                                               device=dev)
+            _, rec["native_raw_ms"] = _per_sequence_ms(lambda i: nat._load_raw(base.seq_names[i]),
+                                                       len(base))
+            pil = data.DevicePreprocessDataset(base, decode="pil", keep_on_device=True, device=dev)
+            for i in range(len(base)):
+                a, b = nat[i], pil[i]
+                wait_ready(a)
+                wait_ready(b)
+                if not torch.equal(a.images, b.images):
+                    raise SmokeError(f"load (b): sequence {i}: decode='native' on the card is "
+                                     "not decode='pil'")
+            _reset(counters)
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            rec["cli_s"] = time.perf_counter() - t0
+            with open(os.path.join(tmp, "out", "test_results.csv")) as f:
+                rows = list(csv.DictReader(f))
+            bad = [k for row in rows for k, v in row.items() if not math.isfinite(float(v))]
+            if len(rows) != 1 or bad or sum(_launches(counters).values()) == 0:
+                raise SmokeError(f"load (c): {len(rows)} rows, not finite {bad}, launches "
+                                 f"{_launches(counters)}")
+            print(f"load (b): {LOAD_SEQUENCES} sequences of {cfg.seqlen} frames: "
+                  f"NativeLoaderDataset equals the PIL path bit for bit, {rec['native_ms']:.1f} "
+                  f"ms per sequence against PIL's {rec['pil_ms']:.1f}; decode alone "
+                  f"{rec['native_raw_ms']:.1f} against {rec['pil_raw_ms']:.1f}; "
+                  f"decode='native' on the card equals decode='pil' bit for bit; (c) cli eval "
+                  f"--loader native --device-preprocess {rec['cli_s']:.1f} s, CSV finite, "
+                  f"launches {_launches(counters)}, on {smi}", flush=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"load: phase 13 in {rec['seconds']:.1f} s, on {smi}", flush=True)
+    return rec
 
 
 def _profile_step(torch, step, request, gt, step_ms):
@@ -2686,10 +3006,11 @@ def main(argv=None) -> int:
         windowed_runs = windowed_phase(torch, np, tcfg, geom, models, windowed, training, library,
                                        serialization, cfg, model, counters, dev, smi)
         cli_walls = cli_phase(torch, cfg, counters, smi)
-        serve = serving_phase(torch, tcfg, windowed, serialization, serving, cfg, model, counters,
-                              dev, smi)
+        serve = serving_phase(torch, tcfg, windowed, serialization, serving, kernels, cfg, model,
+                              counters, dev, smi)
         distributed = distributed_phase(torch, np, data, geom, tcfg, models, training, parallel,
                                         cfg, model, counters, dev, smi)
+        loads = load_phase(torch, np, data, cfg, counters, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2796,6 +3117,15 @@ def main(argv=None) -> int:
           f"{distributed['tp_bytes'][1]}; TP launches by shape "
           f"{ {f'{k} {s}': n for (k, s), n in sorted(distributed['shapes'].items())} }",
           flush=True)
+    for route_name, t in distributed["tp_train"].items():
+        print(f"tensor-parallel training, {route_name} route (model axis 2, gloo on one card): "
+              f"steps {['%.1f' % x for x in t['ms']]} ms, parameter bytes per rank "
+              f"{t['param_bytes']}, optimizer-state bytes per rank {t['state_bytes']}", flush=True)
+    print(f"load: native library {'built' if loads['native'] else 'NOT built'} in "
+          f"{loads['build_s']:.1f} s; ms per sequence: PIL {loads['pil_ms']:.1f} (decode "
+          f"{loads['pil_raw_ms']:.1f}), native "
+          + (f"{loads['native_ms']:.1f} (decode {loads['native_raw_ms']:.1f})" if loads["native"]
+             else "not run (no build)") + f"; phase 13 {loads['seconds']:.1f} s", flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -8,9 +8,10 @@ The port of ``comet_tpu`` (JAX, TPU), module for module: ``config``,
 checkpoints), ``bench_lib``, ``entry`` and the command line ``cli``, the
 distributed layer ``parallel`` (the (data, model) mesh over
 ``torch.distributed``, data and tensor parallelism), with
-``twoview`` (triangulation) and ``utils`` (weight files, the one-time
-inference cast, the demo's exports, the serving export, profiling) behind
-it. It
+``twoview`` (triangulation), ``utils`` (weight files, among them the JAX
+package's flax ``.msgpack`` read without JAX, the one-time inference cast,
+the demo's exports, the serving export, profiling) and ``native`` (the C++
+frame loader, host code built with ``g++`` at first use) behind it. It
 imports neither JAX nor ``comet_tpu``. Public functions keep the JAX
 layouts: images [B, S, H, W, 3], queries [B, N, 2]. Entry points run on the
 CUDA card unless the caller passes ``device="cpu"``.

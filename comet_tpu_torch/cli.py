@@ -21,8 +21,13 @@ windowed chain for ``--seq-frames`` frames) and its JSON manifest
 device: ``--n-devices N`` starts N local ranks, ``--coordinator HOST:PORT
 --num-processes P --process-id I`` joins a group of P processes (NCCL on the
 cards, gloo on the CPU); rank 0 alone writes the CSV, the checkpoints and
-``best.*``. The ``match`` subcommand, the native loader and the
-``superpoint`` keypoints are not ported yet and raise.
+``best.*``. ``--loader native`` reads the frames with the C++ loader
+(``native/``, built with ``g++`` at first use; it raises where the library
+cannot be built, and never falls back to PIL), alone or under
+``--device-preprocess``. ``--checkpoint`` takes the port's ``.pt`` weights,
+a ``ckpt_NNNNNN`` directory of the port's training, or a flax ``.msgpack``
+written by the JAX package (read without JAX). The ``match`` subcommand and
+the ``superpoint`` keypoints are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -53,8 +58,9 @@ def _common(parser):
     parser.add_argument("--track-num", type=int, default=None)
     parser.add_argument("--dataset", default=None, help="intrinsics key override")
     parser.add_argument("--checkpoint", default=None,
-                        help="a weight file saved by utils.serialization.save_params (.pt) or a "
-                             "ckpt_NNNNNN directory of a training run")
+                        help="a weight file saved by utils.serialization.save_params (.pt), a "
+                             "flax .msgpack of the JAX package, or a ckpt_NNNNNN directory of a "
+                             "training run")
     parser.add_argument("--keypoints", default="corners", help="corners|grid (superpoint: not "
                         "ported yet)")
     parser.add_argument("--max-sequences", type=int, default=None)
@@ -70,7 +76,8 @@ def _common(parser):
     parser.add_argument("--device-resample", default="bilinear", choices=["bilinear", "lanczos"],
                         help="the device preprocessing's filter")
     parser.add_argument("--loader", default="pil", choices=["pil", "native"],
-                        help="frame loader: pil (native, the C++ loader: not ported yet)")
+                        help="frame loader: pil (the reference's host path) or native (the "
+                             "C++ loader, bit-exact against pil)")
     parser.add_argument("--eval-batch", type=int, default=1,
                         help="eval: sequences batched per forward")
     parser.add_argument(
@@ -108,8 +115,6 @@ def _device(args):
 
 def _check_ported(args):
     """Raise for the options whose modules are not ported yet."""
-    if getattr(args, "loader", "pil") == "native":
-        raise _not_ported("--loader native", "2a")
     if getattr(args, "keypoints", "corners") == "superpoint":
         raise _not_ported("--keypoints superpoint", "2c")
 
@@ -127,14 +132,21 @@ def _finite_json(obj):
 
 
 def _maybe_device_preprocess(dataset, args, device, keep_on_device=False):
-    """Wrap a dataset in the device preprocessing when it is asked for;
-    ``keep_on_device`` leaves the images on the device for consumers that
-    feed them straight to the model (the eval loop)."""
+    """Wrap a dataset in the loaders asked for: the device preprocessing
+    (with the C++ loader's decode under ``--loader native``), or the C++
+    loader alone; ``keep_on_device`` leaves the images on the device for
+    consumers that feed them straight to the model (the eval loop)."""
+    native = getattr(args, "loader", "pil") == "native"
     if getattr(args, "device_preprocess", False):
         from .data.device_pipeline import DevicePreprocessDataset
 
         return DevicePreprocessDataset(dataset, resample=args.device_resample,
-                                       keep_on_device=keep_on_device, decode="pil", device=device)
+                                       keep_on_device=keep_on_device,
+                                       decode="native" if native else "pil", device=device)
+    if native:
+        from .data.native_loader import NativeLoaderDataset
+
+        return NativeLoaderDataset(dataset)
     return dataset
 
 

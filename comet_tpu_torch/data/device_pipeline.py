@@ -190,7 +190,7 @@ class DevicePreprocessDataset:
     """Wrap a VideoPoseDataset so crop/resize/normalize run on the card.
 
     Same SequenceSample output as the host path; decode + bbox stay on the
-    host (PIL). The frame-0 mask resizes on the host (exact twin of
+    host (PIL, or the C++ loader). The frame-0 mask resizes on the host (exact twin of
     :func:`preprocess_mask`) and every sample carries a ``frame0_u8``
     preview (cv2), so keypoint seeding never reads the card's image back.
 
@@ -198,8 +198,9 @@ class DevicePreprocessDataset:
     (with ``ready``, the event the consumer waits on: :func:`wait_ready`)
     instead of numpy, so the eval step takes them without a round trip
     through the host. ``device``: the card by default; ``"cpu"`` runs the
-    same ops on the CPU. ``decode="native"`` (the C++ loader) is not ported
-    yet and raises.
+    same ops on the CPU. ``decode="native"`` decodes the frames and masks with
+    the C++ loader (``native.decode_frames`` and ``load_masks``, threaded) in
+    place of PIL, and raises where that library is unavailable.
     """
 
     def __init__(self, base: VideoPoseDataset, resample: str = "bilinear",
@@ -207,11 +208,13 @@ class DevicePreprocessDataset:
                  device: Optional[Union[str, torch.device]] = None):
         if resample not in ("bilinear", "lanczos"):
             raise ValueError(f"unknown resample {resample!r}")
-        if decode == "native":
-            raise NotImplementedError("decode='native' needs the C++ loader, which comes with "
-                                      "its own slice of the port (ROADMAP Queue 1)")
-        if decode != "pil":
+        if decode not in ("pil", "native"):
             raise ValueError(f"unknown decode {decode!r}")
+        if decode == "native":
+            from .. import native
+
+            if not native.available():
+                raise RuntimeError(f"native loader unavailable: {native.build_error()}")
         self.base = base
         self.crop_size = base.crop_size
         self.seq_names = base.seq_names
@@ -264,8 +267,25 @@ class DevicePreprocessDataset:
             ready.record(stream)
         return images, ready
 
+    def _load_raw(self, seq_name: str) -> dict:
+        """The raw frames, frame-0 mask, crop square and poses of a sequence,
+        decoded by PIL or the C++ loader."""
+        if self.decode == "pil":
+            return self.base.load_sequence_raw(seq_name)
+        from .. import native
+        from .datasets import compute_sequence_square
+        from .native_loader import read_poses
+
+        base = self.base
+        frame_paths, mask_paths, gt_paths, names = base._select_files(seq_name)
+        bboxes, mask0 = native.load_masks(mask_paths)
+        square, ratio = compute_sequence_square(bboxes, base.crop_size)
+        return dict(frames_u8=native.decode_frames(frame_paths), mask0_u8=mask0,
+                    square=np.asarray(square, np.float32), ratio=float(ratio),
+                    seq_name=seq_name, image_names=names, **read_poses(base, gt_paths))
+
     def __getitem__(self, index: int) -> SequenceSample:
-        raw = self.base.load_sequence_raw(self.seq_names[index])
+        raw = self._load_raw(self.seq_names[index])
         crop_u8, shifted = self._transfer_crop(raw["frames_u8"], raw["square"])
         images, ready = self._preprocess(crop_u8, shifted)
         if not self.keep_on_device:

@@ -2,10 +2,14 @@ from .cameras import CameraSet, make_camera_set
 from .codecs import (
     INTRINSICS_TABLE,
     Intrinsics,
+    create_intri_matrix,
+    decode_abst_quar_onefl,
     decode_relative_uvz,
     decode_relative_xyz,
+    encode_abst_quar_onefl,
     encode_relative_uvz,
     encode_relative_xyz,
+    get_efp,
 )
 from .embeddings import (
     embed_2d_coords,
@@ -29,3 +33,16 @@ from .quaternions import (
     se3_inverse_row_convention,
     se3_matrix_row_convention,
 )
+from .fov_cameras import (
+    FoVOrthographicCameras,
+    FoVPerspectiveCameras,
+    OrthographicCameras,
+    fov_orthographic_projection,
+    fov_perspective_projection,
+    ndc_grid_sample,
+    ndc_to_grid_sample_coords,
+    ndc_to_screen_transform,
+    screen_to_ndc_transform,
+    sfm_calibration_matrix,
+)
+from .transforms import PerspectiveCameras, Transform3d, iterative_undistort

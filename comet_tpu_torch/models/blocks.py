@@ -30,7 +30,11 @@ runs fc1 column-parallel, the activation on the local slice and fc2
 row-parallel with one all-reduce, and :class:`MultiHeadAttention` runs K1 on
 this rank's heads. K2 and K4 take whole-block weights: their blocks
 all-gather the slices and launch the kernel unchanged, as GSPMD does for the
-JAX package's Pallas calls.
+JAX package's Pallas calls. The collectives differentiate as Megatron's
+pairs (``parallel.ModelAxis``): the input of every column-parallel product
+and of every attention over local heads passes ``copy_to``, whose backward
+sums the ranks' shares of its gradient, so the parameters upstream of it
+get their whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -101,7 +105,8 @@ class Linear(nn.Linear):
     def local(self, x):
         """Column-parallel: this rank's output features."""
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.tp.chunk(self.bias, 0).to(dt))
+        return F.linear(self.tp.copy_to(x.to(dt)), self.weight.to(dt),
+                        self.tp.chunk(self.bias, 0).to(dt))
 
     def row(self, x_local):
         """Row-parallel on this rank's input features: the whole output,
@@ -244,16 +249,20 @@ class MultiHeadAttention(nn.Module):
         dt = self.compute_dtype
         w = self.in_proj_weight.to(dt)
         b, heads = self.in_proj_bias, self.num_heads
+        same_k, same_v = q is k, k is v
         if self.tp is not None:  # this rank's heads: their entries of q, k and v
             b = torch.cat([self.tp.chunk(part, 0) for part in b.chunk(3)])
             heads //= self.tp.size
+            q = self.tp.copy_to(q)
+            k = q if same_k else self.tp.copy_to(k)
+            v = k if same_v else self.tp.copy_to(v)
         b = b.to(dt)
         e = w.shape[0] // 3  # the width of (this rank's heads of) q, k and v
-        if q is k and k is v:
+        if same_k and same_v:
             wq, wk, wv = F.linear(q.to(dt), w, b).split(e, dim=-1)
         else:
             wq = F.linear(q.to(dt), w[:e], b[:e])
-            if k is v:
+            if same_v:
                 wk, wv = F.linear(k.to(dt), w[e:], b[e:]).split(e, dim=-1)
             else:
                 wk = F.linear(k.to(dt), w[e : 2 * e], b[e : 2 * e])

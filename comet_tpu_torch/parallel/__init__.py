@@ -5,5 +5,5 @@ batch and track sharding, replication, the tensor-parallel rules
 from .mesh import (
     DATA, MODEL, ModelAxis, Sharding, cross_replica_mean, data_sharding, default_backend,
     host_local_put, init_distributed, make_mesh, mesh_device, replicate_params, replicated,
-    shard_batch, shard_params_tp, tensor_parallel_spec, track_sharding,
+    shard_batch, shard_of, shard_params_tp, tensor_parallel_spec, tp_axis, track_sharding,
 )

@@ -15,7 +15,11 @@ collectives are explicit:
   :func:`shard_params_tp` keeps each rank's slice of the weights the rules
   name, and the modules compute on it (``models/blocks.py``): a
   column-parallel product gives this rank's output features, a row-parallel
-  one takes its input features and sums over the model group.
+  one takes its input features and sums over the model group. The
+  collectives differentiate (``ModelAxis``), so a sharded model trains:
+  DDP over the data group averages each shard's gradient, and the
+  optimizer's global-norm clip sums the shards' squares over the model
+  group (``training.optim``).
 - the track axis: :func:`track_sharding` splits it over the data ranks, the
   sequence-parallel analog for one long sequence.
 
@@ -275,44 +279,138 @@ def tensor_parallel_spec(name: str, ndim: int) -> Tuple[Optional[str], ...]:
     return ()
 
 
+class _CopyToRegion(torch.autograd.Function):
+    """Identity forward, all-reduce backward: the input of a column-parallel
+    product, whose rank computes only its share of the input's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._all_reduce(g), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    """All-reduce forward, identity backward: the partial sums of a
+    row-parallel product; every rank then holds the whole output and the
+    same gradient of it."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis._all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's slice forward, all-gather backward: a replicated value
+    (an activation, a bias) that the rank uses only its part of."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return x.chunk(axis.size, dim)[axis.rank]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._all_gather(g, ctx.dim), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward, this rank's slice backward: every rank computes
+    the same thing from the gathered value, so each holds the whole
+    gradient of it and keeps its own part (a reduce-scatter would add the
+    model ranks' identical copies)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis._all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.axis.size, ctx.dim)[ctx.axis.rank].contiguous(), None, None
+
+
 class ModelAxis:
     """This rank's place on the model axis, as the tensor-parallel modules
     use it: ``size`` ranks in ``group``, this one ``rank``. The collectives
-    carry the compute dtype and are the forward's only (no autograd through
-    them: they raise where a gradient would be needed)."""
+    carry the compute dtype and differentiate as Megatron's conjugate pairs
+    (every model rank holds the same batch and, after each collective,
+    computes the same thing): :meth:`copy_to` (identity, all-reduce of the
+    gradient), :meth:`all_reduce` (sum, identity gradient), :meth:`chunk`
+    (slice, all-gather of the gradient) and :meth:`all_gather` (gather,
+    slice of the gradient)."""
 
     def __init__(self, group, rank: int, size: int):
         self.group, self.rank, self.size = group, rank, size
 
-    def chunk(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's slice of ``t`` along ``dim``."""
-        return t.chunk(self.size, dim)[self.rank]
-
-    @staticmethod
-    def _forward_only(x: torch.Tensor) -> None:
-        if x.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("tensor-parallel modules compute the forward only: run them under "
-                               "torch.no_grad() or torch.inference_mode()")
-
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the model group (a new tensor)."""
-        self._forward_only(x)
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         y = x.contiguous().clone()  # the reduction is in place
         dist.all_reduce(y, group=self.group)
         return y
 
-    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along ``dim``, in rank order."""
-        self._forward_only(x)
-        parts = [torch.empty_like(x) for _ in range(self.size)]
+    def _all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim)
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` unchanged; its gradient summed over the model group."""
+        return _CopyToRegion.apply(x, self)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the model group (a new tensor)."""
+        return _ReduceFromRegion.apply(x, self)
+
+    def chunk(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of ``t`` along ``dim``."""
+        return _Scatter.apply(t, self, dim)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim``, in rank order."""
+        return _Gather.apply(x, self, dim)
+
+
+def tp_axis(param: torch.Tensor) -> Optional["ModelAxis"]:
+    """The model axis a parameter is a shard over (``shard_params_tp`` marks
+    each shard), or None for a whole parameter."""
+    return getattr(param, "tp_axis", None)
 
 
 def _head_rows(w: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     """This rank's q, k and v rows of a packed [3E, E] in-projection (or
     entries of a [3E] bias), stacked: the features of its heads in each."""
     return torch.cat([axis.chunk(part, 0) for part in w.chunk(3, 0)], 0)
+
+
+def _local_part(whole: torch.Tensor, pname: str, dim: Optional[int],
+                axis: ModelAxis) -> torch.Tensor:
+    """This rank's part of parameter ``pname`` split along ``dim``: an
+    in-projection by head, any other weight in contiguous slices."""
+    if pname == "in_proj_weight":
+        return _head_rows(whole, axis)
+    return axis.chunk(whole, dim)
+
+
+@torch.no_grad()
+def shard_of(model: nn.Module, name: str, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``whole``, a tensor shaped as parameter ``name`` of
+    the unsharded model (a weight, its gradient), in the layout
+    :func:`shard_params_tp` gave ``model``'s parameter: ``whole`` itself
+    where that parameter is not a shard."""
+    mod_name, _, pname = name.rpartition(".")
+    module = model.get_submodule(mod_name)
+    axis = tp_axis(getattr(module, pname))
+    if axis is None:
+        return whole
+    return _local_part(whole, pname, getattr(module, "tp_dim", None), axis)
 
 
 @torch.no_grad()
@@ -343,10 +441,12 @@ def shard_params_tp(mesh, model: nn.Module) -> nn.Module:
             if pname == "in_proj_weight":
                 if module.num_heads % n:
                     continue
-                shard = _head_rows(p, axis)
             else:
-                shard = axis.chunk(p, dim)
                 module.tp_dim = dim
-            setattr(module, pname, nn.Parameter(shard.clone(), requires_grad=p.requires_grad))
+            shard = _local_part(p, pname, dim, axis)
+            shard = nn.Parameter(shard.clone(memory_format=torch.contiguous_format),
+                                 requires_grad=p.requires_grad)
+            shard.tp_axis = axis
+            setattr(module, pname, shard)
             module.tp = axis
     return model

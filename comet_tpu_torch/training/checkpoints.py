@@ -9,7 +9,9 @@ The format is the port's own, not orbax's: one ``state.pt`` per directory,
 written with ``torch.save``, holding a dict of the state's entries, each an
 object's ``state_dict()`` (model, optimizer, scheduler, ``RunningStats``) or
 a plain value (epoch). A JAX checkpoint cannot be read here, nor this one by
-the JAX package; weights cross over through ``weights.params_from_jax``.
+the JAX package; weights cross over as a flax ``.msgpack``
+(``utils.serialization.load_params_msgpack``). A model that tensor
+parallelism sharded is refused: gather it first.
 """
 
 from __future__ import annotations
@@ -27,7 +29,13 @@ STATE_FILE = "state.pt"
 def save_checkpoint(ckpt_dir: str, epoch: int, state: Dict[str, Any]) -> str:
     """Save ``state`` (name -> an object with ``state_dict()``, or a plain
     value) to ``ckpt_dir/ckpt_{epoch:06d}/state.pt``, replacing what is
-    there; the file appears whole or not at all. Returns the directory."""
+    there; the file appears whole or not at all. Returns the directory. A
+    model that tensor parallelism sharded raises (gather it first)."""
+    from ..utils.serialization import check_gathered
+
+    for v in state.values():
+        if isinstance(v, torch.nn.Module):
+            check_gathered(v)
     path = os.path.join(ckpt_dir, f"ckpt_{epoch:06d}")
     os.makedirs(path, exist_ok=True)
     payload = {k: v.state_dict() if hasattr(v, "state_dict") else v for k, v in state.items()}

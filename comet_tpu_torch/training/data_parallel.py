@@ -70,7 +70,10 @@ def replicate_train_state(mesh, model: torch.nn.Module,
     0's (a broadcast) and return ``model`` wrapped in
     ``DistributedDataParallel`` over the data group; ``build_train_step``
     then closes over the wrapped model, which averages the gradients over
-    the ranks during ``backward()``.
+    the ranks during ``backward()``. Under tensor parallelism (a model that
+    ``parallel.shard_params_tp`` sharded first) the broadcast and DDP's
+    reduction run over the data group only, so each shard stays this model
+    rank's own.
 
     The parameters the optimizer does not train (the frozen tracker and ViT,
     which keep ``requires_grad`` but run under no_grad) are left out of
@@ -184,8 +187,11 @@ def fit_epoch(
     and the float64 metric block hide behind the card's work.
 
     With a ``mesh``, ``train_step`` is built on :func:`replicate_train_state`'s
-    model, ``batch_size`` is this rank's share of the global batch, and the
-    batches go to the rank's device. The data ranks agree on the number of
+    model (which ``parallel.shard_params_tp`` may have sharded over the
+    model axis; ``order`` is then the data rank's, ``process_local_order(...,
+    mesh=mesh)``, the same on its model ranks), ``batch_size`` is this
+    rank's share of the global batch, and the batches go to the rank's
+    device. The data ranks agree on the number of
     steps (the least of theirs), as every step's gradient reduction needs
     all of them; ``process_local_order``'s strides differ by one where the
     data does not divide."""
@@ -229,13 +235,18 @@ def agreed_steps(mesh, n_steps: int) -> int:
     return int(t.item())
 
 
-def process_local_order(rng: np.random.Generator, n: int, shuffle: bool = True) -> np.ndarray:
+def process_local_order(rng: np.random.Generator, n: int, shuffle: bool = True,
+                        mesh=None) -> np.ndarray:
     """This process's stride over a shuffled epoch order (the deterministic
     DistributedSampler): process r of w sees ``order[r::w]``, from the
-    ``torch.distributed`` group when one is initialized (else 0 of 1).
-    Every process draws from an identically seeded ``rng``, so the global
-    permutation agrees."""
+    ``torch.distributed`` group when one is initialized (else 0 of 1), or,
+    given a ``mesh``, from its data axis, so that the model ranks of one
+    data index (tensor parallelism) read the same samples. Every process
+    draws from an identically seeded ``rng``, so the global permutation
+    agrees."""
     order = rng.permutation(n) if shuffle else np.arange(n)
+    if mesh is not None:
+        return order[mesh.get_local_rank(DATA)::mesh.size(0)]
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         return order[torch.distributed.get_rank()::torch.distributed.get_world_size()]
     return order

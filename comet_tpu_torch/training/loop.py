@@ -87,7 +87,9 @@ def build_train_step(model: COMET, cfg: CometConfig, optimizer: torch.optim.Opti
     global-norm clip and AdamW over the camera parameters) and the
     scheduler. ``model`` may be ``data_parallel.replicate_train_state``'s
     wrapped model: its ``backward()`` then averages the gradients over the
-    data ranks before the clip. The model's parameters are the f32 master copy and it
+    data ranks before the clip; a model that ``parallel.shard_params_tp``
+    sharded trains tensor-parallel (its collectives differentiate, and the
+    clip takes the whole model's norm). The model's parameters are the f32 master copy and it
     computes in ``cfg.dtype`` (bf16 in every preset), as JAX's
     ``run_train_benchmark`` trains.
 

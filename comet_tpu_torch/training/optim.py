@@ -20,10 +20,12 @@ steps before it, as optax reads its schedule.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Mapping, Tuple, Union
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+
+from ..parallel.mesh import tp_axis
 
 # optax.adamw's defaults
 ADAMW_BETAS = (0.9, 0.999)
@@ -74,11 +76,26 @@ def trainable_labels(params: Union[nn.Module, Mapping, Iterable[str]]) -> Dict[s
     return {name: "train" if m else "freeze" for name, m in camera_only_mask(params).items()}
 
 
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list, max_norm: float, axes: Optional[list] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: each gradient times max_norm /
     norm where the global norm is at least max_norm. The scale stays on the
-    gradients' device (no host synchronization). Returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    gradients' device (no host synchronization). Returns the norm.
+
+    Under tensor parallelism ``axes[i]`` is the model axis gradient i is a
+    shard over (``parallel.mesh.tp_axis``), else None: the norm is then the
+    whole model's, the sum of the shards' squares over the model group plus
+    the replicated gradients' counted once, the same on every model rank."""
+    if axes is None or all(a is None for a in axes):
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        sharded = [g for g, a in zip(grads, axes) if a is not None]
+        whole = [g for g, a in zip(grads, axes) if a is None]
+        axis = next(a for a in axes if a is not None)
+        sq = torch.stack(torch._foreach_norm(sharded)).float().square().sum()
+        sq = axis.all_reduce(sq)
+        if whole:
+            sq = sq + torch.stack(torch._foreach_norm(whole)).float().square().sum()
+        norm = sq.sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -86,9 +103,13 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
 
 class ClippedAdamW(torch.optim.AdamW):
     """AdamW after ``clip_by_global_norm(clip_grad)`` of the gradients of
-    every parameter it holds (``clip_grad`` 0: no clip). A parameter the
-    loss did not reach gets a zero gradient, as in JAX, where every leaf has
-    one: weight decay and the moments still move it."""
+    every parameter it holds (``clip_grad`` 0: no clip), the norm of the
+    whole model's gradient also where tensor parallelism shards it; the last
+    norm is kept as ``last_norm`` (a tensor on the gradients' device). A
+    parameter the loss did not reach gets a zero gradient, as in JAX, where
+    every leaf has one: weight decay and the moments still move it."""
+
+    last_norm = None
 
     def __init__(self, params, lr: float = 1.0, clip_grad: float = 1.0):
         super().__init__(params, lr=lr, betas=ADAMW_BETAS, eps=ADAMW_EPS,
@@ -102,7 +123,8 @@ class ClippedAdamW(torch.optim.AdamW):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.clip_grad > 0:
-            clip_by_global_norm_([p.grad for p in params], self.clip_grad)
+            self.last_norm = clip_by_global_norm_([p.grad for p in params], self.clip_grad,
+                                                  [tp_axis(p) for p in params])
         return super().step(closure)
 
 

@@ -1,18 +1,23 @@
 """Weight files and the one-time inference cast.
 
-Counterpart of ``comet_tpu/utils/serialization.py``. The port's weight file
-is a ``torch.save``d state dict (``.pt``), the counterpart of the JAX
-package's flax ``.msgpack``; a ``.msgpack`` is JAX's format and is read
-through ``weights.params_from_jax`` instead.
+Counterpart of ``comet_tpu/utils/serialization.py``. The port writes its
+weights as a ``torch.save``d state dict (``.pt``). It also reads the JAX
+package's weight file, a flax ``.msgpack`` (``save_params_msgpack``), without
+JAX, flax or the ``msgpack`` package: :func:`msgpack_restore` decodes the
+subset of msgpack that ``flax.serialization.msgpack_serialize`` writes, and
+:func:`load_params_msgpack` maps the tree onto the port's names through
+``weights.state_dict_from_flax``. The port writes no ``.msgpack``.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+from typing import Any, Dict, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
-
 
 def cast_params_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every floating parameter and buffer of ``model`` to ``dtype``
@@ -28,18 +33,27 @@ def cast_params_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module
     return model
 
 
-def _check_format(path: str) -> None:
-    if path.endswith(".msgpack"):
-        raise ValueError(
-            f"{path}: a flax .msgpack is the JAX package's weight format; convert its tree "
-            "with comet_tpu_torch.weights.params_from_jax and save the state dict with "
-            "save_params")
+def is_msgpack(path: str) -> bool:
+    return path.endswith(".msgpack")
+
+
+def check_gathered(model: nn.Module) -> None:
+    """Raise if tensor parallelism left ``model`` a shard of its weights
+    (``parallel.shard_params_tp``): a file of one rank's shards is no
+    model's weights."""
+    if any(getattr(m, "tp", None) is not None for m in model.modules()):
+        raise ValueError("the model holds tensor-parallel shards (parallel.shard_params_tp); "
+                         "gather the whole weights into an unsharded model first")
 
 
 def save_params(path: str, model: nn.Module) -> str:
     """Save ``model``'s state dict to ``path`` (a ``.pt`` file), whole or not
-    at all; returns the path."""
-    _check_format(path)
+    at all; returns the path. A ``.msgpack`` path (JAX's format, which the
+    port reads but does not write) and a tensor-parallel model raise."""
+    if is_msgpack(path):
+        raise ValueError(f"{path}: the port writes its weights as .pt; a .msgpack is the JAX "
+                         "package's format")
+    check_gathered(model)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     torch.save(model.state_dict(), tmp)
@@ -48,8 +62,198 @@ def save_params(path: str, model: nn.Module) -> str:
 
 
 def load_params(path: str, model: nn.Module) -> nn.Module:
-    """Load a state dict saved by :func:`save_params` into ``model`` in place
-    (each tensor keeps the model's device and dtype); returns the model."""
-    _check_format(path)
+    """Load a state dict saved by :func:`save_params`, or the JAX package's
+    ``.msgpack`` (:func:`load_params_msgpack`), into ``model`` in place (each
+    tensor keeps the model's device and dtype); returns the model."""
+    if is_msgpack(path):
+        return load_params_msgpack(path, model)
     model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
     return model
+
+
+# ---------------------------------------------------------------------------
+# flax's msgpack, read without JAX. msgpack_serialize writes maps with string
+# keys, arrays, strings, binaries, booleans, integers, floats and three
+# extension types: 1 an ndarray, itself a msgpack (shape, dtype name, C-order
+# bytes); 2 a complex (real, imag); 3 a numpy scalar, as an ndarray of shape
+# (). An array over flax's MAX_CHUNK_SIZE (2**30 bytes) is a map
+# {"__msgpack_chunked_array__": True, "shape": {"0": d0, ...}, "chunks":
+# {"0": flat part, ...}}. Everything else raises.
+# ---------------------------------------------------------------------------
+
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+_CHUNKED = "__msgpack_chunked_array__"
+_DTYPES = frozenset({"bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+                     "uint64", "float16", "float32", "float64", "complex64", "complex128"})
+# fixed-size headers: tag -> (struct format of the length or value, kind)
+_FIXED = {
+    0xc4: (">B", "bin"), 0xc5: (">H", "bin"), 0xc6: (">I", "bin"),
+    0xc7: (">B", "ext"), 0xc8: (">H", "ext"), 0xc9: (">I", "ext"),
+    0xca: (">f", "value"), 0xcb: (">d", "value"),
+    0xcc: (">B", "value"), 0xcd: (">H", "value"), 0xce: (">I", "value"), 0xcf: (">Q", "value"),
+    0xd0: (">b", "value"), 0xd1: (">h", "value"), 0xd2: (">i", "value"), 0xd3: (">q", "value"),
+    0xd9: (">B", "str"), 0xda: (">H", "str"), 0xdb: (">I", "str"),
+    0xdc: (">H", "array"), 0xdd: (">I", "array"),
+    0xde: (">H", "map"), 0xdf: (">I", "map"),
+}
+_FIXEXT = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+
+
+class _Reader:
+    """A cursor over the bytes of one msgpack document."""
+
+    def __init__(self, data: memoryview, what: str):
+        self.data, self.pos, self.what = data, 0, what
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError(f"{self.what}: truncated msgpack (needs {n} bytes at offset "
+                             f"{self.pos} of {len(self.data)})")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self, allow_ext: bool = True) -> Any:
+        tag = self.take(1)[0]
+        if tag <= 0x7f:
+            return tag
+        if tag >= 0xe0:
+            return tag - 0x100
+        if 0x80 <= tag <= 0x8f:
+            return self.map(tag & 0x0f, allow_ext)
+        if 0x90 <= tag <= 0x9f:
+            return [self.value(allow_ext) for _ in range(tag & 0x0f)]
+        if 0xa0 <= tag <= 0xbf:
+            return self.string(tag & 0x1f)
+        if tag in (0xc2, 0xc3):
+            return tag == 0xc3
+        if tag in _FIXEXT and allow_ext:
+            return self.ext(_FIXEXT[tag])
+        if tag in _FIXED:
+            fmt, kind = _FIXED[tag]
+            n = self.unpack(fmt)
+            if kind == "value":
+                return n
+            if kind == "bin":
+                return self.take(n)
+            if kind == "str":
+                return self.string(n)
+            if kind == "array":
+                return [self.value(allow_ext) for _ in range(n)]
+            if kind == "map":
+                return self.map(n, allow_ext)
+            if allow_ext:
+                return self.ext(n)
+        raise ValueError(f"{self.what}: msgpack type 0x{tag:02x} at offset {self.pos - 1} is not "
+                         "one flax writes")
+
+    def string(self, n: int) -> str:
+        return bytes(self.take(n)).decode("utf-8")
+
+    def map(self, n: int, allow_ext: bool) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.value(allow_ext=False)
+            if not isinstance(key, str):
+                raise ValueError(f"{self.what}: a map key {key!r} is not a string")
+            out[key] = self.value(allow_ext)
+        return out
+
+    def ext(self, n: int) -> Any:
+        code = struct.unpack(">b", self.take(1))[0]
+        payload = _Reader(self.take(n), self.what)
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            out = payload.ndarray()
+            return out.reshape(()) if code == _EXT_NPSCALAR else out
+        if code == _EXT_COMPLEX:
+            parts = payload.value(allow_ext=False)
+            payload.end()
+            if not (isinstance(parts, list) and len(parts) == 2):
+                raise ValueError(f"{self.what}: a complex ext holds {parts!r}")
+            return complex(*parts)
+        raise ValueError(f"{self.what}: msgpack ext type {code} is not one flax writes")
+
+    def ndarray(self) -> Union[np.ndarray, torch.Tensor]:
+        """An ext-1 payload: a numpy array, or a torch bfloat16 tensor for
+        flax's ``bfloat16`` (numpy has no such dtype without ml_dtypes)."""
+        fields = self.value(allow_ext=False)
+        self.end()
+        if not (isinstance(fields, list) and len(fields) == 3):
+            raise ValueError(f"{self.what}: an ndarray ext holds {len(fields)} fields, not 3")
+        shape, name, buf = fields
+        if isinstance(name, memoryview):
+            name = bytes(name).decode("ascii")
+        if not (isinstance(shape, list) and all(isinstance(d, int) and d >= 0 for d in shape)
+                and isinstance(buf, memoryview)):
+            raise ValueError(f"{self.what}: a malformed ndarray ext (shape {shape!r})")
+        if name == "bfloat16":
+            raw = np.frombuffer(buf, np.uint16).reshape(shape)
+            return torch.from_numpy(raw.copy()).view(torch.bfloat16)
+        if name not in _DTYPES:
+            raise ValueError(f"{self.what}: ndarray dtype {name!r} is not one the port reads")
+        dtype = np.dtype(name)
+        if len(buf) != dtype.itemsize * int(np.prod(shape, dtype=np.int64)):
+            raise ValueError(f"{self.what}: an ndarray of shape {shape} {name} holds "
+                             f"{len(buf)} bytes")
+        return np.frombuffer(buf, dtype).reshape(shape)
+
+    def end(self) -> None:
+        if self.pos != len(self.data):
+            raise ValueError(f"{self.what}: {len(self.data) - self.pos} bytes after the msgpack "
+                             "value")
+
+
+def _unchunk(tree: Any, what: str) -> Any:
+    """flax's chunked form of an oversized array back to the array."""
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNKED not in tree:
+        return {k: _unchunk(v, what) for k, v in tree.items()}
+    if set(tree) != {_CHUNKED, "shape", "chunks"}:
+        raise ValueError(f"{what}: a chunked array holds {sorted(tree)}")
+    shape = [tree["shape"][str(i)] for i in range(len(tree["shape"]))]
+    chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+    if all(isinstance(c, torch.Tensor) for c in chunks):
+        return torch.cat(chunks).reshape(shape)
+    return np.concatenate(chunks).reshape(shape)
+
+
+def msgpack_restore(data: bytes, what: str = "msgpack") -> Dict[str, Any]:
+    """The tree a flax ``msgpack_serialize`` wrote (``flax.serialization.
+    msgpack_restore``'s result): nested dicts whose leaves are numpy arrays
+    (bfloat16: torch tensors), numbers and strings. Raises ``ValueError``
+    on a truncated document, bytes after it, and anything flax does not
+    write; ``what`` names the source in the messages."""
+    reader = _Reader(memoryview(data), what)
+    tree = reader.value()
+    reader.end()
+    if not isinstance(tree, dict):
+        raise ValueError(f"{what}: the document is a {type(tree).__name__}, not a flax tree")
+    return _unchunk(tree, what)
+
+
+def read_msgpack(path: str) -> Dict[str, Any]:
+    """:func:`msgpack_restore` of a file."""
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read(), path)
+
+
+def load_params_msgpack(path: str, model_or_cfg) -> Union[nn.Module, Dict[str, torch.Tensor]]:
+    """The JAX package's weight file (``save_params_msgpack``: a flax tree
+    of the COMET's parameters) mapped onto the port's names by
+    ``weights.state_dict_from_flax``, which raises on a leaf of no port
+    parameter, a shape that differs or a parameter left unfilled. Given a
+    model, loads the weights into it in place and returns it; given a
+    config, returns the state dict."""
+    from ..weights import state_dict_from_flax
+
+    tree = read_msgpack(path)
+    if isinstance(model_or_cfg, nn.Module):
+        model_or_cfg.load_state_dict(state_dict_from_flax(tree, model_or_cfg.state_dict()))
+        return model_or_cfg
+    from ..models.comet import build_comet
+
+    return state_dict_from_flax(tree, build_comet(model_or_cfg, device="meta").state_dict())

@@ -14,7 +14,8 @@ kernels as the eager model.
   flax paths), so one artifact serves every checkpoint of its
   configuration, and the artifact holds the graph and a few constants, not
   the weights. :func:`params_from_file` restores a ``.pt`` weight file by
-  name into that input.
+  name into that input, :func:`params_from_msgpack` the JAX package's flax
+  ``.msgpack`` (read without JAX).
 - **The serving side** imports this module and ``comet_tpu_torch.ops``
   (which registers the operators), never ``comet_tpu_torch.models``:
   :func:`load_exported` then :func:`serving_call`.
@@ -23,7 +24,10 @@ kernels as the eager model.
 - **Manifest.** :func:`save_exported` writes ``<path>.json`` beside the
   artifact: versions, device, the kernel sources' digest (the counterpart of
   JAX's recorded ``jax_version`` pin: a served graph is only as good as the
-  kernels it calls), sizes and the model block.
+  kernels it calls), sizes and the model block. :func:`load_exported`
+  refuses an artifact without its manifest, or one whose digest is not the
+  kernel library's in this checkout: the graph would call kernels it was
+  never exported with.
 
 The trace is non-strict ``torch.export`` (Python runs as written, on fake
 tensors): no ahead-of-time compilation, so every op but the kernels runs
@@ -40,11 +44,11 @@ import torch
 import torch.nn as nn
 
 from ..ops import kernels
-from .serialization import _check_format
+from .serialization import is_msgpack, read_msgpack
 
 __all__ = [
     "export_forward", "export_windowed", "save_exported", "load_exported", "serving_call",
-    "params_from_file",
+    "params_from_file", "params_from_msgpack",
 ]
 
 STRICT = False
@@ -204,8 +208,22 @@ def save_exported(exported: torch.export.ExportedProgram, path: str, cfg=None,
 
 
 def load_exported(path: str) -> torch.export.ExportedProgram:
-    """Read an artifact written by :func:`save_exported`. The operators must
-    be registered first: this module imports ``comet_tpu_torch.ops``."""
+    """Read an artifact written by :func:`save_exported`, after checking its
+    manifest ``<path>.json``: it must be there, and its ``kernels_digest``
+    must be the digest of this checkout's kernel sources
+    (``ops.kernels._digest()``), else this raises, naming both digests. The
+    operators must be registered first: this module imports
+    ``comet_tpu_torch.ops``."""
+    try:
+        with open(path + ".json") as f:
+            manifest = json.load(f)
+    except FileNotFoundError:
+        raise FileNotFoundError(f"{path}: no manifest {path}.json beside the artifact; without "
+                                "it the kernels the graph was exported with are unknown") from None
+    digest, ours = manifest.get("kernels_digest"), kernels._digest()
+    if digest != ours:
+        raise RuntimeError(f"{path}: exported with the kernel sources of digest {digest}, and "
+                           f"this checkout's kernels have digest {ours}; export it again")
     return torch.export.load(path)
 
 
@@ -229,15 +247,11 @@ def serving_call(exported: torch.export.ExportedProgram) -> Callable:
     return call
 
 
-def params_from_file(path: str, exported: torch.export.ExportedProgram) -> Dict[str, torch.Tensor]:
-    """Restore a weight file written by ``utils.serialization.save_params``
-    (``.pt``) into the artifact's ``params`` input, by name: each tensor
-    cast to the dtype and moved to the device the artifact takes. Raises,
-    naming the keys, for a missing or an unexpected name, a shape that
-    differs or a dtype that cannot be cast; a ``.msgpack`` is refused (JAX's
-    format)."""
-    _check_format(path)
-    state = torch.load(path, map_location="cpu", weights_only=True)
+def _fill(state, exported: torch.export.ExportedProgram, path: str) -> Dict[str, torch.Tensor]:
+    """``state`` (name -> tensor) as the artifact's ``params`` input: each
+    tensor cast to the dtype and moved to the device the artifact takes.
+    Raises, naming the keys, for a missing or an unexpected name, a shape
+    that differs or a dtype that cannot be cast."""
     (want, *_), _ = _inputs(exported)
     missing, unexpected = sorted(set(want) - set(state)), sorted(set(state) - set(want))
     if missing or unexpected:
@@ -253,3 +267,29 @@ def params_from_file(path: str, exported: torch.export.ExportedProgram) -> Dict[
                             f"artifact's {spec.dtype}")
         out[name] = t.to(device=spec.device, dtype=spec.dtype)
     return out
+
+
+def params_from_file(path: str, exported: torch.export.ExportedProgram) -> Dict[str, torch.Tensor]:
+    """Restore a weight file written by ``utils.serialization.save_params``
+    (``.pt``) into the artifact's ``params`` input, by name (:func:`_fill`'s
+    checks); a ``.msgpack`` is refused (:func:`params_from_msgpack` reads
+    it)."""
+    if is_msgpack(path):
+        raise ValueError(f"{path}: a flax .msgpack is the JAX package's weight format; read it "
+                         "with params_from_msgpack")
+    return _fill(torch.load(path, map_location="cpu", weights_only=True), exported, path)
+
+
+def params_from_msgpack(path: str,
+                        exported: torch.export.ExportedProgram) -> Dict[str, torch.Tensor]:
+    """Restore the JAX package's weight file (a flax ``.msgpack``, the
+    counterpart of ``comet_tpu/utils/serving.py``'s ``params_from_msgpack``)
+    into the artifact's ``params`` input: the tree mapped onto the port's
+    names by ``weights.state_dict_from_flax`` (which raises on a leaf of no
+    parameter and on a parameter left unfilled), then :func:`_fill`'s
+    checks and casts. Needs no model: only the artifact's input shapes."""
+    from ..weights import state_dict_from_flax
+
+    (want, *_), _ = _inputs(exported)
+    state = state_dict_from_flax(read_msgpack(path), {k: v.shape for k, v in want.items()})
+    return _fill(state, exported, path)

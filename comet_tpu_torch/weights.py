@@ -10,13 +10,15 @@ mechanical:
 - a LayerNorm / GroupNorm ``scale`` becomes ``weight``;
 - every other leaf keeps its name and shape.
 
-The tree is a nested dict of numpy arrays; no JAX is needed here.
+The tree is a nested dict of numpy arrays (a ``bfloat16`` leaf, which
+numpy has no dtype for, may be a torch tensor: ``utils.serialization``'s
+msgpack reader gives one); no JAX is needed here.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,19 +36,20 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (str(key),), value
 
 
-def convert_leaf(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
+def convert_leaf(path: Tuple[str, ...], value) -> Tuple[str, Union[np.ndarray, torch.Tensor]]:
     """One flax leaf -> (state_dict name, array in the port's layout)."""
     parts = []
     for comp in path[:-1]:
         m = _INDEXED.match(comp)
         parts.extend(m.groups() if m else (comp,))
     leaf = path[-1]
-    arr = np.asarray(value)
+    arr = value if isinstance(value, torch.Tensor) else np.asarray(value)
     if leaf == "kernel":
         if arr.ndim == 2:
             arr = arr.T
         elif arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+            arr = arr.permute(3, 2, 0, 1) if isinstance(arr, torch.Tensor) else arr.transpose(
+                3, 2, 0, 1)
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
         leaf = "weight"
@@ -79,6 +82,9 @@ def state_dict_from_flax(tree: Mapping, expected: Mapping) -> Dict[str, torch.Te
             raise ValueError(
                 f"flax leaf {'/'.join(path)} -> {name}: shape {arr.shape}, port {expected[name]}"
             )
+        if isinstance(arr, torch.Tensor):
+            out[name] = arr
+            continue
         if not arr.flags.writeable:
             arr = arr.copy()
         out[name] = torch.from_numpy(arr)

@@ -211,11 +211,102 @@ def test_bench_prints_json(tiny_cli, capsys):
     assert result["unit"] == "seq/s" and result["value"] > 0 and result["device"] == "cpu"
 
 
+def _same_rows(a, b):
+    """Two CSVs equal row for row, but for the timing column."""
+    ra, rb = _rows(a), _rows(b)
+    assert len(ra) == len(rb) > 0
+    for x, y in zip(ra, rb):
+        assert {k: v for k, v in x.items() if k != "sec/it"} == {
+            k: v for k, v in y.items() if k != "sec/it"}
+
+
+def _cli_outputs(command, root, out):
+    """What the command wrote that the loader must not change: the eval
+    CSV, the demo's trajectory JSON, or train's CSV and final weights."""
+    if command == "eval":
+        return [os.path.join(out, "test_results.csv")]
+    if command == "demo":
+        return [os.path.join(root, d, "metrics", "results.json") for d in sorted(os.listdir(root))
+                if os.path.isdir(os.path.join(root, d, "metrics"))]
+    return [os.path.join(out, "train_results.csv")]
+
+
+@pytest.mark.parametrize("device_preprocess", [False, True], ids=["host", "device-preprocess"])
+@pytest.mark.parametrize("command", ["eval", "train", "demo"])
+def test_native_loader_equals_pil(tiny_cli, tmp_path, command, device_preprocess):
+    """``--loader native`` (the C++ loader, alone or decoding for the device
+    preprocessing) writes what ``--loader pil`` writes, exactly: the
+    fixtures are PNGs, which both decode to the same pixels."""
+    root = {"eval": os.path.join(tiny_cli["amd"], "AMD_eval"), "demo": tiny_cli["dca"],
+            "train": tiny_cli["amd"]}[command]
+    extra = {"eval": ["--max-sequences", "2"], "demo": ["--demo-seq-len", "6", "--max-sequences",
+                                                        "1"],
+             "train": ["--epochs", "1", "--eval-interval", "1", "--max-sequences", "1"]}[command]
+    extra += ["--device-preprocess"] if device_preprocess else []
+    written = []
+    for loader in ("pil", "native"):
+        out = str(tmp_path / loader)
+        tcli.main([command, "--data-root", root, *_GRID, "--device", "cpu", "--loader", loader,
+                   "--output-dir", out, *extra])
+        written.append(_cli_outputs(command, out, out))
+    for a, b in zip(*written):
+        if a.endswith(".csv"):
+            _same_rows(a, b)
+        else:
+            with open(a) as fa, open(b) as fb:
+                assert json.load(fa) == json.load(fb)
+    assert written[0]
+
+
+def test_native_loader_never_falls_back(tiny_cli, tmp_path, monkeypatch):
+    """Where the C++ loader cannot be built, ``--loader native`` raises with
+    the compiler's error, alone and under ``--device-preprocess``."""
+    from comet_tpu_torch import native
+
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    native._load.cache_clear()
+    try:
+        for extra in ([], ["--device-preprocess"]):
+            with pytest.raises(RuntimeError, match="native loader unavailable: .*no-such-g"):
+                tcli.main(["eval", "--data-root", os.path.join(tiny_cli["amd"], "AMD_eval"),
+                           *_GRID, "--device", "cpu", "--loader", "native",
+                           "--output-dir", str(tmp_path / "out"), *extra])
+    finally:
+        native._load.cache_clear()
+
+
+def test_eval_msgpack_checkpoint_matches_jax(monkeypatch, data, tmp_path):
+    """``--checkpoint x.msgpack``: a flax file that comet_tpu's
+    ``save_params_msgpack`` wrote, read by each CLI's own ``_init_model``
+    (the port's without JAX), gives the same CSV within the eval tolerances."""
+    from comet_tpu.utils.serialization import save_params_msgpack
+
+    jc, tc = _tiny(jcfg).replace(**_CFG), _tiny(tcfg).replace(**_CFG)
+    monkeypatch.setattr(jcfg, "get_config", lambda name="ours": jc)
+    monkeypatch.setattr(tcfg, "get_config", lambda name="ours": tc)
+    path = str(tmp_path / "weights.msgpack")
+    save_params_msgpack(path, {"params": data["params"]})
+    args = ["eval", "--data-root", os.path.join(data["amd"], "AMD_eval"), *_GRID,
+            "--max-sequences", "2", "--checkpoint", path, "--seed", "5"]
+    jcli.main(args + ["--output-dir", str(tmp_path / "jax")])
+    tcli.main(args + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    (want,), (got,) = (_rows(tmp_path / d / "test_results.csv") for d in ("jax", "port"))
+    assert list(got) == list(want)
+    for key in got:
+        if key == "sec/it":
+            continue
+        if key in CONTINUOUS:
+            np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-5, atol=1e-4,
+                                       err_msg=key)
+        else:
+            assert float(got[key]) == float(want[key]), key
+
+
 @pytest.mark.parametrize("argv", [
-    ["eval", "--loader", "native"],
     ["eval", "--keypoints", "superpoint"],
     ["match", "--list"],
-], ids=["native loader", "superpoint", "match"])
+], ids=["superpoint", "match"])
 def test_what_is_not_ported_raises(argv):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tcli.main(argv + (["--device", "cpu"] if argv[0] in ("eval", "train") else []))

@@ -26,6 +26,12 @@ exported full-width forward, served on each route, launches the eager
 forward's kernels and equals its outputs bit for bit. Two full-width epochs
 of two steps through ``fit_epoch(mesh=)`` over NCCL at world size 1 equal the
 mesh-less epoch bit for bit, and a rank without a card of its own raises.
+A tensor-parallel train step by two gloo ranks sharing the card (the file is
+also their program: ``--tp-worker RANK PORT DIR``) stays within 3e-2 of the
+replicated step's loss and global norm and 0.1 of each camera gradient's
+norm, and the native loader's decode on the card equals PIL's bit for bit
+where the native library builds (it skips where it does not, naming the
+compiler's error).
 """
 
 import ctypes
@@ -870,3 +876,141 @@ def test_no_fallback_of_device_or_backend(cuda_device):
         parallel.init_distributed("localhost:1", n + 1, n, device="cuda")
     with pytest.raises(RuntimeError, match="no process group"):
         parallel.make_mesh(n_data=1)
+
+
+def _tp_train_worker(rank, port, out):
+    """One of the two gloo ranks of :func:`test_tp_train_step_on_gloo_ranks`:
+    one camera-only train step of the full-width model replicated, then one
+    sharded over a (data 1, model 2) mesh, on the same batch; saves the
+    losses, the global norms, the largest |TP - replicated| / norm of the
+    camera gradients (norms floored at 1e-4 of the largest) and a digest of
+    the replicated camera tensors after the step."""
+    import hashlib
+    import os
+
+    from comet_tpu_torch import parallel
+    from comet_tpu_torch.config import get_config
+    from comet_tpu_torch.geometry.cameras import CameraSet, make_camera_set
+    from comet_tpu_torch.models import build_comet
+    from comet_tpu_torch.training import build_optimizer, build_train_step, camera_only_mask
+    from comet_tpu_torch.training.data_parallel import replicate_train_state
+
+    dev = parallel.init_distributed(f"localhost:{port}", 2, rank, device="cuda:0",
+                                    backend="gloo")
+    mesh = parallel.make_mesh(n_data=1, n_model=2, device="cuda")
+    cfg = get_config("ours")
+    g = torch.Generator(device=dev).manual_seed(0)
+    s, hw = cfg.seqlen, cfg.img_size
+    images = torch.randn(1, s, hw, hw, 3, generator=g, device=dev)
+    queries = torch.rand(1, cfg.track_num, 2, generator=g, device=dev) * (hw - 64) + 32
+    q = torch.randn(s, 4, generator=g, device=dev)
+    uvz = torch.rand(s, 3, generator=g, device=dev) * 100 + 3
+    gt = CameraSet(*(f[None] for f in make_camera_set(q / q.norm(dim=-1, keepdim=True),
+                                                       torch.zeros(s, 3, device=dev),
+                                                       t_uvz=uvz, ratio=0.9)))
+    res = {}
+    for name in ("replicated", "tp"):
+        model = build_comet(cfg, device=dev, seed=0)
+        mask = camera_only_mask(model)
+        if name == "tp":
+            parallel.shard_params_tp(mesh, model)
+        optimizer, scheduler = build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+        trained = replicate_train_state(mesh, model, optimizer) if name == "tp" else model
+        grads = {}
+
+        def mark(part, model=model, mask=mask, grads=grads):
+            if part == "backward":
+                grads.update({n: p.grad.clone() for n, p in model.named_parameters() if mask[n]})
+
+        loss = build_train_step(trained, cfg, optimizer, scheduler)(images, queries, gt,
+                                                                     mark=mark)["loss"].item()
+        res[name] = dict(loss=loss, norm=optimizer.last_norm.item())
+        if name == "replicated":
+            ref = grads
+        else:
+            ref = {n: parallel.shard_of(model, n, g) for n, g in ref.items()}
+            floor = 1e-4 * max(v.norm().item() for v in ref.values())
+            res["grad_ratio"] = max((grads[n] - ref[n]).norm().item()
+                                    / max(ref[n].norm().item(), floor) for n in grads)
+            h = hashlib.sha256()
+            for n, p in model.named_parameters():
+                if mask[n] and parallel.tp_axis(p) is None:
+                    h.update(p.detach().cpu().numpy().tobytes())
+            res["replicated_digest"] = h.hexdigest()
+        del model, trained, optimizer
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out, f"tp{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tp_train_step_on_gloo_ranks(cuda_device, tmp_path):
+    """Tensor-parallel training on the card: two gloo ranks share it, each
+    holding half of the sharded weights; one train step of the full-width
+    model against the replicated step on the same batch: loss and global
+    norm within 3e-2 relative, every camera gradient within 0.1 of its norm
+    (chip_smoke.py's GRAD_RTOL for a bf16 gradient; bf16 rounding alone
+    moves the trajectory encoder's past 3e-2 of its range), and the
+    replicated camera tensors equal on both ranks."""
+    import os
+    import sys
+
+    from comet_tpu_torch.parallel.launch import free_port
+
+    port, repo = free_port(), os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+                               str(port), str(tmp_path)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, cwd=repo,
+                              env={**os.environ, "PYTHONPATH": repo})
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}: {p.returncode}\n{log[-4000:]}"
+    ranks = [torch.load(os.path.join(tmp_path, f"tp{r}.pt")) for r in range(2)]
+    for res in ranks:
+        rep, tp = res["replicated"], res["tp"]
+        assert abs(tp["loss"] - rep["loss"]) <= 3e-2 * abs(rep["loss"])
+        assert abs(tp["norm"] - rep["norm"]) <= 3e-2 * abs(rep["norm"])
+        assert res["grad_ratio"] <= 0.1
+    assert ranks[0]["replicated_digest"] == ranks[1]["replicated_digest"]
+
+
+@pytest.mark.cuda
+def test_native_decode_on_the_card_equals_pil(cuda_device, tmp_path):
+    """``DevicePreprocessDataset(decode="native")`` on the card: the images
+    equal ``decode="pil"``'s bit for bit. Needs the native library, which
+    needs the codec headers on the machine."""
+    from comet_tpu_torch import native
+    from comet_tpu_torch.data import AMDDataset, DevicePreprocessDataset, fixtures
+    from comet_tpu_torch.data.device_pipeline import wait_ready
+
+    if not native.available():
+        pytest.skip(f"the native library does not build here: {native.build_error()[:300]}")
+    fixtures.generate_amd_fixture(str(tmp_path), n_seqs=2, n_frames=8)
+    base = AMDDataset(str(tmp_path), crop_size=512, seq_len=8)
+    for resample in ("bilinear", "lanczos"):
+        nat = DevicePreprocessDataset(base, resample=resample, decode="native",
+                                      keep_on_device=True, device=cuda_device)
+        pil = DevicePreprocessDataset(base, resample=resample, keep_on_device=True,
+                                      device=cuda_device)
+        for i in range(len(base)):
+            a, b = nat[i], pil[i]
+            wait_ready(a)
+            wait_ready(b)
+            assert torch.equal(a.images, b.images), (resample, i)
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:2] != ["--tp-worker"]:
+        sys.exit("usage: test_torch_port_cuda.py --tp-worker RANK PORT DIR")
+    _tp_train_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -141,7 +141,7 @@ def _dataset(root, cfg):
 def _dp_steps(model, cfg, batch, rows, mesh=None):
     """STEPS train steps on ``rows`` of ``batch``: (losses, the trained
     parameters after, their gradients in the first step, as the optimizer
-    got them)."""
+    got them, and each step's global norm of the gradient)."""
     from comet_tpu_torch.training import build_optimizer, build_train_step, camera_only_mask
     from comet_tpu_torch.training.data_parallel import replicate_train_state
 
@@ -149,14 +149,57 @@ def _dp_steps(model, cfg, batch, rows, mesh=None):
     trained = replicate_train_state(mesh, model, optimizer) if mesh is not None else model
     step = build_train_step(trained, cfg, optimizer, scheduler)
     mask = camera_only_mask(model)
-    grads = {}
+    grads, norms = {}, []
 
     def mark(part):
         if part == "backward" and not grads:
             grads.update({n: p.grad.clone() for n, p in model.named_parameters() if mask[n]})
+        if part == "optimizer":
+            norms.append(float(optimizer.last_norm))
 
     losses = [float(step(*_torch_rows(batch, rows), mark=mark)["loss"]) for _ in range(STEPS)]
-    return losses, {n: p.detach().clone() for n, p in model.named_parameters() if mask[n]}, grads
+    params = {n: p.detach().clone() for n, p in model.named_parameters() if mask[n]}
+    return losses, params, grads, norms
+
+
+def _tp_steps(cfg, weights, mesh, batch):
+    """:func:`_dp_steps` of a model that ``shard_params_tp`` sharded over
+    ``mesh``'s model axis: each data rank trains on its rows of the global
+    batch (all of it at data size 1), DDP over the data group. Its record,
+    with the frozen tensors that moved."""
+    model = _model(cfg, weights)
+    parallel.shard_params_tp(mesh, model)
+    laid_out = all(torch.equal(parallel.shard_of(model, n, weights[n].to(p.dtype)), p)
+                   for n, p in model.named_parameters())
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n_data, d = mesh.size(0), mesh.get_local_rank(parallel.DATA)
+    rows = slice(0, len(batch[0])) if n_data == 1 else slice(d, d + 1)
+    losses, params, grads, norms = _dp_steps(model, cfg, batch, rows, mesh)
+    moved = [n for n, p in model.named_parameters() if n not in params
+             and not torch.equal(p, frozen[n])]
+    return dict(losses=losses, params=params, grads=grads, norms=norms, frozen_moved=moved,
+                shard_of_matches=laid_out, saving=_save_sharded(model))
+
+
+def _save_sharded(model):
+    """What saving a sharded model gives: each way's error message (or
+    "saved"), and the files it left."""
+    import tempfile
+
+    from comet_tpu_torch.training import save_checkpoint
+    from comet_tpu_torch.utils.serialization import save_params
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, save in (("save_params", lambda: save_params(os.path.join(tmp, "w.pt"), model)),
+                           ("save_checkpoint", lambda: save_checkpoint(tmp, 0, {"model": model}))):
+            try:
+                save()
+                out[name] = "saved"
+            except ValueError as exc:
+                out[name] = str(exc)
+        out["files"] = sorted(os.listdir(tmp))
+    return out
 
 
 def _halves_steps(model, cfg, batch):
@@ -221,7 +264,7 @@ def _fit(model, cfg, root, batch_size, mesh=None):
     rng = np.random.default_rng(7)
     steps = []
     for _ in range(EPOCHS):
-        order = process_local_order(rng, len(ds))
+        order = process_local_order(rng, len(ds), mesh=mesh)
         steps.append(fit_epoch(step, ds, _seed_grid(cfg), batch_size, order,
                                device=None if mesh is not None else "cpu", mesh=mesh))
     return steps, {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -236,7 +279,8 @@ def _evaluate(model, cfg, root, mesh=None, eval_batch=1):
 
 
 def worker_dp(rank, world, port, out):
-    """Two data ranks: the helpers, the train steps, fit_epoch, evaluate."""
+    """Two data ranks: the helpers, the train steps, fit_epoch, evaluate;
+    then tensor-parallel train steps on a (data 1, model 2) mesh."""
     from comet_tpu_torch.ops.corr import build_fmap_pyramid, corr_pyramid_sample
     from comet_tpu_torch.training import RunningStats, process_local_order
     from comet_tpu_torch.training.loop import _merge_process_averages
@@ -254,8 +298,10 @@ def worker_dp(rank, world, port, out):
     local = corr_pyramid_sample(build_fmap_pyramid(torch.from_numpy(fmaps), 2),
                                 shard.local(coords), shard.local(feats), 1)
     res["track"] = shard.gather(local)
-    res["losses"], res["params"], res["grads"] = _dp_steps(
+    res["losses"], res["params"], res["grads"], _ = _dp_steps(
         _model(cfg, weights), cfg, _train_batch(cfg, world), slice(rank, rank + 1), mesh)
+    res["tp_train"] = {(1, 2): _tp_steps(cfg, weights, parallel.make_mesh(
+        n_data=1, n_model=2, device="cpu"), _train_batch(cfg, 2))}
     res["fit_steps"], res["fit_params"] = _fit(_model(cfg, weights), cfg, out, 1, mesh)
     res["eval"] = _evaluate(_model(cfg, weights), cfg, out, mesh)
     stats = RunningStats()
@@ -287,7 +333,9 @@ TP_ROUTES = ("default", "fused")
 
 def worker_tp(rank, world, port, out):
     """A (data 2, model 2) mesh: the forward of each route, and the modules
-    with a column product and no row partner, replicated and sharded."""
+    with a column product and no row partner, replicated and sharded; then
+    tensor-parallel train steps on (data 1, model 4) and (data 2, model 2)
+    meshes."""
     from comet_tpu_torch.config import FUSED_ROUTE, KernelRoute
 
     _init(rank, world, port)
@@ -312,6 +360,12 @@ def worker_tp(rank, world, port, out):
                           if tuple(p.shape) != before[n]}
         res["shards"] = {n: p.detach().clone() for n, p in model.named_parameters()
                          if n.endswith("in_proj_weight")}
+    meshes = {shape: parallel.make_mesh(n_data=shape[0], n_model=shape[1], device="cpu")
+              for shape in ((1, 4), (2, 2))}
+    res["tp_train"] = {shape: _tp_steps(cfg, weights, mesh, _train_batch(cfg, 2))
+                       for shape, mesh in meshes.items()}
+    res["tp_fit"] = _fit(parallel.shard_params_tp(meshes[2, 2], _model(cfg, weights)), cfg, out,
+                         1, meshes[2, 2])
     torch.save(res, os.path.join(out, f"tp{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -601,7 +655,7 @@ def one_process_steps(shared):
 def test_dp_step_matches_one_process(dp, one_process_steps):
     """The ranks' mean loss is the batch's, and the gradient DDP averaged is
     the batch's gradient, for every trainable tensor."""
-    losses, _, grads = one_process_steps
+    losses, _, grads, _ = one_process_steps
     np.testing.assert_allclose(np.mean([dp[0]["losses"], dp[1]["losses"]], axis=0), losses,
                                rtol=1e-5)
     for r in range(2):
@@ -674,17 +728,28 @@ def _hold_grads_to_jax(dp, loss, grads):
     _hold_grads(dp[0]["grads"], {n: grads[n] for n in dp[0]["grads"]}, 1e-4, "JAX")
 
 
-def test_dp_step_matches_jax(shared, dp):
+@pytest.fixture(scope="module")
+def jax_grads(shared):
+    """comet_tpu's loss and gradient on the global batch (one compile)."""
+    return _jax_grads(shared)
+
+
+def test_dp_step_matches_jax(dp, jax_grads):
     """2 ranks x batch 1 against comet_tpu's loss and gradient on the
     global batch with the same weights."""
-    _hold_grads_to_jax(dp, *_jax_grads(shared))
+    _hold_grads_to_jax(dp, *jax_grads)
 
 
-def test_fit_epoch_two_processes_match_one(shared, dp):
+@pytest.fixture(scope="module")
+def one_process_fit(shared):
+    cfg = shared["cfg"]
+    return _fit(_model(cfg, shared["weights"]), cfg, shared["out"], 2)
+
+
+def test_fit_epoch_two_processes_match_one(shared, dp, one_process_fit):
     """2 processes x batch 1 against 1 process with global batch 2, 2 epochs,
     on the AMD fixture (tests/test_multiprocess.py's proof)."""
-    cfg = shared["cfg"]
-    steps, params = _fit(_model(cfg, shared["weights"]), cfg, shared["out"], 2)
+    steps, params = one_process_fit
     assert steps == [2, 2] and dp[0]["fit_steps"] == dp[1]["fit_steps"] == steps
     moved = 0
     for name, p in params.items():
@@ -694,6 +759,24 @@ def test_fit_epoch_two_processes_match_one(shared, dp):
                                    atol=5e-5, err_msg=name)
         moved += not torch.equal(p, shared["weights"][name].to(p.dtype))
     assert moved > 10
+
+
+def test_fit_epoch_tensor_parallel_matches_one_process(shared, tp, one_process_fit):
+    """``fit_epoch(mesh=)`` of a model sharded over a (data 2, model 2) mesh,
+    each data rank a batch of one in ``process_local_order(mesh=)``'s order
+    (the same on its model ranks), against one process with global batch 2:
+    the epochs' steps, and every parameter, reassembled from the model
+    ranks' shards, within the data-parallel test's 5e-5."""
+    steps, params = one_process_fit
+    for r in range(4):
+        assert tp[r]["tp_fit"][0] == steps
+    for d in range(2):
+        group = [2 * d, 2 * d + 1]
+        for name, p in params.items():
+            got = _whole(name, [tp[r]["tp_fit"][1][name] for r in group], p.shape)
+            keep = ~_noise_entries(name, p.shape)
+            np.testing.assert_allclose(got[keep].numpy(), p[keep].numpy(), atol=5e-5,
+                                       err_msg=f"data rank {d} {name}")
 
 
 def test_evaluate_mesh_merges_to_one_process(shared, dp):
@@ -752,6 +835,105 @@ def test_tp_module_without_row_partner(tp, module, route):
     for r in range(4):
         got, want = tp[r][route]["modules_tp"][module], tp[r][route]["modules"][module]
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+# the tensor-parallel train steps: (data, model) mesh -> the group that ran it
+TP_TRAIN = {(1, 2): "dp", (1, 4): "tp", (2, 2): "tp"}
+
+
+def _tp_train(dp, tp, mesh_shape):
+    """Each rank's record of the train steps on ``mesh_shape``, and the
+    ranks of each model group (rank = data index * n_model + model index)."""
+    ranks = dp if TP_TRAIN[mesh_shape] == "dp" else tp
+    n_data, n_model = mesh_shape
+    groups = [list(range(d * n_model, (d + 1) * n_model)) for d in range(n_data)]
+    return [r["tp_train"][mesh_shape] for r in ranks], groups
+
+
+def _whole(name, parts, shape):
+    """A parameter (or its gradient) from its model ranks' shards: an
+    in-projection's shards are the q, k and v rows of each rank's heads."""
+    if tuple(parts[0].shape) == tuple(shape):
+        return parts[0]
+    if name.endswith("in_proj_weight"):
+        return torch.cat([torch.cat([p.chunk(3)[i] for p in parts]) for i in range(3)])
+    return torch.cat(parts, parallel.tensor_parallel_spec(name, len(shape)).index("model"))
+
+
+def _tp_grads(recs, group, shared):
+    return {name: _whole(name, [recs[r]["grads"][name] for r in group],
+                         shared["weights"][name].shape) for name in recs[group[0]]["grads"]}
+
+
+@pytest.mark.parametrize("mesh_shape", list(TP_TRAIN), ids=lambda s: f"data{s[0]}-model{s[1]}")
+def test_tp_train_matches_replicated(shared, dp, tp, one_process_steps, mesh_shape):
+    """Two steps of a model sharded over the model axis against the same
+    steps replicated in one process on the global batch: each data rank's
+    loss (their mean at data size 2) within 1e-5 relative, the first step's
+    gradient of every camera tensor, reassembled from the model ranks'
+    shards, within 1e-5 of its tensor's largest |g|, and the first step's
+    global norm within 1e-6 relative. The second step starts from
+    parameters that Adam moved apart in the noise entries of
+    :func:`_noise_entries` (up to lr each), so its norm is held within 1e-4
+    (measured: 1.0e-5 at (data 1, model 2))."""
+    losses, _, grads, norms = one_process_steps
+    recs, groups = _tp_train(dp, tp, mesh_shape)
+    got = np.mean([[recs[g[0]]["losses"]] for g in groups], axis=0)[0]
+    np.testing.assert_allclose(got, losses, rtol=1e-5)
+    for group in groups:
+        whole = _tp_grads(recs, group, shared)
+        assert whole.keys() == grads.keys()
+        _hold_grads(whole, grads, 1e-5, f"{mesh_shape} ranks {group}")
+        for r in group:
+            np.testing.assert_allclose(recs[r]["norms"][0], norms[0], rtol=1e-6)
+            np.testing.assert_allclose(recs[r]["norms"], norms, rtol=1e-4)
+    assert sum(recs[0]["grads"][n].shape != grads[n].shape for n in grads) >= 10
+
+
+@pytest.mark.parametrize("mesh_shape", list(TP_TRAIN), ids=lambda s: f"data{s[0]}-model{s[1]}")
+def test_tp_train_keeps_replicated_params_equal(shared, dp, tp, mesh_shape):
+    """After the steps every parameter that is not a shard is bit for bit
+    the same on every rank (the clip's norm and the gradients are the same
+    on the model ranks, DDP's average on the data ranks), every shard the
+    same across the data ranks, the camera parameters moved and no frozen
+    tensor; before the steps ``parallel.shard_of`` gave each rank's shard of
+    the whole weights."""
+    recs, groups = _tp_train(dp, tp, mesh_shape)
+    for name, p in recs[0]["params"].items():
+        shard = tuple(p.shape) != tuple(shared["weights"][name].shape)
+        for group in groups:
+            for i, r in enumerate(group):
+                want = recs[groups[0][i] if shard else 0]["params"][name]
+                assert torch.equal(recs[r]["params"][name], want), (name, r)
+    assert not any(rec["frozen_moved"] for rec in recs)
+    assert all(rec["shard_of_matches"] for rec in recs)
+    moved = sum(not torch.equal(_whole(n, [recs[r]["params"][n] for r in groups[0]],
+                                       shared["weights"][n].shape), shared["weights"][n])
+                for n in recs[0]["params"])
+    assert moved > 10
+
+
+def test_saving_a_sharded_model_raises(dp):
+    """Checkpoints of a tensor-parallel model are out of scope: saving its
+    weights or a checkpoint raises, saying to gather first, and writes
+    nothing."""
+    saving = dp[0]["tp_train"][(1, 2)]["saving"]
+    assert saving.pop("files") == []
+    for name, message in saving.items():
+        assert "gather" in message, name
+
+
+@pytest.mark.parametrize("mesh_shape", list(TP_TRAIN), ids=lambda s: f"data{s[0]}-model{s[1]}")
+def test_tp_train_matches_jax(shared, dp, tp, jax_grads, mesh_shape):
+    """The reassembled first-step gradients against comet_tpu's loss and
+    gradient on the global batch (build_train_step's loss_fn), within the
+    1e-4 rule of the data-parallel step."""
+    loss, grads = jax_grads
+    recs, groups = _tp_train(dp, tp, mesh_shape)
+    np.testing.assert_allclose(np.mean([recs[g[0]]["losses"][0] for g in groups]), loss,
+                               rtol=1e-4)
+    whole = _tp_grads(recs, groups[0], shared)
+    _hold_grads(whole, {n: grads[n] for n in whole}, 1e-4, f"JAX {mesh_shape}")
 
 
 @pytest.fixture(scope="module")

@@ -363,8 +363,18 @@ def test_device_preprocess_dataset_matches_jax(amd_root):
         np.testing.assert_array_equal(got.first_mask, want.first_mask)
         np.testing.assert_array_equal(got.frame0_u8, want.frame0_u8)
         np.testing.assert_array_equal(got.q_wxyz, want.q_wxyz)
-    with pytest.raises(NotImplementedError, match="C\\+\\+ loader"):
-        tdp.DevicePreprocessDataset(base_t, decode="native", device="cpu")
+    # decode="native": the C++ loader's raw frames, then the same ops (PNG
+    # fixtures decode to the same pixels as PIL's)
+    native_t = tdp.DevicePreprocessDataset(base_t, resample="lanczos", decode="native",
+                                           device="cpu")
+    native_j = jdp.DevicePreprocessDataset(base_j, resample="lanczos", decode="native")
+    for i in range(2):
+        got, want = native_t[i], td[i]
+        np.testing.assert_array_equal(got.images, want.images)
+        _close(got.images, native_j[i].images, 1e-5)
+        np.testing.assert_array_equal(got.first_mask, want.first_mask)
+        np.testing.assert_array_equal(got.frame0_u8, want.frame0_u8)
+        np.testing.assert_array_equal(got.t_uvz, want.t_uvz)
 
 
 # ------------------------------------------------------- eval step

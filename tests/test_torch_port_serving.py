@@ -234,11 +234,53 @@ def test_params_from_file_raises_on_a_mismatch(served, fault):
         state[key] = state[key].to(torch.complex64)
         error = TypeError
     else:
-        match = "params_from_jax"
+        match = "params_from_msgpack"
     path = str(served["root"] / ("bad.msgpack" if fault == "msgpack" else f"bad_{fault}.pt"))
     torch.save(state, path)
     with pytest.raises(error, match=match):
         serving.params_from_file(path, served["exported"])
+
+
+def test_params_from_msgpack_fills_the_artifact(served, tiny):  # noqa: F811 (a fixture)
+    """The JAX package's weight file of the same weights, read without JAX,
+    fills the artifact's input exactly as the port's .pt file does, and
+    serves the same outputs; a tree of another model raises."""
+    from comet_tpu.utils.serialization import save_params_msgpack
+
+    path = str(served["root"] / "weights.msgpack")
+    save_params_msgpack(path, {"params": tiny["params"]})
+    params = serving.params_from_msgpack(path, served["exported"])
+    assert list(params) == list(served["params"])
+    for k, v in served["params"].items():
+        assert params[k].dtype == v.dtype and torch.equal(params[k], v), k
+    out = serving.serving_call(served["exported"])(params, served["images"], served["queries"])
+    for key, value in served["out"].items():
+        assert torch.equal(out[key], value), key
+    bad = str(served["root"] / "other.msgpack")
+    save_params_msgpack(bad, {"params": {**tiny["params"], "extra": {"bias": np.zeros(2)}}})
+    with pytest.raises(KeyError, match="extra.bias"):
+        serving.params_from_msgpack(bad, served["exported"])
+
+
+@pytest.mark.parametrize("fault", ["digest", "no manifest"])
+def test_load_exported_refuses_another_kernel_library(served, tmp_path, fault):
+    """An artifact whose manifest names other kernel sources than this
+    checkout's raises, naming both digests; one without a manifest raises;
+    the unedited artifact still loads."""
+    import shutil
+
+    path = str(tmp_path / "copy.pt2")
+    shutil.copy(served["path"], path)
+    if fault == "digest":
+        manifest = dict(served["manifest"], kernels_digest="0123456789abcdef")
+        with open(path + ".json", "w") as f:
+            json.dump(manifest, f)
+        with pytest.raises(RuntimeError, match=f"0123456789abcdef.*{kernels._digest()}"):
+            serving.load_exported(path)
+    else:
+        with pytest.raises(FileNotFoundError, match="no manifest"):
+            serving.load_exported(path)
+    assert serving.load_exported(served["path"]) is not None
 
 
 def test_a_fresh_process_serves_the_artifact_without_the_model(served):
