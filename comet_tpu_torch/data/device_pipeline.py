@@ -273,16 +273,12 @@ class DevicePreprocessDataset:
         if self.decode == "pil":
             return self.base.load_sequence_raw(seq_name)
         from .. import native
-        from .datasets import compute_sequence_square
-        from .native_loader import read_poses
+        from .native_loader import sequence_head
 
-        base = self.base
-        frame_paths, mask_paths, gt_paths, names = base._select_files(seq_name)
-        bboxes, mask0 = native.load_masks(mask_paths)
-        square, ratio = compute_sequence_square(bboxes, base.crop_size)
-        return dict(frames_u8=native.decode_frames(frame_paths), mask0_u8=mask0,
-                    square=np.asarray(square, np.float32), ratio=float(ratio),
-                    seq_name=seq_name, image_names=names, **read_poses(base, gt_paths))
+        head = sequence_head(self.base, seq_name)
+        frames = native.decode_frames(head.pop("frame_paths"))
+        head["square"] = np.asarray(head["square"], np.float32)
+        return dict(frames_u8=frames, seq_name=seq_name, **head)
 
     def __getitem__(self, index: int) -> SequenceSample:
         raw = self._load_raw(self.seq_names[index])

@@ -20,19 +20,26 @@ and PIL.
 
 from __future__ import annotations
 
-from typing import List
-
 import numpy as np
 
 from .. import native
 from .datasets import SequenceSample, VideoPoseDataset, compute_sequence_square, parse_pose_file
 
 
-def read_poses(base: VideoPoseDataset, gt_paths: List[str]) -> dict:
-    """The pose files of a sequence as the sample's arrays (t_xyz, q_wxyz,
-    t_uvz, r_matrix), with the PIL path's parser."""
+def sequence_head(base: VideoPoseDataset, seq_name: str, n_threads: int = 0) -> dict:
+    """What both native paths read of a sequence before its frames: the PIL
+    path's listing and sampling (the same draws from the dataset's
+    generator, so the paths are interchangeable), the masks through the C++
+    loader, the crop square and ratio, and the poses with the PIL path's
+    parser. Keys: frame_paths, image_names, mask0_u8, square, ratio, t_xyz,
+    q_wxyz, t_uvz, r_matrix."""
+    frame_paths, mask_paths, gt_paths, names = base._select_files(seq_name)
+    bboxes, mask0 = native.load_masks(mask_paths, n_threads)
+    square, ratio = compute_sequence_square(bboxes, base.crop_size)
     rows = [parse_pose_file(p, base.intr) for p in gt_paths]
-    return dict(t_xyz=np.asarray([r[1] for r in rows], np.float32),
+    return dict(frame_paths=frame_paths, image_names=names, mask0_u8=mask0, square=square,
+                ratio=float(ratio),
+                t_xyz=np.asarray([r[1] for r in rows], np.float32),
                 q_wxyz=np.asarray([r[2] for r in rows], np.float32),
                 t_uvz=np.asarray([r[3] for r in rows], np.float32),
                 r_matrix=np.asarray([r[0] for r in rows], np.float32))
@@ -58,17 +65,11 @@ class NativeLoaderDataset:
     def load_sequence(self, seq_name: str) -> SequenceSample:
         from PIL import Image
 
-        base = self.base
-        # the PIL path's listing and sampling head: the same draws from the
-        # dataset's generator, so the two paths are interchangeable
-        frame_paths, mask_paths, gt_paths, names = base._select_files(seq_name)
-        bboxes, mask0 = native.load_masks(mask_paths, self.n_threads)
-        square, ratio = compute_sequence_square(bboxes, self.crop_size)
-        images = native.load_sequence(frame_paths, square, self.crop_size,
+        head = sequence_head(self.base, seq_name, self.n_threads)
+        square, mask0 = head.pop("square"), head.pop("mask0_u8")
+        images = native.load_sequence(head.pop("frame_paths"), square, self.crop_size,
                                       n_threads=self.n_threads)
         mask = Image.fromarray(mask0).crop(tuple(square))
         first_mask = np.asarray(mask.resize((self.crop_size, self.crop_size),
                                             Image.Resampling.NEAREST), np.uint8) > 0
-        return SequenceSample(images=images, ratio=float(ratio), seq_name=seq_name,
-                              image_names=names, first_mask=first_mask,
-                              **read_poses(base, gt_paths))
+        return SequenceSample(images=images, seq_name=seq_name, first_mask=first_mask, **head)

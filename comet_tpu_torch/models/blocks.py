@@ -31,10 +31,10 @@ row-parallel with one all-reduce, and :class:`MultiHeadAttention` runs K1 on
 this rank's heads. K2 and K4 take whole-block weights: their blocks
 all-gather the slices and launch the kernel unchanged, as GSPMD does for the
 JAX package's Pallas calls. The collectives differentiate as Megatron's
-pairs (``parallel.ModelAxis``): the input of every column-parallel product
-and of every attention over local heads passes ``copy_to``, whose backward
-sums the ranks' shares of its gradient, so the parameters upstream of it
-get their whole gradient on every rank.
+pairs (``parallel.ModelAxis``): every column-parallel product, the
+attention's in-projection over local heads too, is ``ModelAxis.column``,
+whose backward sums the ranks' shares of its input's gradient, so the
+parameters upstream of it get their whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -105,14 +105,18 @@ class Linear(nn.Linear):
     def local(self, x):
         """Column-parallel: this rank's output features."""
         dt = self.compute_dtype
-        return F.linear(self.tp.copy_to(x.to(dt)), self.weight.to(dt),
-                        self.tp.chunk(self.bias, 0).to(dt))
+        return self.tp.column(x.to(dt), self.weight.to(dt), self.tp.chunk(self.bias, 0).to(dt))
 
     def row(self, x_local):
         """Row-parallel on this rank's input features: the whole output,
-        summed over the model axis, then the bias."""
+        summed over the model axis, then the bias. The partial products are
+        taken and summed in f32 and rounded to the compute dtype once, as the
+        unsharded product rounds its f32 accumulator once: partial sums
+        rounded to bf16 before the sum put the sharded model's gradients
+        further from f32 than the unsharded model's."""
         dt = self.compute_dtype
-        return self.tp.all_reduce(F.linear(x_local.to(dt), self.weight.to(dt))) + self.bias.to(dt)
+        partial = F.linear(x_local.to(dt).float(), self.weight.to(dt).float())
+        return (self.tp.all_reduce(partial) + self.bias).to(dt)
 
     def full_weight(self, dt):
         """The whole weight in ``dt`` (all-gathered under tensor parallelism)."""
@@ -249,24 +253,22 @@ class MultiHeadAttention(nn.Module):
         dt = self.compute_dtype
         w = self.in_proj_weight.to(dt)
         b, heads = self.in_proj_bias, self.num_heads
-        same_k, same_v = q is k, k is v
+        linear = F.linear
         if self.tp is not None:  # this rank's heads: their entries of q, k and v
             b = torch.cat([self.tp.chunk(part, 0) for part in b.chunk(3)])
             heads //= self.tp.size
-            q = self.tp.copy_to(q)
-            k = q if same_k else self.tp.copy_to(k)
-            v = k if same_v else self.tp.copy_to(v)
+            linear = self.tp.column
         b = b.to(dt)
         e = w.shape[0] // 3  # the width of (this rank's heads of) q, k and v
-        if same_k and same_v:
-            wq, wk, wv = F.linear(q.to(dt), w, b).split(e, dim=-1)
+        if q is k and k is v:
+            wq, wk, wv = linear(q.to(dt), w, b).split(e, dim=-1)
         else:
-            wq = F.linear(q.to(dt), w[:e], b[:e])
-            if same_v:
-                wk, wv = F.linear(k.to(dt), w[e:], b[e:]).split(e, dim=-1)
+            wq = linear(q.to(dt), w[:e], b[:e])
+            if k is v:
+                wk, wv = linear(k.to(dt), w[e:], b[e:]).split(e, dim=-1)
             else:
-                wk = F.linear(k.to(dt), w[e : 2 * e], b[e : 2 * e])
-                wv = F.linear(v.to(dt), w[2 * e :], b[2 * e :])
+                wk = linear(k.to(dt), w[e : 2 * e], b[e : 2 * e])
+                wv = linear(v.to(dt), w[2 * e :], b[2 * e :])
         lead = wq.shape[:-2]
         lq, lk = wq.shape[-2], wk.shape[-2]
         out = fused_attention(

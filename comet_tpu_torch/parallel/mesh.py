@@ -46,6 +46,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..device import resolve_device
 
@@ -279,18 +280,32 @@ def tensor_parallel_spec(name: str, ndim: int) -> Tuple[Optional[str], ...]:
     return ()
 
 
-class _CopyToRegion(torch.autograd.Function):
-    """Identity forward, all-reduce backward: the input of a column-parallel
-    product, whose rank computes only its share of the input's gradient."""
+class _ColumnProduct(torch.autograd.Function):
+    """``F.linear(x, w, b)`` on this rank's output features, forward as the
+    unsharded product; backward, the input's gradient (this rank's share of
+    it) is taken and summed over the model group in f32 and rounded to the
+    input's dtype once, as the unsharded product rounds its f32 accumulator
+    once (Megatron's copy-to-region, with the product it guards)."""
 
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return x.view_as(x)
+    def forward(ctx, x, w, b, axis):
+        ctx.save_for_backward(x, w)
+        ctx.axis, ctx.has_bias = axis, b is not None
+        return F.linear(x, w, b)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.axis._all_reduce(g), None
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        gx = gw = gb = None
+        if need_x:
+            gx = ctx.axis._all_reduce(g.float() @ w.float()).to(x.dtype)
+        rows = g.reshape(-1, g.shape[-1])
+        if need_w:
+            gw = rows.t() @ x.reshape(-1, x.shape[-1])
+        if need_b and ctx.has_bias:
+            gb = rows.sum(0)
+        return gx, gw, gb, None
 
 
 class _ReduceFromRegion(torch.autograd.Function):
@@ -342,8 +357,8 @@ class ModelAxis:
     use it: ``size`` ranks in ``group``, this one ``rank``. The collectives
     carry the compute dtype and differentiate as Megatron's conjugate pairs
     (every model rank holds the same batch and, after each collective,
-    computes the same thing): :meth:`copy_to` (identity, all-reduce of the
-    gradient), :meth:`all_reduce` (sum, identity gradient), :meth:`chunk`
+    computes the same thing): :meth:`column` (a column-parallel product;
+    all-reduce of its input's gradient), :meth:`all_reduce` (sum, identity gradient), :meth:`chunk`
     (slice, all-gather of the gradient) and :meth:`all_gather` (gather,
     slice of the gradient)."""
 
@@ -361,9 +376,11 @@ class ModelAxis:
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim)
 
-    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` unchanged; its gradient summed over the model group."""
-        return _CopyToRegion.apply(x, self)
+    def column(self, x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A column-parallel product, ``F.linear(x, w, b)`` with this rank's
+        rows of the weight; ``x``'s gradient summed over the model group."""
+        return _ColumnProduct.apply(x, w, b, self)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the model group (a new tensor)."""

@@ -85,17 +85,17 @@ def clip_by_global_norm_(grads: list, max_norm: float, axes: Optional[list] = No
     shard over (``parallel.mesh.tp_axis``), else None: the norm is then the
     whole model's, the sum of the shards' squares over the model group plus
     the replicated gradients' counted once, the same on every model rank."""
-    if axes is None or all(a is None for a in axes):
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    else:
-        sharded = [g for g, a in zip(grads, axes) if a is not None]
-        whole = [g for g, a in zip(grads, axes) if a is None]
-        axis = next(a for a in axes if a is not None)
-        sq = torch.stack(torch._foreach_norm(sharded)).float().square().sum()
-        sq = axis.all_reduce(sq)
-        if whole:
-            sq = sq + torch.stack(torch._foreach_norm(whole)).float().square().sum()
-        norm = sq.sqrt()
+    axes = axes or [None] * len(grads)
+
+    def square_sum(sharded):
+        part = [g for g, a in zip(grads, axes) if (a is not None) == sharded]
+        return torch.stack(torch._foreach_norm(part)).float().square().sum() if part else 0.0
+
+    sq = square_sum(False)
+    axis = next((a for a in axes if a is not None), None)
+    if axis is not None:
+        sq = sq + axis.all_reduce(square_sum(True))
+    norm = sq.sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm

@@ -181,6 +181,32 @@ def _tp_steps(cfg, weights, mesh, batch):
                 shard_of_matches=laid_out, saving=_save_sharded(model))
 
 
+def _range_gaps(got, want):
+    """Each tensor's largest |got - want| over its range (largest |want|),
+    the range floored at 1e-4 of the largest tensor's, leaving out the noise
+    entries of :func:`_noise_entries` (and the tensors that are all noise)."""
+    keep = {n: ~_noise_entries(n, w.shape) for n, w in want.items()}
+    want = {n: w[keep[n]] for n, w in want.items() if keep[n].any()}
+    floor = 1e-4 * max(w.abs().max().item() for w in want.values())
+    return {n: (got[n][keep[n]] - w).abs().max().item() / max(w.abs().max().item(), floor)
+            for n, w in want.items()}
+
+
+def _tp_rounding(cfg, weights, mesh, batch):
+    """The first-step camera gradients in bf16, replicated and sharded over
+    ``mesh``'s model axis, against the replicated step in f32, each on this
+    rank's part of every tensor (:func:`_range_gaps`): (replicated bf16
+    from f32, TP bf16 from f32)."""
+    bf16 = cfg.replace(compute_dtype="bfloat16")
+    rows = slice(0, len(batch[0]))
+    want = _dp_steps(_model(cfg, weights), cfg, batch, rows)[2]
+    rep = _dp_steps(_model(bf16, weights), bf16, batch, rows)[2]
+    model = parallel.shard_params_tp(mesh, _model(bf16, weights))
+    got = _dp_steps(model, bf16, batch, rows, mesh)[2]
+    want, rep = ({n: parallel.shard_of(model, n, g) for n, g in d.items()} for d in (want, rep))
+    return _range_gaps(rep, want), _range_gaps(got, want)
+
+
 def _save_sharded(model):
     """What saving a sharded model gives: each way's error message (or
     "saved"), and the files it left."""
@@ -280,7 +306,8 @@ def _evaluate(model, cfg, root, mesh=None, eval_batch=1):
 
 def worker_dp(rank, world, port, out):
     """Two data ranks: the helpers, the train steps, fit_epoch, evaluate;
-    then tensor-parallel train steps on a (data 1, model 2) mesh."""
+    then tensor-parallel train steps on a (data 1, model 2) mesh, in f32
+    and in bf16."""
     from comet_tpu_torch.ops.corr import build_fmap_pyramid, corr_pyramid_sample
     from comet_tpu_torch.training import RunningStats, process_local_order
     from comet_tpu_torch.training.loop import _merge_process_averages
@@ -300,8 +327,9 @@ def worker_dp(rank, world, port, out):
     res["track"] = shard.gather(local)
     res["losses"], res["params"], res["grads"], _ = _dp_steps(
         _model(cfg, weights), cfg, _train_batch(cfg, world), slice(rank, rank + 1), mesh)
-    res["tp_train"] = {(1, 2): _tp_steps(cfg, weights, parallel.make_mesh(
-        n_data=1, n_model=2, device="cpu"), _train_batch(cfg, 2))}
+    tp_mesh = parallel.make_mesh(n_data=1, n_model=2, device="cpu")
+    res["tp_train"] = {(1, 2): _tp_steps(cfg, weights, tp_mesh, _train_batch(cfg, 2))}
+    res["tp_rounding"] = _tp_rounding(cfg, weights, tp_mesh, _train_batch(cfg, 2))
     res["fit_steps"], res["fit_params"] = _fit(_model(cfg, weights), cfg, out, 1, mesh)
     res["eval"] = _evaluate(_model(cfg, weights), cfg, out, mesh)
     stats = RunningStats()
@@ -911,6 +939,20 @@ def test_tp_train_keeps_replicated_params_equal(shared, dp, tp, mesh_shape):
                                        shared["weights"][n].shape), shared["weights"][n])
                 for n in recs[0]["params"])
     assert moved > 10
+
+
+def test_tp_bf16_adds_no_rounding_of_its_own(dp):
+    """In bf16 the (data 1, model 2) step's first-step camera gradients are
+    no further from the f32 step than the replicated bf16 step's: the
+    median over the tensors of the ratio of the two distances (largest
+    |difference| over the range, :func:`_range_gaps`) at most 1. The
+    collectives reduce in f32 (``ModelAxis.column``, ``Linear.row``); a copy
+    of the code whose row-parallel partial sums and column-parallel input
+    gradients are rounded to bf16 before the all-reduce reads 1.09-1.18."""
+    for rank, rec in enumerate(dp):
+        rep32, tp32 = rec["tp_rounding"]
+        ratio = float(np.median([tp32[n] / rep32[n] for n in rep32 if rep32[n] > 0]))
+        assert ratio <= 1.0, (rank, ratio)
 
 
 def test_saving_a_sharded_model_raises(dp):
