@@ -190,7 +190,27 @@ Phases, each of which makes the script exit nonzero when it fails:
    as not run, and the phase checks instead that each of them raises with
    the build error (no fall back to PIL). The flax ``.msgpack`` reader is
    host code and is held on the CPU only (the card's machine has no flax
-   to write a file with).
+   to write a file with); and
+14. scene geometry (``twoview/``, ``utils/dense_depth.py``; no kernel, so
+   no launch may happen), with TF32 matmuls off: (a) each solver on the
+   card against the port on the CPU on the same minimal samples (8-point,
+   7-point, homography DLT and 5-point on GEOM_HYPOTHESES samples, the
+   5-point's and 7-point's real solutions as sets (against the CPU's f64,
+   the card as exact as the CPU's f32), the 5-point's 120
+   shifted-QR steps timed on both; EPnP on 512 points; LM PnP over 16
+   cameras; one bundle adjustment at S 16, N 512), within the GEOM_*
+   tolerances; (b) the JAX package's 16-camera done-criterion scene at the
+   main path's 512 tracks (``make_scene``: ``default_kmat(512, 512)``, 0.3 px
+   of noise, 15 % of the tracks corrupted, poses perturbed by 0.02 and 0.05)
+   through ``estimate_preliminary_cameras`` and ``reconstruct_scene`` on the
+   card, held to that test's gates (SCENE_GATES), its COLMAP model written
+   and read back, and a disparity map made from the true depths aligned by
+   ``dense_depth`` to the reconstruction's sparse depths; (c) the same scene
+   through the port on the CPU (the preliminary RANSAC replaying the card's
+   samples), the card held to it; (d) per stage (preliminary, init BA,
+   refine poses, each RANSAC triangulation, each global BA, each filter,
+   the whole) the card's and the CPU's ms, the card's host synchronizations
+   (torch's sync debug mode, with their source lines) and peak memory.
 
 The script prints its total time; the line before the last holds the
 kernels' JSON record, and the last line
@@ -2905,6 +2925,609 @@ def load_phase(torch, np, data, cfg, counters, dev, smi):
     return rec
 
 
+# phase 14: scene geometry (twoview/ and utils/dense_depth.py) on the card.
+# The scene of the JAX package's 16-camera done-criterion test
+# (tests/test_scene_ba_staged.py:150-196) at the main path's track count:
+# cameras on an arc around a cloud, default_kmat(512, 512), 0.3 px of
+# noise, 15 % of the tracks replaced by uniform pixels, the poses perturbed
+SCENE_S, SCENE_N, SCENE_IMG = 16, 512, 512
+SCENE_NOISE, SCENE_CORRUPT, SCENE_ROT, SCENE_TRANS = 0.3, 0.15, 0.02, 0.05
+SCENE_BA_ITERS, SCENE_BA_ROUNDS, SCENE_MAX_REPROJ = 12, 2, 3.0
+# that test's gates (tests/test_scene_ba_staged.py:170-195): median rotation
+# error (degrees), median |t error|, share of corrupted tracks kept valid
+# (below), of clean tracks kept valid (above), median Umeyama-aligned point
+# error
+SCENE_GATES = dict(rot_deg=0.5, t=0.05, corrupted_valid=0.2, clean_valid=0.9, aligned=0.02)
+# the card against the port on the CPU, both f32 (cuSOLVER, cuBLAS, LAPACK
+# and MKL round differently, so an SVD's null vector or a decision at a
+# threshold may differ in the last bits): F, E and H after unit norm and
+# sign, each EPnP and PnP pose's R and t, or GEOM_COND times that result's
+# own f32 error (the CPU's f32 against its f64 on the same sample: a
+# minimal sample's null vector is only as exact as the sample is well
+# conditioned), whichever is larger;
+# rotations of a BA or the scene (radians), their translations and points
+# (of the scene's extent), masks (share of equal entries); a 5-point or
+# 7-point candidate counts as a real solution where its constraints vanish
+# within GEOM_REAL
+GEOM_MODEL = 1e-4
+GEOM_POSE = 1e-4
+GEOM_COND = 4.0
+# the 7- and 5-point solvers' real solutions, as sets: each takes a basis of
+# a 2-D or 4-D null space of a matrix of (for the 7-point, unnormalized)
+# pixel products, which cuSOLVER's Jacobi SVD and LAPACK resolve with
+# different errors, and solves a polynomial in f32 in that basis. Each of
+# the CPU's f64 real solutions is matched to the nearest candidate of the
+# card and of the CPU's f32; at the median and at GEOM_SET_QUANTILE the
+# card's distance is held within GEOM_COND times the CPU's (floor
+# GEOM_MODEL): the card as exact as the CPU, the tail printed
+GEOM_SET_QUANTILE = 0.9
+GEOM_ROT = 1e-3
+GEOM_EXTENT = 1e-3
+GEOM_MASKS = 0.99
+GEOM_REAL = 1e-4
+# the aligned dense depth against the reconstruction's sparse depths
+# (median relative error): the disparity is an exact affine map of the true
+# inverse depths, so only the reconstruction's own error remains
+DEPTH_REL = 0.01
+GEOM_HYPOTHESES = 64  # minimal samples per solver in (a)
+GEOM_BA_N = 128  # tracks of (a)'s bundle adjustment
+
+
+def _quat_np(np, axis, angle):
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    return np.concatenate([[np.cos(angle / 2)], np.sin(angle / 2) * axis])
+
+
+def _rotmat_np(np, q):
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def make_scene(np, s=SCENE_S, n=SCENE_N, img=SCENE_IMG, seed=7):
+    """The done-criterion scene (tests/test_scene_ba_staged.py:45-76,
+    150-167) in numpy f32, with default_kmat(img, img)'s intrinsics (focal
+    img, the principal point at the center): cameras on an arc (row
+    convention x_cam = x @ R + T) looking at a cloud near the origin, tracks
+    with SCENE_NOISE px of noise, the first SCENE_CORRUPT of them replaced
+    by uniform pixels, the poses perturbed (camera 0 kept)."""
+    rng = np.random.default_rng(seed)
+    k = np.array([[img, 0, img / 2], [0, img, img / 2], [0, 0, 1]], np.float64)
+    pts = rng.uniform(-1.0, 1.0, size=(n, 3))
+    pts[:, 2] *= 0.5
+    q = np.stack([_quat_np(np, [0, 1, 0], (i - s / 2) * 0.04) for i in range(s)])
+    r = np.stack([_rotmat_np(np, x) for x in q])
+    c = np.stack([[np.sin((i - s / 2) * 0.04) * 4.0, 0.1 * i / s, -np.cos((i - s / 2) * 0.04) * 4.0]
+                  for i in range(s)])
+    t = -np.einsum("sj,sji->si", c, r)
+    cam = np.einsum("nj,sji->sni", pts, r) + t[:, None]
+    pix = cam @ k.T
+    tracks = pix[..., :2] / pix[..., 2:] + rng.normal(size=(s, n, 2)) * SCENE_NOISE
+    n_out = int(round(n * SCENE_CORRUPT))
+    tracks[:, :n_out] = rng.uniform(0, img, size=(s, n_out, 2))
+    q0 = q + rng.normal(size=q.shape) * SCENE_ROT
+    q0 /= np.linalg.norm(q0, axis=-1, keepdims=True)
+    t0 = t + rng.normal(size=t.shape) * SCENE_TRANS
+    q0[0], t0[0] = q[0], t[0]
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)
+    return dict(q=f32(q), t=f32(t), q0=f32(q0), t0=f32(t0), k=f32(k), pts=f32(pts),
+                depth=f32(cam[..., 2]), tracks=f32(tracks), vis=np.ones((s, n), np.float32),
+                n_out=n_out)
+
+
+def _rot_err(np, qa, qb):
+    """Angles (radians) between quaternions [..., 4], sign-blind."""
+    qa = np.asarray(qa, np.float64)
+    qb = np.asarray(qb, np.float64)
+    qa = qa / np.linalg.norm(qa, axis=-1, keepdims=True)
+    qb = qb / np.linalg.norm(qb, axis=-1, keepdims=True)
+    return 2 * np.arccos(np.clip(np.abs((qa * qb).sum(-1)), 0.0, 1.0))
+
+
+def _unit_np(np, m):
+    """Matrices [..., 3, 3] scaled to unit norm, signed so that the largest
+    entry of each is positive."""
+    m = np.asarray(m, np.float64).reshape(*np.shape(m)[:-2], 9)
+    m = m / np.linalg.norm(m, axis=-1, keepdims=True)
+    big = np.take_along_axis(m, np.abs(m).argmax(-1)[..., None], -1)
+    return m * np.sign(big)
+
+
+def _set_distances(np, got, want, exact, residual):
+    """For every real candidate of ``want`` (its ``residual`` within
+    GEOM_REAL), the distance to the nearest candidate of ``got`` and to the
+    nearest of ``exact``, after unit norm and sign: [(d_got, d_exact)]."""
+    out = []
+    for g, w, x, res in zip(got, want, exact, residual):
+        ug, uw, ux = _unit_np(np, g), _unit_np(np, w), _unit_np(np, x)
+        for e, r in zip(uw, res):
+            if r < GEOM_REAL:
+                out.append((float(np.abs(ug - e).max(-1).min()), float(np.abs(ux - e).max(-1).min())))
+    return out
+
+
+def _epipolar_residual(np, e, x1, x2):
+    """max |x2^T E x1| over a sample and |det E| of unit-norm candidates:
+    e [H, C, 3, 3], x [H, k, 2] -> [H, C]."""
+    e = np.asarray(e, np.float64)
+    e = e / np.linalg.norm(e, axis=(-2, -1), keepdims=True)
+    x1h = np.concatenate([x1, np.ones(x1.shape[:-1] + (1,))], -1)
+    x2h = np.concatenate([x2, np.ones(x2.shape[:-1] + (1,))], -1)
+    epi = np.abs(np.einsum("hni,hcij,hnj->hcn", x2h, e, x1h)).max(-1)
+    return np.maximum(epi, np.abs(np.linalg.det(e)))
+
+
+def _essential_residual(np, e, x1, x2):
+    """_epipolar_residual and the essential constraint 2 E E^T E - tr(E E^T) E
+    of unit-norm candidates, whichever is larger: [H, C]."""
+    u = np.asarray(e, np.float64)
+    u = u / np.linalg.norm(u, axis=(-2, -1), keepdims=True)
+    eet = u @ np.swapaxes(u, -1, -2)
+    g = 2 * eet @ u - np.trace(eet, axis1=-2, axis2=-1)[..., None, None] * u
+    return np.maximum(_epipolar_residual(np, e, x1, x2), np.abs(g).max((-2, -1)))
+
+
+def _samples(np, rng, h, n, k):
+    return np.argsort(rng.random((h, n)), axis=-1)[:, :k]
+
+
+def _allowance(np, floor, gap):
+    """Per result: the larger of ``floor`` and GEOM_COND times its f32
+    error against f64 on the CPU."""
+    return np.maximum(floor, GEOM_COND * np.asarray(gap))
+
+
+def solver_checks(torch, np, tv, dev, smi):
+    """Phase 14 (a): each solver on the card against the port on the CPU on
+    the same minimal samples: 8-point, 7-point, homography DLT, 5-point
+    (real solutions as sets, and its 120 shifted-QR steps timed), EPnP, LM
+    PnP over the 16 cameras and one bundle adjustment. A minimal sample's
+    f32 solution is only as exact as the sample is well conditioned, so each
+    result is held to the CPU's f32 within the larger of a floor (GEOM_MODEL,
+    GEOM_POSE) and GEOM_COND times that result's own f32 error, the CPU's
+    f32 against its f64 on the same sample (printed). Returns the records."""
+    from comet_tpu_torch.twoview import solvers
+
+    sc = make_scene(np, s=4, n=SCENE_N, seed=21)
+    r = np.stack([_rotmat_np(np, x) for x in sc["q"]])
+    cam = np.einsum("nj,sji->sni", sc["pts"], r) + sc["t"][:, None]
+    kinv = np.linalg.inv(sc["k"])
+    n_out = sc["n_out"]
+    x1, x2 = sc["tracks"][0, n_out:], sc["tracks"][2, n_out:]
+    n1 = (np.concatenate([x1, np.ones((len(x1), 1), np.float32)], 1) @ kinv.T)[:, :2]
+    n2 = (np.concatenate([x2, np.ones((len(x2), 1), np.float32)], 1) @ kinv.T)[:, :2]
+    rng = np.random.default_rng(3)
+    h = GEOM_HYPOTHESES
+    s8, s7, s5, s4 = (_samples(np, rng, h, len(x1), k) for k in (8, 7, 5, 4))
+    # a plane for the homography: the cloud flattened to z = 0 seen by
+    # cameras 0 and 2
+    plane = sc["pts"].copy()
+    plane[:, 2] = 0.0
+    pc = np.einsum("nj,sji->sni", plane, r) + sc["t"][:, None]
+    pp = pc @ sc["k"].T
+    p1, p2 = (np.ascontiguousarray(pp[i, :, :2] / pp[i, :, 2:], np.float32) for i in (0, 2))
+    pts_cam = np.ascontiguousarray(sc["pts"], np.float32)
+    norm3 = (cam[..., :2] / cam[..., 2:]).astype(np.float32)  # normalized coordinates
+
+    def to_np(x):
+        if isinstance(x, tuple):
+            parts = [to_np(v) for v in x]
+            return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+        return x.detach().cpu().numpy().astype(np.float64)
+
+    def both(fn, *arrays):
+        """fn on the card, on the CPU, and on the CPU in f64: (card, CPU,
+        CPU f64, the card's device ms)."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        on = [torch.from_numpy(a).to(dev) for a in arrays]
+        _, device_ms = _time_call(torch, lambda: fn(*on), reps=3)
+        return (to_np(fn(*on)), to_np(fn(*(torch.from_numpy(a) for a in arrays))),
+                to_np(fn(*(torch.from_numpy(a.astype(np.float64)) for a in arrays))), device_ms)
+
+    records = []
+
+    def record(name, shape, err, allowed, gap, ms, extra="", share=1.0):
+        """err and allowed per result; the check passes where at least
+        ``share`` of the results are within their allowance."""
+        err, allowed = np.asarray(err, np.float64), np.asarray(allowed, np.float64)
+        within = float((err <= allowed).mean()) if err.size else 1.0
+        ok = within >= share
+        worst = float((err / allowed).max()) if err.size else 0.0
+        records.append(dict(name=name, shape=shape, err=float(err.max(initial=0.0)),
+                            worst_share=worst, within=within, f32_gap=float(np.max(gap, initial=0.0)),
+                            ms=ms, ok=ok))
+        print(f"scene (a): {name} {shape}: card against CPU up to {err.max(initial=0.0):.3e} "
+              f"(median {float(np.median(err)) if err.size else 0.0:.3e}), {within:.4f} of the "
+              f"results within their allowance (limit {share}), the largest {worst:.3f} of it "
+              f"(the CPU's f32 against f64: median "
+              f"{float(np.median(gap)) if np.size(gap) else 0.0:.3e}, largest "
+              f"{np.max(gap, initial=0.0):.3e}); card {ms:.3f} ms{extra}", flush=True)
+        if not ok:
+            print(f"scene (a): {name} FAILED: {within:.4f} of the results within their allowance "
+                  f"(limit {share}); the largest difference {err.max():.3e}", flush=True)
+
+    def models(name, shape, got, want, exact, ms):
+        d = np.abs(_unit_np(np, got) - _unit_np(np, want)).max(-1).reshape(-1)
+        gap = np.abs(_unit_np(np, want) - _unit_np(np, exact)).max(-1).reshape(-1)
+        record(name, shape, d, _allowance(np, GEOM_MODEL, gap), gap, ms)
+
+    def sets(name, shape, got, want, exact, residual, ms, extra=""):
+        """Real solutions as sets: for each of the CPU's f64 real solutions
+        (``residual`` within GEOM_REAL), the distance to the card's nearest
+        candidate and to the CPU f32's; the card's distances at the median
+        and at GEOM_SET_QUANTILE within GEOM_COND times the CPU's (or
+        GEOM_MODEL)."""
+        pairs = _set_distances(np, got, exact, exact, residual)
+        card = np.array([p[0] for p in pairs])
+        cpu = np.array([p[0] for p in _set_distances(np, want, exact, exact, residual)])
+        qs = (0.5, GEOM_SET_QUANTILE)
+        got_q = [float(np.quantile(card, q)) for q in qs]
+        want_q = [float(np.quantile(cpu, q)) for q in qs]
+        ok = all(g <= max(GEOM_MODEL, GEOM_COND * w) for g, w in zip(got_q, want_q))
+        records.append(dict(name=name, shape=shape, card_quantiles=got_q, cpu_quantiles=want_q,
+                            card_max=float(card.max()), cpu_max=float(cpu.max()), ms=ms, ok=ok))
+        print(f"scene (a): {name} {shape}: {len(pairs)} real solutions in f64 on the CPU; the "
+              f"nearest candidate's distance at the median and {GEOM_SET_QUANTILE}: card "
+              f"{got_q[0]:.3e}, {got_q[1]:.3e} (largest {card.max():.3e}), CPU f32 "
+              f"{want_q[0]:.3e}, {want_q[1]:.3e} (largest {cpu.max():.3e}); card {ms:.3f} ms"
+              f"{extra}", flush=True)
+        if not ok:
+            print(f"scene (a): {name} FAILED: the card's real solutions at the median and "
+                  f"{GEOM_SET_QUANTILE} {got_q} against the CPU's {want_q} (limit {GEOM_COND} x, "
+                  f"floor {GEOM_MODEL})", flush=True)
+
+    def poses(name, shape, got, want, exact, ms, extra=""):
+        d = np.maximum(np.abs(got[0] - want[0]).max((-2, -1)), np.abs(got[1] - want[1]).max(-1))
+        gap = np.maximum(np.abs(want[0] - exact[0]).max((-2, -1)),
+                         np.abs(want[1] - exact[1]).max(-1))
+        record(name, shape, d.reshape(-1), _allowance(np, GEOM_POSE, gap).reshape(-1),
+               gap.reshape(-1), ms, extra)
+
+    got, want, exact, ms = both(tv.run_8point, x1[s8], x2[s8])
+    models("8-point", list(s8.shape), got, want, exact, ms)
+    got, want, exact, ms = both(tv.run_7point, x1[s7], x2[s7])
+    sets("7-point", list(s7.shape), got, want, exact,
+         _epipolar_residual(np, exact, x1[s7], x2[s7]), ms)
+    got, want, exact, ms = both(tv.run_homography_dlt, p1[s4], p2[s4])
+    models("homography DLT", list(s4.shape), got, want, exact, ms)
+    got, want, exact, ms = both(tv.run_5point, n1[s5], n2[s5])
+    basis = torch.randn(h, 4, 3, 3, generator=torch.Generator().manual_seed(1))
+    act = solvers._action_matrix(basis)
+    qr_card = _time_call(torch, lambda: solvers._qr_eigvals(act.to(dev)), reps=3)[1]
+    t0 = time.perf_counter()
+    solvers._qr_eigvals(act)
+    qr_cpu = (time.perf_counter() - t0) * 1e3
+    sets("5-point", list(s5.shape), got, want, exact,
+         _essential_residual(np, exact, n1[s5], n2[s5]), ms,
+         f"; its 120 shifted-QR steps on [{h}, 10, 10]: card {qr_card:.1f} ms, CPU "
+         f"{qr_cpu:.1f} ms")
+    records[-1].update(qr_card_ms=qr_card, qr_cpu_ms=qr_cpu)
+    got, want, exact, ms = both(tv.efficient_pnp, pts_cam, norm3[1])
+    poses("EPnP", [SCENE_N], got, want, exact, ms)
+    big = make_scene(np, seed=22)
+    clean = slice(big["n_out"], None)  # a corrupted track makes PnP ill-posed
+    got, want, exact, ms = both(lambda a, b, k: tv.solve_pnp_batched(a, b, k),
+                                np.broadcast_to(big["pts"][clean],
+                                                (SCENE_S,) + big["pts"][clean].shape),
+                                big["tracks"][:, clean], big["k"])
+    poses("LM PnP", [SCENE_S, SCENE_N - big["n_out"]], got, want, exact, ms)
+
+    # one bundle adjustment (at a quarter of the tracks: (c) adjusts the
+    # whole scene on both devices), within GEOM_ROT and GEOM_EXTENT
+    small = make_scene(np, n=GEOM_BA_N, seed=23)
+    mask = small["vis"].copy()
+    mask[:, :small["n_out"]] = 0.0
+    proj = tv.projection_matrices(*(torch.from_numpy(small[x]) for x in ("q0", "t0", "k")))
+    points0 = tv.triangulate_tracks(proj, torch.from_numpy(small["tracks"]),
+                                    torch.from_numpy(mask)).numpy()
+    ba = lambda q, t, p, o, m, k: tv.bundle_adjust(q, t, p, o, m, k, iters=SCENE_BA_ITERS,
+                                                   huber_delta=SCENE_MAX_REPROJ)
+    got, want, exact, ms = both(ba, small["q0"], small["t0"], points0, small["tracks"], mask,
+                                small["k"])
+    extent = float(np.abs(small["pts"]).max() + np.abs(small["t"]).max())
+    share = lambda a, b: max(float(_rot_err(np, a.q, b.q).max()) / GEOM_ROT,
+                             float(np.abs(a.points - b.points).max()) / (GEOM_EXTENT * extent),
+                             float(np.abs(a.t - b.t).max()) / (GEOM_EXTENT * extent))
+    record("bundle adjustment", [SCENE_S, GEOM_BA_N], [share(got[0], want[0])], [1.0],
+           [share(want[0], exact[0])], ms,
+           f" (shares: the largest of rotation / {GEOM_ROT} rad, translation and point error / "
+           f"{GEOM_EXTENT} of the extent {extent:.2f}); rms card {float(got[1]):.4f} px, CPU "
+           f"{float(want[1]):.4f} px")
+    card_defaults_check(torch, np, tv, x1, x2, sc["k"])
+    return records
+
+
+def card_defaults_check(torch, np, tv, x1, x2, k):
+    """Numpy in, the card by default: default_kmat and every registered
+    robust estimator with no device given run on the card."""
+    data = {"m_kpts0": x1.astype(np.float64), "m_kpts1": x2.astype(np.float64), "K0": k, "K1": k}
+    if tv.default_kmat(SCENE_IMG, SCENE_IMG).device.type != "cuda":
+        raise SmokeError("scene (a): default_kmat did not default to the card")
+    for kind, name in tv.list_estimators():
+        out = tv.get_estimator(kind, name, {"num_hypotheses": GEOM_HYPOTHESES})(data)
+        placed = {out["inliers"].device.type} | {m.device.type for m in (
+            out["M_0to1"] if isinstance(out["M_0to1"], tuple) else (out["M_0to1"],))}
+        if placed != {"cuda"} or not out["success"]:
+            raise SmokeError(f"scene (a): estimator {kind}/{name} on numpy inputs: success "
+                             f"{out['success']}, outputs on {placed}")
+        print(f"scene (a): estimator {kind}/{name} on numpy inputs ran on the card: "
+              f"{int(out['inliers'].sum())} of {len(x1)} inliers", flush=True)
+
+
+class _StageClock:
+    """Times the stages of reconstruct_scene where it calls them: wraps the
+    named functions of ``twoview.scene_ba`` so that each outermost call is
+    timed (host clock, synchronized on the card), its host synchronizations
+    counted in torch's sync debug mode and its peak memory read."""
+
+    STAGES = dict(init_ba="init BA", refine_poses="refine poses",
+                  triangulate_tracks_ransac="RANSAC triangulation", bundle_adjust="global BA",
+                  filter_points3d="filter")
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev, self.records, self.depth = torch, dev, [], 0
+
+    def measure(self, label, fn, *args, **kwargs):
+        import warnings
+
+        torch = self.torch
+        cuda = self.dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            if cuda:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("default")
+                    torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        where = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                        if SYNC_WARNING in str(w.message))
+        self.records.append(dict(stage=label, ms=ms, syncs=sum(where.values()), where=dict(where),
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                                 else None))
+        return out
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            if self.depth:  # a stage's own calls belong to it
+                return fn(*args, **kwargs)
+            self.depth += 1
+            try:
+                return self.measure(self.STAGES[name], fn, *args, **kwargs)
+            finally:
+                self.depth -= 1
+
+        return timed
+
+    def run(self, scene_ba, fn, *args, **kwargs):
+        saved = {name: getattr(scene_ba, name) for name in self.STAGES}
+        for name, f in saved.items():
+            setattr(scene_ba, name, self.wrap(name, f))
+        try:
+            return self.measure("whole", fn, *args, **kwargs)
+        finally:
+            for name, f in saved.items():
+                setattr(scene_ba, name, f)
+
+
+def _recon_to(torch, rec, dev):
+    from comet_tpu_torch.twoview import BAState, SceneReconstruction
+
+    return SceneReconstruction(state=BAState(*(x.to(dev) for x in rec.state)),
+                               valid_tracks=rec.valid_tracks.to(dev),
+                               inlier_mask=rec.inlier_mask.to(dev), rms=rec.rms.to(dev))
+
+
+def _scene_gates(torch, np, sc, rec):
+    """tests/test_scene_ba_staged.py:170-195's gates on a reconstruction
+    (on the CPU): {name: (value, limit, passed)}."""
+    from comet_tpu_torch.twoview import corresponding_points_alignment
+
+    n_out = sc["n_out"]
+    valid = rec.valid_tracks.numpy()
+    kept = rec.state.points.numpy()[valid]
+    want = sc["pts"][valid]
+    sim = corresponding_points_alignment(torch.from_numpy(kept), torch.from_numpy(want))
+    aligned = (float(sim.s) * torch.from_numpy(kept) @ sim.r + sim.t).numpy()
+    g = SCENE_GATES
+    values = dict(
+        rot_deg=(float(np.median(np.degrees(_rot_err(np, rec.state.q.numpy(), sc["q"])))),
+                 g["rot_deg"], "<"),
+        t=(float(np.median(np.abs(rec.state.t.numpy() - sc["t"]))), g["t"], "<"),
+        corrupted_valid=(float(valid[:n_out].mean()), g["corrupted_valid"], "<"),
+        clean_valid=(float(valid[n_out:].mean()), g["clean_valid"], ">"),
+        aligned=(float(np.median(np.linalg.norm(aligned - want, axis=-1))), g["aligned"], "<"))
+    return {k: (v, lim, v < lim if op == "<" else v > lim) for k, (v, lim, op) in values.items()}
+
+
+def scene_phase(torch, np, dev, smi):
+    """Phase 14: scene geometry on the card. (a) solver_checks; (b) the
+    done-criterion scene (make_scene) on the card: estimate_preliminary_cameras
+    and reconstruct_scene, held to the test's gates, its COLMAP model written
+    and read back, and a disparity map made from the true depths aligned to
+    the reconstruction by dense_depth; (c) the same scene through the port on
+    the CPU (the preliminary RANSAC replaying the card's samples), the card
+    held to it; (d) per stage the card's and the CPU's ms, the card's host
+    synchronizations and peak memory. Returns the phase's record."""
+    import os
+    import tempfile
+
+    from comet_tpu_torch import twoview as tv
+    from comet_tpu_torch.geometry import quat_to_matrix
+    from comet_tpu_torch.twoview import estimators, scene_ba
+    from comet_tpu_torch.utils import colmap_io, dense_depth
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SmokeError("scene: TF32 matmuls are on; the geometry must run in f32")
+    rec = dict(solvers=solver_checks(torch, np, tv, dev, smi))
+    # every part runs and prints before the phase fails
+    failures = [f"(a) {r['name']}" for r in rec["solvers"] if not r["ok"]]
+    sc = make_scene(np)
+    cpu = torch.device("cpu")
+    on = {k: torch.from_numpy(v).to(dev) for k, v in sc.items() if isinstance(v, np.ndarray)}
+    off = {k: torch.from_numpy(v) for k, v in sc.items() if isinstance(v, np.ndarray)}
+    kmat = tv.default_kmat(SCENE_IMG, SCENE_IMG, device=dev)
+    if not np.array_equal(kmat.cpu().numpy(), sc["k"]):
+        raise SmokeError(f"scene: default_kmat is {kmat.cpu().numpy()}, not the scene's K")
+    recon_args = dict(ba_iters=SCENE_BA_ITERS, ba_rounds=SCENE_BA_ROUNDS,
+                      max_reproj_error=SCENE_MAX_REPROJ)
+
+    def preliminary(d):
+        return tv.estimate_preliminary_cameras(d["tracks"][None], d["vis"][None], SCENE_IMG,
+                                               SCENE_IMG)
+
+    def reconstruct(d, k):
+        return tv.reconstruct_scene(d["q0"], d["t0"], d["tracks"], d["vis"], k, **recon_args)
+
+    # (b) the card: a first run (allocator, cuSOLVER and cuBLAS handles), the
+    # whole pipeline timed alone, then the staged run; the samples the
+    # preliminary RANSAC drew are kept for the CPU to replay
+    drawn = []
+    draw = estimators.ransac_samples
+
+    def keep_samples(*args, **kwargs):
+        drawn.append(draw(*args, **kwargs))
+        return drawn[-1]
+
+    estimators.ransac_samples = keep_samples
+    try:
+        cams, prelim = preliminary(on)
+    finally:
+        estimators.ransac_samples = draw
+    reconstruct(on, kmat)
+    whole = _StageClock(torch, dev)
+    got = whole.measure("whole", reconstruct, on, kmat)
+    staged = _StageClock(torch, dev)
+    staged.measure("preliminary", preliminary, on)
+    staged.run(scene_ba, reconstruct, on, kmat)
+    got_cpu = _recon_to(torch, got, cpu)
+    gates = _scene_gates(torch, np, sc, got_cpu)
+    for name, (value, limit, ok) in gates.items():
+        print(f"scene (b): {name} {value:.4f} (gate {limit}){'' if ok else ' FAILED'}", flush=True)
+    failures += [f"(b) gate {k}" for k, (_, _, ok) in gates.items() if not ok]
+    # the preliminary poses are frame-0-relative, column convention: camera
+    # i's rotation against the truth's R_i^T R_0 (R row convention)
+    r_true = np.stack([_rotmat_np(np, x) for x in sc["q"]])
+    r_rel = np.einsum("sji,jk->sik", r_true, r_true[0])
+    prel_q = cams["q"][0].cpu()
+    prel_err = np.degrees(np.arccos(np.clip((np.einsum(
+        "sij,sij->s", quat_to_matrix(prel_q).numpy(), r_rel) - 1) / 2, -1.0, 1.0)))
+    if not (np.isfinite(prel_err).all() and prel_q[0].tolist() == [1.0, 0.0, 0.0, 0.0]):
+        failures.append(f"(b) preliminary rotations {prel_err}, frame 0 {prel_q[0]}")
+    print(f"scene (b): preliminary cameras: median rotation error against the truth "
+          f"{float(np.median(prel_err[1:])):.4f} deg, largest {float(prel_err.max()):.4f}",
+          flush=True)
+
+    # the COLMAP model of the card's reconstruction, written and read back
+    with tempfile.TemporaryDirectory() as tmp:
+        model = colmap_io.scene_to_colmap(got_cpu.state.q, got_cpu.state.t, sc["k"],
+                                          sc["tracks"], got_cpu, (SCENE_IMG, SCENE_IMG))
+        colmap_io.write_model_text(model, os.path.join(tmp, "sparse"))
+        back = colmap_io.read_model_text(os.path.join(tmp, "sparse"))
+        want_points = int(((got_cpu.inlier_mask & got_cpu.valid_tracks[None]).sum(0) >= 2).sum())
+        if (len(back.images) != SCENE_S or len(back.points3d) != want_points
+                or len(back.points3d) != len(model.points3d)):
+            failures.append(f"(b) COLMAP model read back with {len(back.images)} images, "
+                            f"{len(back.points3d)} points ({want_points} expected)")
+        elif not np.allclose(np.stack([p.xyz for p in back.points3d.values()]),
+                             np.stack([p.xyz for p in model.points3d.values()]), atol=1e-5):
+            failures.append("(b) COLMAP points read back differ")
+
+        # a disparity map made from the middle camera's true depths (an
+        # affine map of their inverse, as a monocular network's is; the
+        # arc's end cameras see the cloud partly outside the image), aligned
+        # to the reconstruction's sparse depths in that camera
+        n_out, view = sc["n_out"], SCENE_S // 2
+        uv = np.round(sc["tracks"][view, n_out:]).astype(int)
+        inside = (uv >= 0).all(-1) & (uv < SCENE_IMG).all(-1)
+        disp = np.zeros((SCENE_IMG, SCENE_IMG), np.float32)
+        disp[uv[inside, 1], uv[inside, 0]] = 0.7 / sc["depth"][view, n_out:][inside] + 0.05
+        proj = tv.projection_matrices(got_cpu.state.q[view:view + 1],
+                                      got_cpu.state.t[view:view + 1], off["k"])[0].numpy()
+        ph = np.concatenate([got_cpu.state.points.numpy()[n_out:],
+                             np.ones((SCENE_N - n_out, 1), np.float32)], 1) @ proj.T
+        keep = got_cpu.valid_tracks.numpy()[n_out:] & inside
+        uvd = np.concatenate([uv, ph[:, 2:]], 1)[keep].astype(np.float64)
+        t0 = time.perf_counter()
+        depth = dense_depth.align_disparity_to_sparse(disp, uvd)
+        depth_ms = (time.perf_counter() - t0) * 1e3
+        got_d = depth[uvd[:, 1].astype(int), uvd[:, 0].astype(int)]
+        depth_err = float(np.median(np.abs(got_d - uvd[:, 2]) / uvd[:, 2]))
+        dense_depth.write_colmap_array(depth, os.path.join(tmp, "depth.bin"))
+        same = np.array_equal(dense_depth.read_colmap_array(os.path.join(tmp, "depth.bin")), depth)
+        cloud, _ = dense_depth.unproject_depth_map(depth, sc["k"], proj[:, :3], proj[:, 3])
+    if not (depth_err < DEPTH_REL and same and len(cloud) == int((depth > 0).sum())):
+        failures.append(f"(b) dense depth: median relative error {depth_err:.4f}, COLMAP array "
+                        f"read back equal {same}, {len(cloud)} points")
+    print(f"scene (b): COLMAP model of {len(back.points3d)} points and {SCENE_S} images "
+          f"written and read back; dense depth aligned to {len(uvd)} sparse depths in "
+          f"{depth_ms:.1f} ms on the host, median relative error {depth_err:.5f} "
+          f"(limit {DEPTH_REL})", flush=True)
+
+    # (c) the same scene through the port on the CPU, the preliminary
+    # RANSAC replaying the card's samples
+    replay = [d.cpu() for d in drawn]
+    estimators.ransac_samples = lambda *args, **kwargs: replay.pop(0)
+    cpu_clock = _StageClock(torch, cpu)
+    try:
+        cams_cpu, prelim_cpu = cpu_clock.measure("preliminary", preliminary, off)
+    finally:
+        estimators.ransac_samples = draw
+    want = cpu_clock.run(scene_ba, reconstruct, off, off["k"])
+    extent = float(np.abs(sc["pts"]).max() + np.abs(sc["t"]).max())
+    both_valid = got_cpu.valid_tracks.numpy() & want.valid_tracks.numpy()
+    diffs = dict(
+        preliminary_masks=float((prelim["fmat_inlier_mask"].cpu() ==
+                                 prelim_cpu["fmat_inlier_mask"]).float().mean()),
+        preliminary_rot=float(_rot_err(np, cams["q"].cpu().numpy(), cams_cpu["q"].numpy()).max()),
+        rot=float(_rot_err(np, got_cpu.state.q.numpy(), want.state.q.numpy()).max()),
+        t=float(np.abs(got_cpu.state.t.numpy() - want.state.t.numpy()).max()) / extent,
+        points=float(np.abs(got_cpu.state.points.numpy()[both_valid]
+                            - want.state.points.numpy()[both_valid]).max()) / extent,
+        valid=float((got_cpu.valid_tracks == want.valid_tracks).float().mean()),
+        inliers=float((got_cpu.inlier_mask == want.inlier_mask).float().mean()))
+    limits = dict(preliminary_masks=GEOM_MASKS, preliminary_rot=GEOM_ROT, rot=GEOM_ROT,
+                  t=GEOM_EXTENT, points=GEOM_EXTENT, valid=GEOM_MASKS, inliers=GEOM_MASKS)
+    failed = {k: v for k, v in diffs.items()
+              if (v < limits[k] if k in ("preliminary_masks", "valid", "inliers") else v > limits[k])}
+    print(f"scene (c): the card against the CPU: {json.dumps(diffs)} (limits "
+          f"{json.dumps(limits)}; masks as shares of equal entries, t and points as shares of "
+          f"the extent {extent:.3f}); rms card {float(got.rms):.4f} px, CPU "
+          f"{float(want.rms):.4f} px", flush=True)
+    failures += [f"(c) {k} {v}" for k, v in failed.items()]
+
+    # (d) per stage
+    stages = []
+    for card_r, cpu_r in zip(staged.records, cpu_clock.records):
+        stages.append(dict(stage=card_r["stage"], card_ms=card_r["ms"], cpu_ms=cpu_r["ms"],
+                           syncs=card_r["syncs"], peak_gib=card_r["peak_gib"],
+                           where=card_r["where"]))
+    w = whole.records[0]
+    stages.append(dict(stage="whole, alone", card_ms=w["ms"], cpu_ms=None, syncs=w["syncs"],
+                       peak_gib=w["peak_gib"], where=w["where"]))
+    for s in stages:
+        print(f"scene (d): {s['stage']}: card {s['card_ms']:.1f} ms, "
+              + (f"CPU {s['cpu_ms']:.1f} ms, " if s["cpu_ms"] is not None else "")
+              + f"{s['syncs']} host syncs {s['where']}, peak "
+              + (f"{s['peak_gib']:.3f} GiB" if s["peak_gib"] is not None else "not measured"),
+              flush=True)
+    rec.update(stages=stages, gates=gates, diffs=diffs, depth_err=depth_err,
+               seconds=time.perf_counter() - t_phase)
+    print(f"scene: phase 14 in {rec['seconds']:.1f} s, on {smi}", flush=True)
+    if failures:
+        raise SmokeError(f"scene: {'; '.join(failures)}")
+    return rec
+
+
 def _profile_step(torch, step, request, gt, step_ms):
     """torch.profiler over one warm train step: its device time and the
     device's idle share of the median step."""
@@ -3064,6 +3687,10 @@ def main(argv=None) -> int:
         distributed = distributed_phase(torch, np, data, geom, tcfg, models, training, parallel,
                                         cfg, model, counters, dev, smi)
         loads = load_phase(torch, np, data, cfg, counters, dev, smi)
+        _reset(counters)
+        scene = scene_phase(torch, np, dev, smi)
+        if sum(_launches(counters).values()):
+            raise SmokeError(f"scene: kernels launched {_launches(counters)}; the geometry has none")
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3179,6 +3806,12 @@ def main(argv=None) -> int:
           f"{loads['pil_raw_ms']:.1f}), native "
           + (f"{loads['native_ms']:.1f} (decode {loads['native_raw_ms']:.1f})" if loads["native"]
              else "not run (no build)") + f"; phase 13 {loads['seconds']:.1f} s", flush=True)
+    whole = {s["stage"]: s for s in scene["stages"]}
+    print(f"scene: phase 14 {scene['seconds']:.1f} s; reconstruct_scene at S {SCENE_S}, N "
+          f"{SCENE_N}: card {whole['whole']['card_ms']:.1f} ms ({whole['whole, alone']['card_ms']:.1f} "
+          f"alone, {whole['whole, alone']['syncs']} host syncs), CPU {whole['whole']['cpu_ms']:.1f} "
+          f"ms; gates {json.dumps({k: round(v[0], 5) for k, v in scene['gates'].items()})}",
+          flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
