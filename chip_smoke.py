@@ -210,7 +210,33 @@ Phases, each of which makes the script exit nonzero when it fails:
    samples), the card held to it; (d) per stage (preliminary, init BA,
    refine poses, each RANSAC triangulation, each global BA, each filter,
    the whole) the card's and the CPU's ms, the card's host synchronizations
-   (torch's sync debug mode, with their source lines) and peak memory.
+   (torch's sync debug mode, with their source lines) and peak memory; and
+15. the point-matching stack (``matching/``, ``models/superpoint.py``; no
+   kernel), in f32 with TF32 off (matmuls and cuDNN) for its comparisons:
+   (a) on the card against the port on the CPU, the same weights (drawn on
+   the CPU from seed 0) and inputs: SuperPoint and SIFT on a 480 x 480
+   synthetic image with 512 keypoints (positions equal, JAX's tie order
+   included, but for near-ties; descriptors within MATCH_TOL), LightGlue at
+   depth 9, width 256, 4 heads on 512 + 512 keypoints with adaptivity off and
+   at MATCH_ADAPTIVE (``stop_layer`` and ``prune0/1`` equal), SuperGlue at
+   depth 9 with 50 Sinkhorn iterations; a match may differ only at a
+   near-tie (MATCH_NEAR_TIE), and such disagreements are counted and
+   printed; (b) ``cli.main match --experiment E --n-pairs 8 --image-size
+   480`` on the card for each of MATCH_EXPERIMENTS (the trainable matchers
+   with ``--load-experiment`` of a checkpoint written here in the JAX
+   package's format, whose weights score pairs by a scaled cosine: random
+   ones match nothing), every row finite; the same command at
+   MATCH_CPU_PAIRS pairs on the card and on the CPU (its RANSAC replaying
+   the card's samples), the rows within MATCH_ROW; ``match --list`` prints
+   11 names; (c) ``detect_superpoint`` (its disagreements near-ties) and
+   ``seed_query_points(backend="superpoint")`` on an AMD fixture frame on
+   the card and the CPU, then ``cli.main eval --keypoints superpoint`` at
+   full width (a finite CSV row); (d) per experiment the extractor's and the
+   matcher's ms per pair (from (b)'s runs) on the card and the CPU, and on
+   the card the host synchronizations of one benchmark pair (with their
+   source lines) and the peak memory. K1-K5
+   may not launch in (a), (b), (d) or (c)'s seeding; (c)'s eval runs the
+   COMET forward, whose launches are printed.
 
 The script prints its total time; the line before the last holds the
 kernels' JSON record, and the last line
@@ -3528,6 +3554,566 @@ def scene_phase(torch, np, dev, smi):
     return rec
 
 
+# phase 15: the point-matching stack (matching/, models/superpoint.py; no
+# kernel). Glue-factory's HPatches evaluation resizes to 480 px; the
+# experiments take 512 keypoints, LightGlue and SuperGlue depth 9 at width 256.
+MATCH_IMG = 480
+MATCH_KP = 512
+MATCH_PAIRS = 8
+MATCH_EXPERIMENTS = ("superpoint+nn", "sift+nn", "superpoint+lightglue_homography",
+                     "superpoint+superglue")
+# random LightGlue and SuperGlue weights match nothing over SuperPoint's
+# descriptors (both filter thresholds), so (b) loads these two a checkpoint:
+# every layer's update zeroed and the final projections a scaled identity,
+# which scores pairs by MATCH_COSINE_SCALE x their descriptors' cosine (a
+# random SuperPoint's descriptors are nearly parallel: cosines ~0.975, the
+# best two of a row ~0.001 apart)
+MATCH_LOADED = ("superpoint+lightglue_homography", "superpoint+superglue")
+MATCH_COSINE_SCALE = 2000.0
+# the adaptive LightGlue of (a): depth / width confidence
+MATCH_ADAPTIVE = (0.95, 0.99)
+# card against CPU in f32 (TF32 off), relative to the largest |value| (at
+# least 1): network outputs and the log assignments
+MATCH_TOL = 1e-4
+# an argmax or top-k may differ between the card and the CPU only where the
+# CPU's two candidates are closer than this (log assignment, or keypoint
+# score relative to the largest)
+MATCH_NEAR_TIE = 1e-4
+# (b): the row at MATCH_CPU_PAIRS pairs on the card against the same command
+# on the CPU (made there on the CPU: ~1 s per SuperPoint image on the card
+# machine's CPU), the CPU's RANSAC replaying the card's samples: the match
+# count within 1 %, precision and recall within 0.01; where every pair
+# replayed its samples the corner error within 1e-3 relative and the
+# accuracy buckets equal, else (a near-tie changed a pair's match count, so
+# its fit drew other samples) within 10 % and one pair
+MATCH_CPU_PAIRS = 3
+MATCH_ROW = dict(num_matches=0.01, prec_recall=0.01, H_error=1e-3, H_error_redrawn=0.1)
+
+
+def _keypoint_diffs(np, got_kp, got_sc, want_kp, want_sc, window):
+    """Keypoints of the card (got) against the CPU (want): (disagreements,
+    near-ties among them, slots reordered where the sets agree). A keypoint
+    in one set only is a near-tie where its score is 0 (the padding, an exact
+    tie), within MATCH_NEAR_TIE of the other set's last score (the top-k's
+    cut), or of a keypoint of the other set within ``window`` pixels (the
+    suppression's comparisons: a plateau of nearly equal scores)."""
+    tol = MATCH_NEAR_TIE * max(float(np.abs(want_sc).max()), 1e-12)
+
+    def key(kp):
+        return [tuple(p) for p in kp.astype(np.int64)]
+
+    gk, wk = key(got_kp), key(want_kp)
+    diff = near = 0
+    for pts, scores, other_kp, other_sc in ((gk, got_sc, want_kp, want_sc),
+                                             (wk, want_sc, got_kp, got_sc)):
+        others = set(key(other_kp))
+        for p, s in zip(pts, scores):
+            if p in others:
+                continue
+            diff += 1
+            close = np.abs(other_kp - np.asarray(p)).max(axis=1) <= window
+            if (s == 0 or abs(s - other_sc[-1]) <= tol
+                    or (close.any() and np.abs(other_sc[close] - s).min() <= tol)):
+                near += 1
+    order = sum(a != b for a, b in zip(gk, wk))  # slots, with the sets equal
+    return diff, near, order
+
+
+def _gap(np, v):
+    """The distance between the two largest entries of v."""
+    top = np.sort(v)[-2:]
+    return top[1] - top[0]
+
+
+def _match_diffs(np, got, want, la_got, la_want):
+    """matches0 of the card against the CPU: (disagreements, near-ties), a
+    near-tie where a row or a column it involves has its two best log
+    assignment entries within MATCH_NEAR_TIE on either device."""
+    rows = np.nonzero(got != want)[0]
+    near = 0
+    for i in rows:
+        gaps = [_gap(np, la[i]) for la in (la_got, la_want)]
+        for j in {int(got[i]), int(want[i])} - {-1}:
+            gaps += [_gap(np, la[:, j]) for la in (la_got, la_want)]
+        near += min(gaps) <= MATCH_NEAR_TIE
+    return len(rows), near
+
+
+def _argmax_diffs(np, la_got, la_want):
+    """Each row's argmax of the inner log assignment, card against CPU:
+    (rows that differ, near-ties among them: the CPU's or the card's best two
+    entries of the row within MATCH_NEAR_TIE)."""
+    rows = np.nonzero(la_got.argmax(1) != la_want.argmax(1))[0]
+    return len(rows), int(sum(min(_gap(np, la_got[i]), _gap(np, la_want[i])) <= MATCH_NEAR_TIE
+                              for i in rows))
+
+
+def _rel_err(np, got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+
+
+def _cosine_weights(torch, module):
+    """``module``'s state with every layer's update zeroed and its final
+    projections MATCH_COSINE_SCALE^(1/2) x (dim^(1/4)) x identity: the
+    matcher then scores pairs by MATCH_COSINE_SCALE x their descriptors'
+    cosine (the checkpoint (b) loads)."""
+    sd = {k: v.clone() for k, v in module.state_dict().items()}
+    eye = torch.eye(module.dim)
+    # both matchers divide the projections' product by sqrt(dim)
+    scale = MATCH_COSINE_SCALE ** 0.5 * module.dim ** 0.25
+    for k in sd:
+        last = k.split(".")[-2] if "." in k else k
+        if k.startswith(("input_proj", "final_proj")) or ".final_proj." in k:
+            sd[k] = (eye * (scale if "final_proj" in k else 1.0)) if k.endswith("weight") else \
+                torch.zeros_like(sd[k])
+        elif last in ("ffn_lin2", "merge2") or k.startswith("kenc.out."):
+            sd[k] = torch.zeros_like(sd[k])
+        elif ".matchability." in k:
+            sd[k] = torch.zeros_like(sd[k]) if k.endswith("weight") else torch.full_like(sd[k], 8.0)
+    if "bin_score" in sd:
+        sd["bin_score"] = torch.tensor(1.0)
+    return sd
+
+
+def _flax_tree(np, sd):
+    """A port state_dict as the flax tree the weight bridge reads (the
+    inverse of ``weights.convert_leaf`` for Dense, Conv and LayerNorm)."""
+    tree = {}
+    for name, value in sd.items():
+        parts = name.split(".")
+        comps = []
+        for p in parts[:-1]:
+            if p.isdigit():
+                comps[-1] = f"{comps[-1]}_{p}"
+            else:
+                comps.append(p)
+        arr = value.detach().cpu().numpy()
+        leaf = parts[-1]
+        if leaf == "weight":
+            if arr.ndim == 2:
+                arr, leaf = arr.T.copy(), "kernel"
+            elif arr.ndim == 4:
+                arr, leaf = arr.transpose(2, 3, 1, 0).copy(), "kernel"
+            else:
+                leaf = "scale"
+        node = tree
+        for c in comps:
+            node = node.setdefault(c, {})
+        node[leaf] = np.array(arr, order="C")
+    return tree
+
+
+def _write_flax_checkpoint(np, path, tree, step):
+    """A checkpoint as the JAX package's ``save_experiment`` writes it:
+    flax's msgpack of {"params": {"params": tree}} (arrays as ext type 1)
+    and its JSON sidecar."""
+    import msgpack
+
+    def pack(x):
+        if isinstance(x, np.ndarray):
+            return msgpack.ExtType(1, msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
+                                                    use_bin_type=True))
+        raise TypeError(type(x))
+
+    with open(path, "wb") as f:
+        f.write(msgpack.packb({"params": {"params": tree}}, default=pack, strict_types=True))
+    with open(path[: -len(".msgpack")] + ".json", "w") as f:
+        json.dump({"step": step, "conf": None, "loss": None, "eval": None}, f)
+
+
+def _adaptive_biases(torch, module):
+    """Token-confidence and matchability biases that make the adaptive
+    LightGlue act on random weights: layer 0 partly confident, layer 1 all
+    confident (it stops there), matchabilities near 1 - width confidence
+    (it prunes)."""
+    with torch.no_grad():
+        for i, tc in enumerate(module.token_confidence):
+            tc.token.bias.fill_(1.8 if i == 0 else 12.0)
+            module.log_assignment[i].matchability.bias.fill_(-4.6)
+    return module
+
+
+def match_module_checks(torch, np, dev, smi):
+    """Phase 15 (a): SuperPoint, SIFT, LightGlue (adaptivity off and on) and
+    SuperGlue on the card against the port on the CPU, same weights and
+    inputs, at full width. Returns the records."""
+    import copy
+
+    from comet_tpu_torch.matching import benchmarks, lightglue, sift, superglue
+    from comet_tpu_torch.matching.extractors import build_superpoint
+    from comet_tpu_torch.models.blocks import init_params
+
+    cpu = torch.device("cpu")
+    img0, img1, _ = benchmarks.make_synthetic_pairs(1, (MATCH_IMG, MATCH_IMG), seed=0,
+                                                    device=cpu)[0]
+    records = []
+
+    def record(name, ok, **fields):
+        records.append(dict(name=name, ok=ok, **fields))
+        print(f"matching (a): {name}: {json.dumps(fields)}{'' if ok else ' FAILED'}", flush=True)
+
+    # SuperPoint: 512 keypoints of a 480 x 480 image
+    sp = build_superpoint(MATCH_KP, seed=0)
+    sp_card = copy.deepcopy(sp).to(dev)
+    with torch.no_grad():
+        feats = {}
+        for side, img in (("0", img0), ("1", img1)):
+            want = sp(img[..., 0])
+            got = sp_card(img[..., 0].to(dev))
+            feats[side] = want
+            wk, ws = want.keypoints.numpy(), want.scores.numpy()
+            gk, gs = got.keypoints.cpu().numpy(), got.scores.cpu().numpy()
+            diff, near, order = _keypoint_diffs(np, gk, gs, wk, ws, 2 * sp.nms_radius + 1)
+            same = (gk == wk).all(axis=1)
+            err_sc = _rel_err(np, gs, ws) if order == 0 else _rel_err(np, np.sort(gs), np.sort(ws))
+            err_d = _rel_err(np, got.descriptors.cpu().numpy()[same], want.descriptors.numpy()[same])
+            record(f"SuperPoint image {side}", diff == near and err_sc <= MATCH_TOL
+                   and err_d <= MATCH_TOL, keypoints=MATCH_KP, zero_score=int((ws == 0).sum()),
+                   disagreements=diff, near_ties=near, slots_reordered=int(order),
+                   score_err=err_sc, descriptor_err=err_d, tol=MATCH_TOL)
+        # SIFT
+        want = sift.extract_sift(img0, MATCH_KP)
+        got = sift.extract_sift(img0.to(dev), MATCH_KP)
+        wk, ws = want["keypoints"].numpy(), want["scores"].numpy()
+        gk, gs = got["keypoints"].cpu().numpy(), got["scores"].cpu().numpy()
+        diff, near, order = _keypoint_diffs(np, gk, gs, wk, ws, 1)
+        same = (gk == wk).all(axis=1)
+        err_d = _rel_err(np, got["descriptors"].cpu().numpy()[same],
+                         want["descriptors"].numpy()[same])
+        record("SIFT", diff == near and _rel_err(np, gs, ws) <= MATCH_TOL and err_d <= MATCH_TOL,
+               keypoints=MATCH_KP, zero_score=int((ws == 0).sum()), disagreements=diff,
+               near_ties=near, slots_reordered=int(order), descriptor_err=err_d, tol=MATCH_TOL)
+
+        # the matchers on SuperPoint's features of the pair, keypoints
+        # normalized by the image size as the pipeline does
+        def norm(k):
+            return k / (MATCH_IMG - 1.0) * 2.0 - 1.0
+
+        args = (norm(feats["0"].keypoints), feats["0"].descriptors,
+                norm(feats["1"].keypoints), feats["1"].descriptors)
+        valid = dict(valid0=feats["0"].scores > 0, valid1=feats["1"].scores > 0)
+        for label, adaptive in (("off", None), ("adaptive", MATCH_ADAPTIVE)):
+            conf = dict(depth=9, dim=256, num_heads=4, filter_threshold=0.0)
+            if adaptive:
+                conf.update(depth_confidence=adaptive[0], width_confidence=adaptive[1])
+            m = lightglue.LightGlueMatcher(**conf)
+            init_params(m, torch.Generator().manual_seed(0))
+            if adaptive:
+                _adaptive_biases(torch, m)
+            m.eval()
+            want = m(*args, **valid)
+            got = copy.deepcopy(m).to(dev)(*(a.to(dev) for a in args),
+                                          **{k: v.to(dev) for k, v in valid.items()})
+            got = {k: v.cpu() for k, v in got.items()}
+            la_w, la_g = want["log_assignment"].numpy(), got["log_assignment"].numpy()
+            diff, near = _match_diffs(np, got["matches0"].numpy(), want["matches0"].numpy(),
+                                      la_g[:-1, :-1], la_w[:-1, :-1])
+            rows, rows_near = _argmax_diffs(np, la_g[:-1, :-1], la_w[:-1, :-1])
+            same_adapt = all(torch.equal(got[k], want[k]) for k in ("stop_layer", "prune0",
+                                                                    "prune1"))
+            err = _rel_err(np, la_g, la_w)
+            record(f"LightGlue depth 9, adaptivity {label}", diff == near and rows == rows_near
+                   and same_adapt and err <= MATCH_TOL,
+                   matches=int((want["matches0"] >= 0).sum()), disagreements=diff,
+                   near_ties=near, row_argmax_disagreements=rows, row_argmax_near_ties=rows_near,
+                   stop_layer=int(want["stop_layer"]),
+                   pruned0=int((want["prune0"] < want["stop_layer"]).sum()),
+                   adaptive_equal=same_adapt, log_assignment_err=err, tol=MATCH_TOL)
+        m = superglue.SuperGlueMatcher(depth=9, dim=256, sinkhorn_iters=50, filter_threshold=0.0)
+        init_params(m, torch.Generator().manual_seed(0))
+        m.eval()
+        want = m(*args, **valid)
+        got = {k: v.cpu() for k, v in copy.deepcopy(m).to(dev)(
+            *(a.to(dev) for a in args), **{k: v.to(dev) for k, v in valid.items()}).items()}
+        la_w, la_g = want["log_assignment"].numpy(), got["log_assignment"].numpy()
+        diff, near = _match_diffs(np, got["matches0"].numpy(), want["matches0"].numpy(),
+                                  la_g[:-1, :-1], la_w[:-1, :-1])
+        rows, rows_near = _argmax_diffs(np, la_g[:-1, :-1], la_w[:-1, :-1])
+        err = _rel_err(np, la_g, la_w)
+        record("SuperGlue depth 9, 50 Sinkhorn iterations", diff == near and rows == rows_near
+               and err <= MATCH_TOL, matches=int((want["matches0"] >= 0).sum()),
+               disagreements=diff, near_ties=near, row_argmax_disagreements=rows,
+               row_argmax_near_ties=rows_near, log_assignment_err=err, tol=MATCH_TOL)
+    return records
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _run_cli(cli, argv):
+    """``cli.main(argv)``: its printed lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue().splitlines()
+
+
+def _timed_match(torch, cli, configs, estimators, dev, argv, sampler):
+    """``cli.main(argv)`` of ``match`` on ``dev`` with ``sampler`` as the
+    RANSAC's ``ransac_samples``, its pipeline's extractor and matcher timed
+    where the CLI calls them (synchronized on the card): (row, {seconds,
+    extractor_ms (both images), matcher_ms: medians over the pairs after the
+    first, which builds the models; peak_gib on the card})."""
+    draw, build = estimators.ransac_samples, configs.build_pipeline
+    ms = {"extractor": [], "matcher": []}
+
+    def timed(fn, part):
+        def call(*args):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            result = fn(*args)
+            _sync(torch, dev)
+            ms[part].append((time.perf_counter() - t0) * 1e3)
+            return result
+
+        if hasattr(fn, "holder"):  # a matcher that loads checkpoints
+            call.holder = fn.holder
+        return call
+
+    def build_timed(*args, **kwargs):
+        pipe = build(*args, **kwargs)
+        pipe.extractor = timed(pipe.extractor, "extractor")
+        pipe.matcher = timed(pipe.matcher, "matcher")
+        return pipe
+
+    estimators.ransac_samples, configs.build_pipeline = sampler, build_timed
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        row = json.loads(_run_cli(cli, argv)[-1])
+        seconds = time.perf_counter() - t0
+    finally:
+        estimators.ransac_samples, configs.build_pipeline = draw, build
+    ext = [a + b for a, b in zip(ms["extractor"][2::2], ms["extractor"][3::2])]
+    return row, dict(seconds=seconds, extractor_ms=statistics.median(ext),
+                     matcher_ms=statistics.median(ms["matcher"][1:]),
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+                     if dev.type == "cuda" else None)
+
+
+def _row_gaps(card, host, replayed_all):
+    """The entries of a ``match`` row outside MATCH_ROW (card against CPU):
+    {key: (card, cpu)}."""
+    off = {}
+    for k, c in card.items():
+        h = host[k]
+        if k == "experiment" or (c is None and h is None):
+            continue
+        if (c is None) != (h is None):
+            off[k] = (c, h)
+            continue
+        if k == "num_matches":
+            lim = MATCH_ROW["num_matches"] * max(abs(h), 1.0)
+        elif k.startswith("H_error"):
+            lim = (MATCH_ROW["H_error"] if replayed_all else MATCH_ROW["H_error_redrawn"]) * \
+                max(abs(h), 1.0)
+        elif k.startswith("H_acc"):
+            lim = 0.0 if replayed_all else 1.0 / MATCH_CPU_PAIRS + 1e-9
+        else:
+            lim = MATCH_ROW["prec_recall"]
+        if abs(c - h) > lim:
+            off[k] = (c, h)
+    return off
+
+
+def match_phase(torch, np, counters, dev, smi):
+    """Phase 15: the matching stack on the card, TF32 off for its
+    comparisons. (a) ``match_module_checks``; (b) ``cli.main match`` per
+    experiment on the card and on the CPU (the RANSAC replaying the card's
+    samples), and ``match --list``; (c) the superpoint keypoint backend and
+    ``cli.main eval --keypoints superpoint``; (d) per experiment the ms per
+    pair split into extractor and matcher, host syncs and peak memory on the
+    card and the CPU. No kernel may launch in (a), (b), (d) or (c)'s seeding.
+    Returns the phase's record."""
+    import csv
+    import os
+    import tempfile
+
+    from comet_tpu_torch import cli
+    from comet_tpu_torch.data import fixtures, keypoints
+    from comet_tpu_torch.matching import benchmarks, configs, experiments, lightglue, superglue
+    from comet_tpu_torch.models.blocks import init_params
+    from comet_tpu_torch.twoview import estimators
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SmokeError("matching: TF32 matmuls are on; the comparisons run in f32")
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    rec, failures = {}, []
+    _reset(counters)
+    try:
+        rec["modules"] = match_module_checks(torch, np, dev, smi)
+        failures += [f"(a) {r['name']}" for r in rec["modules"] if not r["ok"]]
+
+        with tempfile.TemporaryDirectory() as tmp:
+            # (b) the CLI; the trainable matchers load the cosine checkpoint
+            ckpt = {}
+            for name, cls in zip(MATCH_LOADED, (lightglue.LightGlueMatcher,
+                                                superglue.SuperGlueMatcher)):
+                exp = configs.get_experiment(name)["matcher"]
+                exp.pop("name")
+                m = cls(**exp)
+                init_params(m, torch.Generator().manual_seed(0))
+                ckpt[name] = os.path.join(tmp, name.replace("+", "_"))
+                os.makedirs(ckpt[name])
+                _write_flax_checkpoint(np, os.path.join(ckpt[name], "checkpoint_00000001.msgpack"),
+                                       _flax_tree(np, _cosine_weights(torch, m)), 1)
+            names = _run_cli(cli, ["match", "--list"])
+            if names != configs.list_experiments() or len(names) != 11:
+                failures.append(f"(b) match --list printed {names}")
+            print(f"matching (b): match --list: {len(names)} names", flush=True)
+            rows, timing = {}, {}
+            draw = estimators.ransac_samples
+            for name in MATCH_EXPERIMENTS:
+                base = ["match", "--experiment", name, "--image-size", str(MATCH_IMG)]
+                if name in ckpt:
+                    base += ["--load-experiment", ckpt[name]]
+                drawn, replayed, timing[name] = [], [0, 0], {}
+
+                def keep(n, *a, **k):
+                    drawn.append((n, draw(n, *a, **k)))
+                    return drawn[-1][1]
+
+                def replay(n, *a, **k):
+                    if drawn and drawn[0][0] == n:
+                        replayed[0] += 1
+                        return drawn.pop(0)[1].cpu()
+                    replayed[1] += 1  # a near-tie changed this pair's match count
+                    if drawn:
+                        drawn.pop(0)
+                    return draw(n, *a, **k)
+
+                # the row on the card at MATCH_PAIRS pairs, timed for (d); then
+                # at MATCH_CPU_PAIRS on the card and on the CPU, the CPU's
+                # RANSAC replaying the card's samples
+                card, timing[name]["card"] = _timed_match(torch, cli, configs, estimators, dev,
+                                                          base + ["--n-pairs", str(MATCH_PAIRS)],
+                                                          draw)
+                small = base + ["--n-pairs", str(MATCH_CPU_PAIRS)]
+                card_small, _ = _timed_match(torch, cli, configs, estimators, dev, small, keep)
+                host, timing[name]["cpu"] = _timed_match(torch, cli, configs, estimators, cpu,
+                                                         small + ["--device", "cpu"], replay)
+                bad = [k for k, v in card.items() if k != "experiment" and
+                       not (isinstance(v, float) and math.isfinite(v))]
+                off = _row_gaps(card_small, host, replayed[1] == 0)
+                rows[name] = dict(card=card, card_small=card_small, cpu=host, replayed=replayed)
+                print(f"matching (b): match --experiment {name}"
+                      + (" --load-experiment <cosine checkpoint>" if name in ckpt else "")
+                      + f" --image-size {MATCH_IMG}: at {MATCH_PAIRS} pairs, card "
+                      f"{json.dumps(card)} in {timing[name]['card']['seconds']:.1f} s; at "
+                      f"{MATCH_CPU_PAIRS} pairs, card {json.dumps(card_small)}, CPU "
+                      f"{json.dumps(host)} in {timing[name]['cpu']['seconds']:.1f} s (RANSAC "
+                      f"samples replayed {replayed[0]}, drawn anew {replayed[1]})"
+                      + (f"; not finite {bad}" if bad else "") + (f"; off {off}" if off else ""),
+                      flush=True)
+                if bad or off:
+                    failures.append(f"(b) {name}: not finite {bad}, off {off}")
+
+                # (d) the host synchronizations of one benchmark pair on the card
+                pipe = configs.build_pipeline(name, image_hw=(MATCH_IMG, MATCH_IMG))
+                if name in ckpt:
+                    experiments.load_experiment_into_pipeline(pipe, ckpt[name])
+                pair = benchmarks.make_synthetic_pairs(1, (MATCH_IMG, MATCH_IMG), seed=1,
+                                                       device=dev)
+                benchmarks.run_homography_benchmark(pipe, pair)  # build and warm
+                clock = _StageClock(torch, dev)
+                clock.measure("benchmark", benchmarks.run_homography_benchmark, pipe, pair)
+                r = clock.records[0]
+                timing[name]["card"].update(syncs_per_pair=r["syncs"], where=r["where"],
+                                            benchmark_ms_per_pair=r["ms"])
+                for where, t in timing[name].items():
+                    last = MATCH_PAIRS if where == "card" else MATCH_CPU_PAIRS
+                    print(f"matching (d): {name} on the {where}: extractor "
+                          f"{t['extractor_ms']:.2f} ms per pair (both images), matcher "
+                          f"{t['matcher_ms']:.2f} ms (medians over pairs 2-{last})"
+                          + (f"; one benchmark pair {t['benchmark_ms_per_pair']:.1f} ms with "
+                             f"{t['syncs_per_pair']} host syncs {t['where']}; peak "
+                             + (f"{t['peak_gib']:.3f} GiB" if t["peak_gib"] is not None
+                                else "not measured") if where == "card" else ""), flush=True)
+            rec["cli"], rec["timing"] = rows, timing
+            launched = _launches(counters)
+            if sum(launched.values()):
+                failures.append(f"(a), (b), (d): kernels launched {launched}")
+            print(f"matching: K1-K5 launches over (a), (b) and (d): {launched}", flush=True)
+
+            # (c) the superpoint keypoint backend on a fixture frame, then
+            # the CLI's eval with it at full width
+            amd = os.path.join(tmp, "AMD")
+            fixtures.generate_amd_fixture(os.path.join(amd, "AMD_eval"), n_seqs=1,
+                                          n_frames=CLI_AMD_FRAMES, seed=4)
+            from comet_tpu_torch.config import get_config
+            from comet_tpu_torch.data import AMDDataset
+
+            cfg = get_config("ours")
+            sample = AMDDataset(os.path.join(amd, "AMD_eval"), crop_size=cfg.img_size,
+                                seq_len=cfg.seqlen)[0]
+            frame0 = np.asarray(sample.images[0])
+            u8 = keypoints.denormalize_image(frame0)
+            sp_card = keypoints.detect_superpoint(u8, cfg.track_num, device=dev)
+            sp_cpu = keypoints.detect_superpoint(u8, cfg.track_num, device=cpu)
+            # the detections' disagreements (the frame's flat background gives
+            # plateaus of equal heatmap values that the two devices round apart)
+            gray = u8.astype(np.float32).mean(axis=-1) / 255.0
+            gray = torch.as_tensor(np.pad(gray, ((0, -gray.shape[0] % 8), (0, -gray.shape[1] % 8))))
+            with torch.no_grad():
+                outs = [keypoints._SP_CACHE[(cfg.track_num, None, d)](gray.to(d))
+                        for d in (dev, cpu)]
+            det_diff, det_near, det_order = _keypoint_diffs(
+                np, outs[0].keypoints.cpu().numpy(), outs[0].scores.cpu().numpy(),
+                outs[1].keypoints.numpy(), outs[1].scores.numpy(), 9)
+            seeded = {where: keypoints.seed_query_points(
+                frame0, sample.first_mask, cfg.track_num, cfg.min_track_num, backend="superpoint",
+                rng=np.random.default_rng(0), device=d) for where, d in (("card", dev), ("cpu", cpu))}
+            same_det = sp_card.shape == sp_cpu.shape and np.array_equal(sp_card, sp_cpu)
+            same_seed = np.array_equal(seeded["card"], seeded["cpu"])
+            launched = _launches(counters)
+            ok = (seeded["card"].shape == (cfg.track_num, 2) and np.isfinite(seeded["card"]).all()
+                  and (same_seed or not same_det) and det_diff == det_near
+                  and not sum(launched.values()))
+            print(f"matching (c): detect_superpoint on a {u8.shape[0]} x {u8.shape[1]} fixture "
+                  f"frame: {len(sp_card)} keypoints on the card, {len(sp_cpu)} on the CPU, equal "
+                  f"{same_det} ({det_diff} of the top {cfg.track_num} differ, {det_near} of them "
+                  f"near-ties; {det_order} slots reordered among near-equal scores); "
+                  f"seed_query_points(backend='superpoint'): {seeded['card'].shape}, "
+                  f"equal to the CPU's {same_seed}; launches {launched}"
+                  + ("" if ok else " FAILED"), flush=True)
+            if not ok:
+                failures.append("(c) superpoint seeding")
+            _reset(counters)
+            out = os.path.join(tmp, "out_eval")
+            t0 = time.perf_counter()
+            _run_cli(cli, ["eval", "--data-root", os.path.join(amd, "AMD_eval"), "--keypoints",
+                           "superpoint", "--max-sequences", "1", "--output-dir", out])
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            with open(os.path.join(out, "test_results.csv")) as f:
+                csv_rows = list(csv.DictReader(f))
+            bad = [k for row in csv_rows for k, v in row.items() if not math.isfinite(float(v))]
+            print(f"matching (c): python -m comet_tpu_torch.cli eval --keypoints superpoint "
+                  f"--max-sequences 1 (full width): {eval_s:.1f} s wall, {len(csv_rows)} CSV row, "
+                  f"not finite {bad}; the forward's launches {_launches(counters)}", flush=True)
+            if len(csv_rows) != 1 or bad:
+                failures.append(f"(c) eval --keypoints superpoint: {len(csv_rows)} rows, {bad}")
+            rec["eval_s"] = eval_s
+            rec["seeding_equal"] = same_seed
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"matching: phase 15 in {rec['seconds']:.1f} s, on {smi}", flush=True)
+    if failures:
+        raise SmokeError(f"matching: {'; '.join(failures)}")
+    return rec
+
+
 def _profile_step(torch, step, request, gt, step_ms):
     """torch.profiler over one warm train step: its device time and the
     device's idle share of the median step."""
@@ -3691,6 +4277,7 @@ def main(argv=None) -> int:
         scene = scene_phase(torch, np, dev, smi)
         if sum(_launches(counters).values()):
             raise SmokeError(f"scene: kernels launched {_launches(counters)}; the geometry has none")
+        matching = match_phase(torch, np, counters, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3812,6 +4399,12 @@ def main(argv=None) -> int:
           f"alone, {whole['whole, alone']['syncs']} host syncs), CPU {whole['whole']['cpu_ms']:.1f} "
           f"ms; gates {json.dumps({k: round(v[0], 5) for k, v in scene['gates'].items()})}",
           flush=True)
+    lines = "; ".join(
+        f"{name} card {t['card']['extractor_ms']:.1f} + {t['card']['matcher_ms']:.1f} ms, CPU "
+        f"{t['cpu']['extractor_ms']:.1f} + {t['cpu']['matcher_ms']:.1f} ms"
+        for name, t in matching["timing"].items())
+    print(f"matching: phase 15 {matching['seconds']:.1f} s; per pair at {MATCH_IMG} px, "
+          f"extractor + matcher: {lines}", flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -1,4 +1,4 @@
-"""Command-line interface of the port: ``python -m comet_tpu_torch.cli <eval|train|demo|bench|export>``.
+"""Command-line interface of the port: ``python -m comet_tpu_torch.cli <eval|train|demo|bench|export|match>``.
 
 Counterpart of ``comet_tpu/cli.py``, with its arguments and outputs:
 
@@ -7,6 +7,7 @@ Counterpart of ``comet_tpu/cli.py``, with its arguments and outputs:
   demo  --preset ours --data-root datasets/DCA_SpaceNet/model1/testing
   bench --preset ours --suite infer|train|data|all
   export --preset ours [--seq-frames 48] [--batch 1] [--output path.pt2]
+  match --experiment superpoint+lightglue_homography [--load-experiment DIR] [--list]
 
 Every command runs on the CUDA card unless ``--device cpu`` is given, and
 raises without a card. ``eval`` writes ``test_results.csv`` rows compatible
@@ -26,8 +27,14 @@ cards, gloo on the CPU); rank 0 alone writes the CSV, the checkpoints and
 cannot be built, and never falls back to PIL), alone or under
 ``--device-preprocess``. ``--checkpoint`` takes the port's ``.pt`` weights,
 a ``ckpt_NNNNNN`` directory of the port's training, or a flax ``.msgpack``
-written by the JAX package (read without JAX). The ``match`` subcommand and
-the ``superpoint`` keypoints are not ported yet and raise.
+written by the JAX package (read without JAX). ``--keypoints superpoint``
+seeds the queries with SuperPoint on the command's device. ``match`` runs a
+named matching experiment (``matching/configs.py``) on the synthetic
+homography benchmark and prints one JSON row, as the JAX package's does;
+``--load-experiment`` reads the JAX package's matcher checkpoints. Its
+``--train``, ``--resume``, ``--ckpt-every``, ``--val-pairs``, ``--pipeline``,
+``--export-features`` and ``--inspect`` are not ported yet and raise, naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -61,8 +68,7 @@ def _common(parser):
                         help="a weight file saved by utils.serialization.save_params (.pt), a "
                              "flax .msgpack of the JAX package, or a ckpt_NNNNNN directory of a "
                              "training run")
-    parser.add_argument("--keypoints", default="corners", help="corners|grid (superpoint: not "
-                        "ported yet)")
+    parser.add_argument("--keypoints", default="corners", help="corners|grid|superpoint")
     parser.add_argument("--max-sequences", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--f32", action="store_true", help="disable bf16 compute")
@@ -111,12 +117,6 @@ def _device(args):
     from .device import resolve_device
 
     return resolve_device(args.device, f"comet_tpu_torch.cli {args.command}")
-
-
-def _check_ported(args):
-    """Raise for the options whose modules are not ported yet."""
-    if getattr(args, "keypoints", "corners") == "superpoint":
-        raise _not_ported("--keypoints superpoint", "2c")
 
 
 def _finite_json(obj):
@@ -183,7 +183,6 @@ def cmd_eval(args):
     from .data import AMDDataset
     from .training import CsvLogger, evaluate
 
-    _check_ported(args)
     cfg = _build(args)
     device = _device(args)
     model = _init_model(cfg, args.seed, args.checkpoint, device=device)
@@ -221,7 +220,6 @@ def cmd_train(args):
     from .training.loop import _merge_process_averages
     from .training.stats import TO_PLOT_METRICS
 
-    _check_ported(args)
     cfg = _build(args)
     train_over = {}
     if args.epochs is not None:
@@ -329,7 +327,7 @@ def cmd_train(args):
         if not isinstance(frame0, np.ndarray):
             frame0 = frame0.cpu().numpy()
         return seed_query_points(frame0, sample.first_mask, cfg.track_num, cfg.min_track_num,
-                                 backend=args.keypoints, rng=rng)
+                                 backend=args.keypoints, rng=rng, device=device)
 
     for epoch in range(start_epoch, cfg.train.epochs):
         stats = RunningStats()
@@ -465,7 +463,6 @@ def cmd_demo(args):
     from .utils.export import export_sequence_json
     from .utils.scene_export import export_glb_scene, export_scene_html
 
-    _check_ported(args)
     cfg = _build(args).replace(dataset="AMD_test")
     device = _device(args)
     model = _init_model(cfg, args.seed, args.checkpoint, device=device)
@@ -480,7 +477,8 @@ def cmd_demo(args):
         frames = np.asarray(sample.images) if not isinstance(sample.images, torch.Tensor) \
             else sample.images.cpu().numpy()
         queries = seed_query_points(frames[0], sample.first_mask, cfg.track_num,
-                                    cfg.min_track_num, backend=args.keypoints, rng=rng)
+                                    cfg.min_track_num, backend=args.keypoints, rng=rng,
+                                    device=device)
         gt_cams = make_gt_cameras(sample)
         images = _as_tensor(frames, device)[None]
         q_in = _as_tensor(queries, device)[None]
@@ -561,7 +559,6 @@ def cmd_demo(args):
 def cmd_bench(args):
     from .bench_lib import run_benchmark, run_eval_data_benchmark, run_train_benchmark
 
-    _check_ported(args)
     cfg = _build(args)
     device = _device(args)
     which = args.suite
@@ -584,7 +581,6 @@ def cmd_export(args):
     names the device here: ``cuda`` (the default) or ``cpu``."""
     from .utils import serving
 
-    _check_ported(args)
     if args.platforms is not None:
         if args.platforms not in EXPORT_DEVICES:
             raise ValueError(f"export: --platforms {args.platforms!r}: this port exports for one "
@@ -612,8 +608,79 @@ def cmd_export(args):
     print(json.dumps({"artifact": out, **manifest}, sort_keys=True))
 
 
-def cmd_not_ported(args):
-    raise _not_ported(f"the {args.command} subcommand", "8")
+# match's options that are not ported yet, and the ROADMAP item that ports each
+MATCH_NOT_PORTED = (("train", "7a"), ("resume", "7a"), ("ckpt_every", "7a"),
+                    ("val_pairs", "7a"), ("pipeline", "7b"), ("export_features", "7b"),
+                    ("inspect", "7f"))
+
+
+def cmd_match(args):
+    """Run a named matching experiment on the synthetic homography
+    benchmark (pairs, extractor, matcher and estimator on the command's
+    device) and print one JSON row of matching and robust-estimation
+    metrics, as ``comet_tpu/cli.py``'s ``match`` prints it."""
+    from .matching.benchmarks import make_synthetic_pairs, run_homography_benchmark
+    from .matching.configs import build_pipeline, list_experiments
+
+    if args.list:
+        for name in list_experiments():
+            print(name)
+        return
+    for option, item in MATCH_NOT_PORTED:
+        if getattr(args, option):
+            raise _not_ported(f"match --{option.replace('_', '-')}", item)
+    device = _device(args)
+    size = args.image_size
+    pipeline = build_pipeline(args.experiment, image_hw=(size, size))
+    if args.load_experiment:
+        from .matching.experiments import load_experiment_into_pipeline
+
+        meta = load_experiment_into_pipeline(pipeline, args.load_experiment)
+        print(f"loaded checkpoint (step {meta.get('step')}, loss {meta.get('loss')})")
+    pairs = make_synthetic_pairs(args.n_pairs, hw=(size, size), seed=args.seed, device=device)
+    row = run_homography_benchmark(pipeline, pairs)
+    print(json.dumps(_finite_json({"experiment": args.experiment, **row})))
+
+
+def _match_parser(sub):
+    """``match`` with the JAX package's 19 options and ``--device``."""
+    pm = sub.add_parser("match", help="run a named matching experiment")
+    pm.add_argument("--experiment", default="superpoint+nn")
+    pm.add_argument("--list", action="store_true", help="list experiment names and exit")
+    pm.add_argument("--n-pairs", type=int, default=8)
+    pm.add_argument("--image-size", type=int, default=120)
+    pm.add_argument("--seed", type=int, default=0)
+    pm.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs on the CPU)")
+    pm.add_argument("--pipeline", default=None, choices=["hpatches", "relpose"],
+                    help="a cached-prediction eval pipeline (not ported yet: ROADMAP Queue "
+                         "1 item 7b)")
+    pm.add_argument("--exp-dir", default=None)
+    pm.add_argument("--image-dir", default=None, metavar="DIR",
+                    help="--pipeline on on-disk images (not ported yet: item 7b)")
+    pm.add_argument("--pairs-file", default=None, metavar="FILE",
+                    help="with --image-dir: 'name0 name1 h00..h22' per line")
+    pm.add_argument("--overwrite", action="store_true")
+    pm.add_argument("--inspect", type=int, default=0, metavar="K",
+                    help="render the K worst pairs of a --pipeline run (not ported yet: "
+                         "item 7f)")
+    pm.add_argument("--train", action="store_true",
+                    help="train the experiment's matcher (not ported yet: item 7a)")
+    pm.add_argument("--steps", type=int, default=100)
+    pm.add_argument("--batch-size", type=int, default=None)
+    pm.add_argument("--resume", action="store_true",
+                    help="--train: continue from the last checkpoint (not ported yet: item 7a)")
+    pm.add_argument("--ckpt-every", type=int, default=None,
+                    help="--train: checkpoint interval in steps (not ported yet: item 7a)")
+    pm.add_argument("--val-pairs", type=int, default=0,
+                    help="--train: validation pairs per checkpoint (not ported yet: item 7a)")
+    pm.add_argument("--load-experiment", default=None, metavar="DIR|FILE",
+                    help="load a trained matcher checkpoint of the JAX package (the best of an "
+                         "experiment dir, or a checkpoint_*.msgpack file) before benchmarking")
+    pm.add_argument("--export-features", default=None, metavar="DIR",
+                    help="export the extractor's features to an h5 cache (not ported yet: "
+                         "item 7b)")
+    pm.set_defaults(fn=cmd_match)
 
 
 def main(argv=None):
@@ -673,11 +740,9 @@ def main(argv=None):
             p.add_argument("--process-id", type=int, default=None,
                            help="multi-process training: this process's rank")
         p.set_defaults(fn=fn)
-    sub.add_parser("match", help=NOT_PORTED).set_defaults(fn=cmd_not_ported)
+    _match_parser(sub)
     argv = list(sys.argv[1:] if argv is None else argv)
-    args, unknown = parser.parse_known_args(argv)
-    if unknown and args.fn is not cmd_not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = parser.parse_args(argv)
     args.argv = argv
     args.fn(args)
 

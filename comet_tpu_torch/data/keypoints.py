@@ -11,10 +11,16 @@ Detection backends:
 - "corners": Shi-Tomasi corners (cv2.goodFeaturesToTrack) + a DoG-based
   blob detector; cv2 is imported when it runs.
 - "grid": deterministic grid over the mask (no detector).
-- "superpoint" needs the SuperPoint model, which comes with the matching
-  slice (ROADMAP Queue 1 item 8); until then it raises.
+- "superpoint": SuperPoint detections (``models/superpoint.py``, on the
+  caller's device, the card by default) concatenated with the corner and
+  DoG ones, as the reference concatenates SuperPoint and SIFT keypoints
+  (train_eval_func_new_cp5.py:557-592). Without ``superpoint_params`` (a
+  flax ``.msgpack`` of the JAX package's SuperPoint) the detector holds
+  random weights drawn from ``torch.Generator().manual_seed(0)`` (JAX draws
+  from ``PRNGKey(0)``, which cannot be reproduced); with it, both packages
+  seed the same points.
 
-All host-side numpy; runs once per sequence.
+Host-side numpy apart from the SuperPoint forward; runs once per sequence.
 """
 
 from __future__ import annotations
@@ -72,6 +78,34 @@ def detect_corners(img_u8: np.ndarray, max_pts: int) -> np.ndarray:
     ) * scale - 0.5
     out = np.concatenate([corners, dog], axis=0) if len(dog) else corners
     return out.astype(np.float32)
+
+
+_SP_CACHE = {}
+
+
+def detect_superpoint(img_u8: np.ndarray, max_pts: int, params_path: Optional[str] = None,
+                      device=None) -> np.ndarray:
+    """SuperPoint detections on an RGB uint8 frame -> [K, 2] (x, y) float32:
+    the positive-score keypoints inside the frame (it is padded to a
+    multiple of 8). The forward runs on ``device`` (the card by default)."""
+    import torch
+
+    from ..device import resolve_device
+    from ..matching.extractors import build_superpoint
+
+    dev = resolve_device(device, "detect_superpoint")
+    h, w = img_u8.shape[:2]
+    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
+    gray = img_u8.astype(np.float32).mean(axis=-1) / 255.0
+    gray = np.pad(gray, ((0, hp - h), (0, wp - w)))
+    key = (max_pts, params_path, dev)
+    if key not in _SP_CACHE:
+        _SP_CACHE[key] = build_superpoint(max_pts, params_path=params_path, seed=0).to(dev)
+    with torch.no_grad():
+        out = _SP_CACHE[key](torch.as_tensor(gray, device=dev))
+    kps = out.keypoints[out.scores > 0.0].cpu().numpy()
+    keep = (kps[:, 0] < w) & (kps[:, 1] < h)  # not in the padding
+    return kps[keep].astype(np.float32)
 
 
 def grid_points(mask: np.ndarray, n_pts: int) -> np.ndarray:
@@ -165,12 +199,15 @@ def seed_query_points(
     min_pts: int = 256,
     backend: str = "corners",
     rng: Optional[np.random.Generator] = None,
+    superpoint_params: Optional[str] = None,
+    device=None,
 ) -> np.ndarray:
     """Full seeding pipeline on a normalized frame-0 image -> [track_num, 2].
 
-    backend "superpoint" (SuperPoint detections concatenated with the
-    DoG/corner ones, train_eval_func_new_cp5.py:557-592) raises
-    NotImplementedError until the matching slice ports SuperPoint.
+    backend "superpoint" concatenates the SuperPoint detections (on
+    ``device``, the card by default; ``superpoint_params`` a flax
+    ``.msgpack``) with the DoG/corner ones before the mask filter
+    (train_eval_func_new_cp5.py:557-592).
     """
     rng = rng or np.random.default_rng(0)
     if backend == "grid":
@@ -178,9 +215,10 @@ def seed_query_points(
     elif backend == "corners":
         pts = detect_corners(denormalize_image(frame0), track_num)
     elif backend == "superpoint":
-        raise NotImplementedError(
-            "keypoint backend 'superpoint' needs models/superpoint.py, which the port "
-            "gets with the matching stack (ROADMAP Queue 1 item 8)")
+        img_u8 = denormalize_image(frame0)
+        sp = detect_superpoint(img_u8, track_num, superpoint_params, device)
+        dog = detect_corners(img_u8, track_num)
+        pts = np.concatenate([sp, dog], axis=0) if len(dog) else sp
     else:
         raise ValueError(f"unknown keypoint backend: {backend}")
     return filter_and_pad(pts, mask, min_pts, track_num, rng)

@@ -13,6 +13,7 @@ from .codecs import (
 )
 from .embeddings import (
     embed_2d_coords,
+    harmonic_embedding,
     sincos_1d_from_grid,
     sincos_2d_pos_embed,
     sincos_2d_pos_embed_grid,

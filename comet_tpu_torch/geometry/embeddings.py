@@ -68,3 +68,24 @@ def embed_2d_coords(xy: torch.Tensor, C: int, cat_coords: bool = True) -> torch.
     if cat_coords:
         pe = torch.cat([xy, pe], dim=-1)
     return pe
+
+
+def harmonic_embedding(
+    x: torch.Tensor,
+    n_harmonic_functions: int = 6,
+    omega_0: float = 1.0,
+    logspace: bool = True,
+    append_input: bool = False,
+) -> torch.Tensor:
+    """NeRF-style harmonic embedding: x [..., D] -> [..., D * 2 * n (+ D)],
+    laid out [sin(x*f1), ..., sin(x*fn), cos(x*f1), ..., cos(x*fn), (x)]
+    per input channel group, frequencies 2^k (logspace) or evenly spaced
+    from 1 to 2^(n-1)."""
+    if logspace:
+        freqs = 2.0 ** torch.arange(n_harmonic_functions, dtype=torch.float32, device=x.device)
+    else:
+        freqs = torch.linspace(1.0, 2.0 ** (n_harmonic_functions - 1), n_harmonic_functions,
+                               device=x.device)
+    embed = (x[..., None] * (freqs * omega_0)).reshape(*x.shape[:-1], -1)
+    out = torch.cat([torch.sin(embed), torch.cos(embed)], dim=-1)
+    return torch.cat([out, x], dim=-1) if append_input else out

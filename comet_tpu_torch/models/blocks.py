@@ -51,9 +51,9 @@ from ..ops.block import fused_attn_block, fused_cross_block, gelu
 from ..ops.norm import fused_layer_norm
 
 __all__ = [
-    "AttnBlock", "Conv2d", "CrossAttnBlock", "GroupNorm1", "InstanceNorm", "LayerNorm",
-    "Linear", "Mlp", "MultiHeadAttention", "ResidualBlock", "gelu", "init_params",
-    "lecun_normal_", "megatron_pair", "set_route",
+    "AttnBlock", "Conv2d", "CrossAttnBlock", "GroupNorm", "GroupNorm1", "InstanceNorm",
+    "LayerNorm", "Linear", "Mlp", "MultiHeadAttention", "PoseEmbedding", "ResidualBlock",
+    "SimplePoseEmbedding", "gelu", "init_params", "lecun_normal_", "megatron_pair", "set_route",
 ]
 
 
@@ -249,7 +249,11 @@ class MultiHeadAttention(nn.Module):
         lecun_normal_(self.in_proj_weight, generator)
         self.in_proj_bias.zero_()
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, mask=None):
+        """``mask`` (broadcast against the [..., heads, Lq, Lk] logits, True
+        where a key is seen) takes the plain masked path: f32 logits, masked
+        entries at the f32 minimum, softmax, in PyTorch ops (K1 is
+        mask-free)."""
         dt = self.compute_dtype
         w = self.in_proj_weight.to(dt)
         b, heads = self.in_proj_bias, self.num_heads
@@ -271,9 +275,12 @@ class MultiHeadAttention(nn.Module):
                 wv = linear(v.to(dt), w[2 * e :], b[2 * e :])
         lead = wq.shape[:-2]
         lq, lk = wq.shape[-2], wk.shape[-2]
-        out = fused_attention(
-            wq.reshape(-1, lq, e), wk.reshape(-1, lk, e), wv.reshape(-1, lk, e), heads
-        ).reshape(*lead, lq, e)
+        if mask is None:
+            out = fused_attention(
+                wq.reshape(-1, lq, e), wk.reshape(-1, lk, e), wv.reshape(-1, lk, e), heads
+            ).reshape(*lead, lq, e)
+        else:
+            out = _masked_attention(wq, wk, wv, heads, mask)
         return self.out_proj(out) if self.tp is None else self.out_proj.row(out)
 
     def full_in_proj(self, dt):
@@ -284,6 +291,60 @@ class MultiHeadAttention(nn.Module):
             return w
         n, e = self.tp.size, w.shape[1]
         return self.tp.all_gather(w, 0).reshape(n, 3, e // n, e).transpose(0, 1).reshape(3 * e, e)
+
+
+def _masked_attention(wq, wk, wv, heads: int, mask):
+    """Attention over projected [..., L, E] q, k, v with a key mask: the JAX
+    package's masked path (scale folded into q in the compute dtype, logits
+    in f32, masked logits at the f32 minimum)."""
+    dt, e = wq.dtype, wq.shape[-1]
+    hd = e // heads
+
+    def split(x):
+        return x.reshape(*x.shape[:-1], heads, hd)
+
+    scale = torch.tensor(1.0 / hd ** 0.5, dtype=dt)
+    logits = torch.einsum("...qhd,...khd->...hqk", (split(wq) * scale).float(), split(wk).float())
+    logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    weights = torch.softmax(logits, dim=-1).to(dt)
+    out = torch.einsum("...hqk,...khd->...qhd", weights, split(wv))
+    return out.reshape(*out.shape[:-2], e)
+
+
+class SimplePoseEmbedding(nn.Module):
+    """Learned pose-encoding embedding: fc1 -> GELU -> LN -> fc2 -> LN,
+    hidden output_dim // 2; its LayerNorms take torch's eps 1e-5, not the
+    blocks' 1e-6."""
+
+    def __init__(self, in_dim: int, output_dim: int = 768, dtype=torch.float32):
+        super().__init__()
+        self.fc1 = Linear(in_dim, output_dim // 2, dtype)
+        self.norm1 = LayerNorm(output_dim // 2, 1e-5, dtype=dtype)
+        self.fc2 = Linear(output_dim // 2, output_dim, dtype)
+        self.norm2 = LayerNorm(output_dim, 1e-5, dtype=dtype)
+
+    def forward(self, x):
+        return self.norm2(self.fc2(self.norm1(gelu(self.fc1(x)))))
+
+
+class PoseEmbedding(nn.Module):
+    """Pose encoding -> token embedding: the learned
+    :class:`SimplePoseEmbedding` (``emb``), or, with ``learned=False``, the
+    parameter-free harmonic encoding it replaced."""
+
+    def __init__(self, in_dim: int, target_dim: int = 768, n_harmonic_functions: int = 10,
+                 append_input: bool = True, learned: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.n_harmonic_functions, self.append_input = n_harmonic_functions, append_input
+        self.emb = SimplePoseEmbedding(in_dim, target_dim, dtype) if learned else None
+
+    def forward(self, pose_encoding):
+        if self.emb is not None:
+            return self.emb(pose_encoding)
+        from ..geometry.embeddings import harmonic_embedding
+
+        return harmonic_embedding(pose_encoding, n_harmonic_functions=self.n_harmonic_functions,
+                                  append_input=self.append_input)
 
 
 class AttnBlock(nn.Module):
@@ -370,22 +431,54 @@ def set_route(module: nn.Module, route: KernelRoute) -> None:
             m.route = route
 
 
-class ResidualBlock(nn.Module):
-    """Two 3x3 convs with a residual (instance norm), NCHW; a 1x1 conv +
-    norm on the shortcut when stride != 1."""
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on NCHW maps: statistics in f32 over each
+    group's channels and the spatial axes, eps 1e-6, affine."""
 
-    def __init__(self, in_planes: int, planes: int, stride: int = 1, dtype=torch.float32):
+    def __init__(self, num_groups: int, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def init_own_params(self, generator):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs with a residual, NCHW; a 1x1 conv + norm on the
+    shortcut when stride != 1. ``norm_fn``: "instance" (no parameters),
+    "group" (planes // 8 groups, affine ``norm1``..``norm3``) or "none"."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1, norm_fn: str = "instance",
+                 dtype=torch.float32):
         super().__init__()
         self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, padding=1, dtype=dtype)
         self.conv2 = Conv2d(planes, planes, 3, padding=1, dtype=dtype)
-        self.norm = InstanceNorm()
         self.downsample = (
             Conv2d(in_planes, planes, 1, stride=stride, dtype=dtype) if stride != 1 else None
         )
 
+        def norm():
+            if norm_fn == "instance":
+                return InstanceNorm()
+            if norm_fn == "group":
+                return GroupNorm(planes // 8, planes)
+            if norm_fn == "none":
+                return nn.Identity()
+            raise NotImplementedError(norm_fn)
+
+        self.norm1, self.norm2 = norm(), norm()
+        self.norm3 = norm() if stride != 1 else None
+
     def forward(self, x):
-        y = F.relu(self.norm(self.conv1(x)))
-        y = F.relu(self.norm(self.conv2(y)))
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
         if self.downsample is not None:
-            x = self.norm(self.downsample(x))
+            x = self.norm3(self.downsample(x))
         return F.relu(x + y)

@@ -1,7 +1,7 @@
 """Bilinear sampling and align-corners resizing, channel-last.
 
-Counterpart of ``comet_tpu/ops/bilinear.py`` (``sample_features`` and
-``resize_bilinear_align_corners``). Coordinates are in pixels (x, y): 0 is
+Counterpart of ``comet_tpu/ops/bilinear.py`` (``bilinear_sample``,
+``sample_features`` and ``resize_bilinear_align_corners``). Coordinates are in pixels (x, y): 0 is
 the center of the first pixel and W-1 / H-1 the center of the last
 (align_corners=True).
 """
@@ -44,6 +44,16 @@ def sample_features(
     top = tap(y0i, x0i) * (1 - dx) + tap(y0i, x0i + 1) * dx
     bot = tap(y0i + 1, x0i) * (1 - dx) + tap(y0i + 1, x0i + 1) * dx
     return top * (1 - dy) + bot * dy
+
+
+def bilinear_sample(
+    fmap: torch.Tensor, pts: torch.Tensor, padding_mode: str = "border"
+) -> torch.Tensor:
+    """One map [H, W, C] sampled at pts [..., 2] (x, y pixels) -> [..., C],
+    with :func:`sample_features`'s padding modes."""
+    lead = pts.shape[:-1]
+    out = sample_features(fmap[None], pts.reshape(1, -1, 2), padding_mode)
+    return out.reshape(*lead, fmap.shape[-1])
 
 
 def interp_matrix_align_corners(

@@ -270,7 +270,8 @@ def evaluate(
     metrics. The model holds its weights and must already be on ``device``
     (the card by default; ``device="cpu"`` runs on the CPU).
 
-    ``keypoint_backend`` is a backend name ("corners"/"grid") or a callable
+    ``keypoint_backend`` is a backend name ("corners"/"grid"/"superpoint",
+    the last on ``device``) or a callable
     ``sample -> [track_num, 2]`` for externally-supplied query points. The
     query points are drawn from one ``np.random.default_rng(cfg.train.seed)``
     in dataset order, as the JAX package draws them.
@@ -319,7 +320,7 @@ def evaluate(
         frame0 = sample.frame0_u8 if sample.frame0_u8 is not None else sample.images[0]
         return seed_query_points(
             frame0, sample.first_mask, cfg.track_num, cfg.min_track_num,
-            backend=keypoint_backend, rng=rng,
+            backend=keypoint_backend, rng=rng, device=device,
         )
 
     n_chunks = -(-n // d)

@@ -18,7 +18,7 @@ msgpack reader gives one); no JAX is needed here.
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Mapping, Tuple, Union
+from typing import Dict, Iterable, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,11 +36,14 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (str(key),), value
 
 
-def convert_leaf(path: Tuple[str, ...], value) -> Tuple[str, Union[np.ndarray, torch.Tensor]]:
-    """One flax leaf -> (state_dict name, array in the port's layout)."""
+def convert_leaf(path: Tuple[str, ...], value,
+                 verbatim: Iterable[str] = ()) -> Tuple[str, Union[np.ndarray, torch.Tensor]]:
+    """One flax leaf -> (state_dict name, array in the port's layout); a
+    path component in ``verbatim`` keeps its ``_<i>`` suffix (a flax module
+    named ``input_proj_1`` beside ``input_proj``, not a list entry)."""
     parts = []
     for comp in path[:-1]:
-        m = _INDEXED.match(comp)
+        m = None if comp in verbatim else _INDEXED.match(comp)
         parts.extend(m.groups() if m else (comp,))
     leaf = path[-1]
     arr = value if isinstance(value, torch.Tensor) else np.asarray(value)
@@ -60,7 +63,8 @@ def convert_leaf(path: Tuple[str, ...], value) -> Tuple[str, Union[np.ndarray, t
     return ".".join(parts + [leaf]), arr
 
 
-def state_dict_from_flax(tree: Mapping, expected: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(tree: Mapping, expected: Mapping,
+                         verbatim: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """Convert a flax tree against the names and shapes a module expects
     (``expected`` maps names to shapes or to tensors, e.g. a state_dict).
 
@@ -73,7 +77,7 @@ def state_dict_from_flax(tree: Mapping, expected: Mapping) -> Dict[str, torch.Te
     expected = {k: tuple(getattr(v, "shape", v)) for k, v in expected.items()}
     out: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(tree):
-        name, arr = convert_leaf(path, value)
+        name, arr = convert_leaf(path, value, verbatim)
         if name not in expected:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {name}: no such port parameter")
         if name in out:
@@ -101,3 +105,13 @@ def params_from_jax(flax_params: Mapping, cfg: CometConfig) -> Dict[str, torch.T
     from .models.comet import build_comet
 
     return state_dict_from_flax(flax_params, build_comet(cfg, device="meta").state_dict())
+
+
+def module_params_from_jax(flax_params: Mapping, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The flax tree of one of the JAX package's modules (SuperPoint,
+    LightGlue, SuperGlue, PoseEmbedding, ...) -> the state_dict of its port
+    ``module``, whose parameter names mirror the flax paths; the module's
+    ``FLAX_VERBATIM`` names the flax components that keep their ``_<i>``.
+    Raises like :func:`state_dict_from_flax`."""
+    return state_dict_from_flax(flax_params, module.state_dict(),
+                                getattr(module, "FLAX_VERBATIM", ()))

@@ -304,12 +304,53 @@ def test_eval_msgpack_checkpoint_matches_jax(monkeypatch, data, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["eval", "--keypoints", "superpoint"],
-    ["match", "--list"],
+    ["match", "--experiment", "superpoint+lsd+gluestick"],
+    ["match", "--train"],
 ], ids=["superpoint", "match"])
 def test_what_is_not_ported_raises(argv):
+    """What is still not ported raises (``--keypoints superpoint`` and
+    ``match`` are, since the matching slice): SuperPoint with lines and
+    GlueStick, and matcher training."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcli.main(argv + (["--device", "cpu"] if argv[0] in ("eval", "train") else []))
+        tcli.main(argv + ["--device", "cpu"])
+
+
+def test_eval_superpoint_keypoints_match_jax(tiny_cli, monkeypatch, tmp_path):
+    """``eval --keypoints superpoint``: both CLIs seed their queries with
+    SuperPoint (the port's on the command's device) concatenated with the
+    corners; given the same SuperPoint weights (one flax ``.msgpack``: the
+    packages' random initializations differ) the CSV rows agree within the
+    eval tolerances."""
+    import jax
+
+    from comet_tpu.data import keypoints as jkp
+    from comet_tpu.models.superpoint import SuperPoint
+    from comet_tpu.utils.serialization import save_params_msgpack
+    from comet_tpu_torch.data import keypoints as tkp
+
+    path = str(tmp_path / "superpoint.msgpack")
+    init = jax.jit(SuperPoint(max_keypoints=8).init)
+    save_params_msgpack(path, init(jax.random.PRNGKey(3), np.zeros((16, 16), np.float32)))
+    for mod in (jkp, tkp):
+        detect = mod.detect_superpoint
+        monkeypatch.setattr(mod, "detect_superpoint",
+                            lambda img, n, params_path=None, *a, _d=detect, **k: _d(img, n, path,
+                                                                                   *a, **k))
+    args = ["eval", "--data-root", os.path.join(tiny_cli["amd"], "AMD_eval"),
+            "--keypoints", "superpoint", "--max-sequences", "2"]
+    jcli.main(args + ["--output-dir", str(tmp_path / "jax")])
+    tcli.main(args + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    (want,), (got,) = (_rows(tmp_path / d / "test_results.csv") for d in ("jax", "port"))
+    assert list(got) == list(want)
+    for key in got:
+        if key == "sec/it":
+            continue
+        assert np.isfinite(float(got[key])), key
+        if key in CONTINUOUS:
+            np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-5, atol=1e-4,
+                                       err_msg=key)
+        else:
+            assert float(got[key]) == float(want[key]), key
 
 
 def test_without_a_card_the_cli_raises(monkeypatch, tmp_path):

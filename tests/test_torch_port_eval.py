@@ -321,10 +321,17 @@ def test_filter_and_pad_and_grid_samples_equal_jax():
                                       jkp.generate_grid_samples([3, 4, 60, 33], **kw))
 
 
-def test_superpoint_backend_waits_for_the_matching_slice():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tkp.seed_query_points(np.zeros((8, 8, 3), np.uint8), np.ones((8, 8), bool), 4, 2,
-                              backend="superpoint")
+def test_superpoint_backend_waits_for_the_matching_slice(monkeypatch):
+    """The superpoint backend (ported with the matching slice) runs on the
+    card unless the caller passes a device: without one it raises rather
+    than fall back to the CPU, and with ``device="cpu"`` it seeds."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frame = np.random.default_rng(0).integers(0, 255, (32, 40, 3)).astype(np.uint8)
+    mask = np.ones((32, 40), bool)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tkp.seed_query_points(frame, mask, 16, 8, backend="superpoint")
+    pts = tkp.seed_query_points(frame, mask, 16, 8, backend="superpoint", device="cpu")
+    assert pts.shape == (16, 2) and np.isfinite(pts).all()
 
 
 # ----------------------------------------------------- preprocessing

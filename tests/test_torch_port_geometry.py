@@ -203,3 +203,18 @@ def test_intrinsics_and_get_efp(rng):
         for g, w in zip(got, want):
             assert tuple(g.shape) == w.shape
             _close(g, w)
+
+
+@pytest.mark.parametrize("logspace,append_input", [(True, False), (False, True)])
+def test_harmonic_embedding_matches_jax(rng, logspace, append_input):
+    """The NeRF-style harmonic embedding (no JAX model calls it) within
+    1e-5: sines of arguments up to 2^5 x |x| < 100."""
+    from comet_tpu.geometry import embeddings as jemb
+    from comet_tpu_torch.geometry import harmonic_embedding
+
+    x = rng.normal(size=(3, 5, 4)).astype(np.float32)
+    kw = dict(n_harmonic_functions=6, omega_0=0.7, logspace=logspace, append_input=append_input)
+    got = harmonic_embedding(_t(x), **kw)
+    want = jemb.harmonic_embedding(_j(x), **kw)
+    assert tuple(got.shape) == want.shape
+    _close(got, want)

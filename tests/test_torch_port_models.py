@@ -439,3 +439,68 @@ def test_build_comet_follows_the_jax_initialisers():
     assert abs(w.std().item() * w.shape[1] ** 0.5 - 1.0) < 0.1  # lecun_normal: var 1/fan_in
     again = build_comet(_tiny(tcfg), device="cpu", seed=3).state_dict()
     assert all(torch.equal(sd[k], again[k]) for k in sd)
+
+
+# ------------------------------------------ pieces no JAX model calls
+
+from comet_tpu.models import blocks as jblocks  # noqa: E402
+from comet_tpu_torch.models import blocks as tblocks  # noqa: E402
+from comet_tpu_torch.weights import module_params_from_jax  # noqa: E402
+
+
+def _port_of(jax_vars, module):
+    module.load_state_dict(module_params_from_jax(jax_vars, module))
+    return module
+
+
+@pytest.mark.parametrize("learned", [True, False])
+def test_pose_embedding_matches_jax(learned):
+    """PoseEmbedding, learned (fc, GELU, LayerNorm eps 1e-5, fc, LayerNorm)
+    within 2e-5, or harmonic within 1e-5."""
+    x = np.random.default_rng(0).normal(size=(2, 5, 9)).astype(np.float32)
+    jm = jblocks.PoseEmbedding(target_dim=32, learned=learned, n_harmonic_functions=4)
+    jvars = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    tm = tblocks.PoseEmbedding(9, target_dim=32, learned=learned, n_harmonic_functions=4)
+    if learned:
+        tm = _port_of(jvars, tm)
+        assert tm.emb.norm1.eps == 1e-5 and tm.emb.norm2.eps == 1e-5
+    else:
+        assert not jvars.get("params") and not list(tm.parameters())
+    _close(tm(_t(x)), jm.apply(jvars, jnp.asarray(x)), 2e-5 if learned else 1e-5)
+
+
+@pytest.mark.parametrize("self_attention", [True, False])
+def test_masked_multi_head_attention_matches_jax(self_attention):
+    """The masked path of MultiHeadAttention (plain ops, not K1), with a
+    padding mask over keys broadcast against [..., heads, Lq, Lk], within 2e-5."""
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(3, 6, 32)).astype(np.float32)
+    kv = q if self_attention else rng.normal(size=(3, 9, 32)).astype(np.float32)
+    mask = rng.random((3, 1, 1, kv.shape[1])) > 0.3
+    mask[..., 0] = True
+    jm = jblocks.MultiHeadAttention(num_heads=4)
+    jq, jkv = jnp.asarray(q), jnp.asarray(kv)
+    jkv = jq if self_attention else jkv
+    jvars = jm.init(jax.random.PRNGKey(0), jq, jkv, jkv, mask=jnp.asarray(mask))
+    want = jm.apply(jvars, jq, jkv, jkv, mask=jnp.asarray(mask))
+    tm = _port_of(jvars, tblocks.MultiHeadAttention(32, 4))
+    tq = _t(q)
+    tkv = tq if self_attention else _t(kv)
+    _close(tm(tq, tkv, tkv, mask=torch.from_numpy(mask)), want, 2e-5)
+    # no key masked: the same values as the mask-free path (K1's plain version)
+    full = torch.ones(mask.shape, dtype=torch.bool)
+    _close(tm(tq, tkv, tkv, mask=full), tm(tq, tkv, tkv).detach().numpy(), 2e-5)
+
+
+@pytest.mark.parametrize("norm_fn,stride", [("group", 1), ("group", 2), ("none", 2),
+                                            ("instance", 2)])
+def test_residual_block_norms_match_jax(norm_fn, stride):
+    """ResidualBlock with each norm_fn (GroupNorm of planes // 8 groups, eps
+    1e-6; none; instance), NHWC in JAX against NCHW in the port, within 2e-5."""
+    cin = 32 if stride == 1 else 16  # the shortcut adds the input unprojected at stride 1
+    x = np.random.default_rng(3).normal(size=(2, 12, 10, cin)).astype(np.float32)
+    jm = jblocks.ResidualBlock(planes=32, norm_fn=norm_fn, stride=stride)
+    jvars = jm.init(jax.random.PRNGKey(4), jnp.asarray(x))
+    tm = _port_of(jvars, tblocks.ResidualBlock(cin, 32, stride, norm_fn=norm_fn))
+    got = tm(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    _close(got, jm.apply(jvars, jnp.asarray(x)), 2e-5)
