@@ -512,41 +512,45 @@ def _bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
 
 
 def check_k1(torch, F, attn, dev, gen):
-    rows = []
-    for where, b, lq, lk, c, h, packed, calls, calls_fused in K1_SHAPES:
-        d = c // h
-        if packed:  # q, k, v are column slices of one qkv projection, as in the model
-            qkv = torch.randn(b, lq, 3 * c, generator=gen, device=dev).bfloat16()
-            q, k, v = qkv.split(c, dim=-1)
-        else:  # q alone, k and v column slices of one kv projection
-            q = torch.randn(b, lq, c, generator=gen, device=dev).bfloat16()
-            k, v = torch.randn(b, lk, 2 * c, generator=gen, device=dev).bfloat16().split(c, dim=-1)
-        out = attn.fused_attention(q, k, v, h)
-        torch.cuda.synchronize()
-        want = attn.attention_reference(q.float(), k.float(), v.float(), h, d ** -0.5)
-        err = (out.float() - want).abs().max().item()
-        if out.shape != (b, lq, c) or not math.isfinite(err) or err > K1_ATOL:
-            raise SmokeError(f"K1 {where}: max |kernel - plain f32| = {err} > {K1_ATOL}")
-        ms = _median_ms(torch, lambda: attn.fused_attention(q, k, v, h))
-        host = _host_columns(torch, lambda: attn.fused_attention(q, k, v, h),
-                             lambda: attn.k1_launch(q, k, v, h, d ** -0.5, "base"))
-        plain_ms = _median_ms(torch, lambda: attn.attention_reference(q, k, v, h, d ** -0.5))
-        q4, k4, v4 = (t.view(b, t.shape[1], h, d).transpose(1, 2) for t in (q, k, v))
-        library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
-        library_host_us = _host_us(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
-        flops = 4 * b * h * lq * lk * d
-        nbytes = 2 * (2 * b * lq * c + 2 * b * lk * c)  # q, k, v read once, out written once
-        bound, bound_by = _bound_ms(flops, nbytes)
-        rows.append(dict(kernel="K1", where=where, shape=[b, lq, lk, c, h],
-                         max_abs_err=err, tolerance=f"atol {K1_ATOL}", ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, **host,
-                         library_host_us=library_host_us, bound_ms=bound, bound_by=bound_by,
-                         flops=flops, bytes=nbytes))
-        print(f"K1 {where:32s} [B={b} Lq={lq} Lk={lk} C={c} H={h}] err {err:.3e} (atol {K1_ATOL}) "
-              f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
-              f"{_host_text(host)} (sdpa {library_host_us:.1f})",
-              flush=True)
-    return rows
+    return [_k1_row(torch, F, attn, dev, gen, where, b, lq, lk, c, h, packed)
+            for where, b, lq, lk, c, h, packed, calls, calls_fused in K1_SHAPES]
+
+
+def _k1_row(torch, F, attn, dev, gen, where, b, lq, lk, c, h, packed):
+    """K1 at one shape on bf16 inputs from ``gen``: its error against the
+    plain f32 version, its device time beside the plain version's and
+    SDPA's, its host columns and its bound."""
+    d = c // h
+    if packed:  # q, k, v are column slices of one qkv projection, as in the model
+        qkv = torch.randn(b, lq, 3 * c, generator=gen, device=dev).bfloat16()
+        q, k, v = qkv.split(c, dim=-1)
+    else:  # q alone, k and v column slices of one kv projection
+        q = torch.randn(b, lq, c, generator=gen, device=dev).bfloat16()
+        k, v = torch.randn(b, lk, 2 * c, generator=gen, device=dev).bfloat16().split(c, dim=-1)
+    out = attn.fused_attention(q, k, v, h)
+    torch.cuda.synchronize()
+    want = attn.attention_reference(q.float(), k.float(), v.float(), h, d ** -0.5)
+    err = (out.float() - want).abs().max().item()
+    if out.shape != (b, lq, c) or not math.isfinite(err) or err > K1_ATOL:
+        raise SmokeError(f"K1 {where}: max |kernel - plain f32| = {err} > {K1_ATOL}")
+    ms = _median_ms(torch, lambda: attn.fused_attention(q, k, v, h))
+    host = _host_columns(torch, lambda: attn.fused_attention(q, k, v, h),
+                         lambda: attn.k1_launch(q, k, v, h, d ** -0.5, "base"))
+    plain_ms = _median_ms(torch, lambda: attn.attention_reference(q, k, v, h, d ** -0.5))
+    q4, k4, v4 = (t.view(b, t.shape[1], h, d).transpose(1, 2) for t in (q, k, v))
+    library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    library_host_us = _host_us(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    flops = 4 * b * h * lq * lk * d
+    nbytes = 2 * (2 * b * lq * c + 2 * b * lk * c)  # q, k, v read once, out written once
+    bound, bound_by = _bound_ms(flops, nbytes)
+    print(f"K1 {where:32s} [B={b} Lq={lq} Lk={lk} C={c} H={h}] err {err:.3e} (atol {K1_ATOL}) "
+          f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bound:.5f} ({bound_by}) "
+          f"{_host_text(host)} (sdpa {library_host_us:.1f})",
+          flush=True)
+    return dict(kernel="K1", where=where, shape=[b, lq, lk, c, h], max_abs_err=err,
+                tolerance=f"atol {K1_ATOL}", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **host, library_host_us=library_host_us, bound_ms=bound, bound_by=bound_by,
+                flops=flops, bytes=nbytes)
 
 
 def check_k1_forms(torch, F, attn, dev):
@@ -3659,13 +3663,14 @@ def _cosine_weights(torch, module):
     matcher then scores pairs by MATCH_COSINE_SCALE x their descriptors'
     cosine (the checkpoint (b) loads)."""
     sd = {k: v.clone() for k, v in module.state_dict().items()}
-    eye = torch.eye(module.dim)
     # both matchers divide the projections' product by sqrt(dim)
     scale = MATCH_COSINE_SCALE ** 0.5 * module.dim ** 0.25
     for k in sd:
         last = k.split(".")[-2] if "." in k else k
         if k.startswith(("input_proj", "final_proj")) or ".final_proj." in k:
-            sd[k] = (eye * (scale if "final_proj" in k else 1.0)) if k.endswith("weight") else \
+            # the input projection embeds narrower descriptors in the first columns
+            eye = torch.eye(*sd[k].shape) if k.endswith("weight") else None
+            sd[k] = eye * (scale if "final_proj" in k else 1.0) if eye is not None else \
                 torch.zeros_like(sd[k])
         elif last in ("ffn_lin2", "merge2") or k.startswith("kenc.out."):
             sd[k] = torch.zeros_like(sd[k])
@@ -3674,52 +3679,6 @@ def _cosine_weights(torch, module):
     if "bin_score" in sd:
         sd["bin_score"] = torch.tensor(1.0)
     return sd
-
-
-def _flax_tree(np, sd):
-    """A port state_dict as the flax tree the weight bridge reads (the
-    inverse of ``weights.convert_leaf`` for Dense, Conv and LayerNorm)."""
-    tree = {}
-    for name, value in sd.items():
-        parts = name.split(".")
-        comps = []
-        for p in parts[:-1]:
-            if p.isdigit():
-                comps[-1] = f"{comps[-1]}_{p}"
-            else:
-                comps.append(p)
-        arr = value.detach().cpu().numpy()
-        leaf = parts[-1]
-        if leaf == "weight":
-            if arr.ndim == 2:
-                arr, leaf = arr.T.copy(), "kernel"
-            elif arr.ndim == 4:
-                arr, leaf = arr.transpose(2, 3, 1, 0).copy(), "kernel"
-            else:
-                leaf = "scale"
-        node = tree
-        for c in comps:
-            node = node.setdefault(c, {})
-        node[leaf] = np.array(arr, order="C")
-    return tree
-
-
-def _write_flax_checkpoint(np, path, tree, step):
-    """A checkpoint as the JAX package's ``save_experiment`` writes it:
-    flax's msgpack of {"params": {"params": tree}} (arrays as ext type 1)
-    and its JSON sidecar."""
-    import msgpack
-
-    def pack(x):
-        if isinstance(x, np.ndarray):
-            return msgpack.ExtType(1, msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
-                                                    use_bin_type=True))
-        raise TypeError(type(x))
-
-    with open(path, "wb") as f:
-        f.write(msgpack.packb({"params": {"params": tree}}, default=pack, strict_types=True))
-    with open(path[: -len(".msgpack")] + ".json", "w") as f:
-        json.dump({"step": step, "conf": None, "loss": None, "eval": None}, f)
 
 
 def _adaptive_biases(torch, module):
@@ -3941,6 +3900,7 @@ def match_phase(torch, np, counters, dev, smi):
     from comet_tpu_torch.matching import benchmarks, configs, experiments, lightglue, superglue
     from comet_tpu_torch.models.blocks import init_params
     from comet_tpu_torch.twoview import estimators
+    from comet_tpu_torch.weights import module_params_to_jax
 
     t_phase = time.perf_counter()
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3963,10 +3923,10 @@ def match_phase(torch, np, counters, dev, smi):
                 exp.pop("name")
                 m = cls(**exp)
                 init_params(m, torch.Generator().manual_seed(0))
+                m.load_state_dict(_cosine_weights(torch, m))
+                # written as the JAX package's save_experiment writes it
                 ckpt[name] = os.path.join(tmp, name.replace("+", "_"))
-                os.makedirs(ckpt[name])
-                _write_flax_checkpoint(np, os.path.join(ckpt[name], "checkpoint_00000001.msgpack"),
-                                       _flax_tree(np, _cosine_weights(torch, m)), 1)
+                experiments.save_experiment(ckpt[name], 1, module_params_to_jax(m))
             names = _run_cli(cli, ["match", "--list"])
             if names != configs.list_experiments() or len(names) != 11:
                 failures.append(f"(b) match --list printed {names}")
@@ -4111,6 +4071,479 @@ def match_phase(torch, np, counters, dev, smi):
     print(f"matching: phase 15 in {rec['seconds']:.1f} s, on {smi}", flush=True)
     if failures:
         raise SmokeError(f"matching: {'; '.join(failures)}")
+    return rec
+
+
+# phase 16: matcher training, the ALIKED, DISK and KeyNet extractors and the
+# DINOv2 backbone on K1. (a) trains each experiment's matcher at its own width
+# (LightGlue / SuperGlue depth 9, width 256) on 512 SuperPoint keypoints of
+# MATCH_IMG px homography pairs, batch TRAIN16_BATCH, for TRAIN16_STEPS steps
+# (a batch every 3 steps), a checkpoint every TRAIN16_CKPT with TRAIN16_VAL
+# validation pairs, then one --resume step
+TRAIN16_EXPERIMENTS = ("superpoint+lightglue_homography", "superpoint+superglue")
+TRAIN16_STEPS = 24
+TRAIN16_BATCH = 4
+TRAIN16_CKPT = 8
+TRAIN16_VAL = 2
+# the first step on the card (f32, TF32 off) against the same step on the CPU:
+# the loss within TRAIN16_LOSS_RTOL; each gradient tensor within
+# TRAIN16_GRAD_RTOL of its norm, or of TRAIN16_GRAD_FLOOR x the largest
+# tensor's norm where its own is smaller (the key biases of SuperGlue's
+# attention, which a softmax over keys cannot see, hold rounding noise only)
+TRAIN16_LOSS_RTOL = 1e-4
+TRAIN16_GRAD_RTOL = 1e-3
+TRAIN16_GRAD_FLOOR = 1e-3
+# (b): the extractors of EXTRACT16_EXPERIMENTS on the card against the CPU, on
+# the two images of a benchmark pair, at MATCH_IMG px with 512 keypoints
+# the NMS window of each (pixels): a keypoint missing from one set is a
+# near-tie where a keypoint of the other set this close has its score
+EXTRACT16 = dict(extractor_aliked=5, extractor_disk=5, extractor_keynet=15)
+EXTRACT16_EXPERIMENTS = ("aliked+nn", "disk+nn", "keynet+nn", "aliked+lightglue_homography")
+# ALIKED keypoints are sub-pixel: the same keypoint within this many pixels
+EXTRACT16_SUBPIXEL = 1e-2
+# (c): backbone_dinov2 (ViT-S/14: C 384, 6 heads of 64, depth 12) at 224 px
+# and with allow_resize at 480 x 640 (-> 476 x 630, 34 x 45 patches); bf16 on
+# the card against the same ViT in f32 with the plain attention on the card,
+# relative to each output's largest |value| (REF_RTOL's reasoning: a stack of
+# 12 bf16 blocks drifts by ~1 % of the range)
+BACKBONE16_SIZES = ((224, 224), (480, 640))
+BACKBONE16_RTOL = 3e-2
+BACKBONE16_CALLS = 3
+
+
+def _grad_gaps(torch, got, want):
+    """(worst ratio of |g_card - g_cpu| to its allowance, tensor name): the
+    allowance is TRAIN16_GRAD_RTOL x max(|g_cpu|, TRAIN16_GRAD_FLOOR x the
+    largest |g_cpu|), norms over each tensor."""
+    norms = {n: float(g.norm()) for n, g in want.items()}
+    floor = TRAIN16_GRAD_FLOOR * max(norms.values())
+    return max((float((got[n] - g).norm()) / (TRAIN16_GRAD_RTOL * max(norms[n], floor)), n)
+               for n, g in want.items())
+
+
+def _step_gradients(torch, module, step, batch, dev):
+    """(loss, {name: gradient on the CPU}) of one train step of a copy of
+    ``module`` on ``dev``, through an Adam of learning rate 0 (the weights
+    stay as they are)."""
+    import copy
+
+    m = copy.deepcopy(module).to(dev).train()
+    loss = float(step(m, torch.optim.Adam(m.parameters(), lr=0.0),
+                      {k: v.to(dev) for k, v in batch.items()}))
+    return loss, {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+                  for n, p in m.named_parameters()}
+
+
+def train16(torch, np, counters, dev, tmp):
+    """Phase 16 (a): per experiment, the first train step on the card
+    against the CPU, then ``cli.main match --train`` on the card (timed per
+    step, host syncs counted, peak memory, checkpoints checked), one
+    ``--resume`` step, and a profile of one step. Returns the records."""
+    import copy
+    import os
+    import warnings
+
+    from comet_tpu_torch import cli
+    from comet_tpu_torch.matching import configs, experiments, train
+    from comet_tpu_torch.matching.registry import get_model
+
+    cpu = torch.device("cpu")
+    records = {}
+    for name in TRAIN16_EXPERIMENTS:
+        conf = configs.get_experiment(name)
+        tb = conf["train"]
+        ext_conf = dict(conf["extractor"])
+        extractor = get_model(ext_conf.pop("name"), **ext_conf)
+        mat_conf = dict(conf["matcher"])
+        mat_name = mat_conf.pop("name")
+        build = (train.build_superglue_train_step if mat_name == "matcher_superglue"
+                 else train.build_matcher_train_step)
+        batch = train.make_homography_training_batch(
+            extractor, np.random.default_rng(tb["seed"]), batch_size=TRAIN16_BATCH,
+            image_hw=(MATCH_IMG, MATCH_IMG), difficulty=tb["homography"]["difficulty"],
+            max_angle=tb["homography"]["max_angle"],
+            th_positive=conf["ground_truth"]["th_positive"],
+            th_negative=conf["ground_truth"]["th_negative"], device=dev)
+        module = cli._init_matcher(get_model(mat_name, **mat_conf), batch["desc0"].shape[-1],
+                                   tb["seed"])
+        _reset(counters)
+        loss_card, g_card = _step_gradients(torch, module, build(), batch, dev)
+        loss_cpu, g_cpu = _step_gradients(torch, module, build(), batch, cpu)
+        loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        worst, worst_name = _grad_gaps(torch, g_card, g_cpu)
+        gt0 = batch["gt0"]
+        labels = dict(matched=int((gt0 >= 0).sum()), unmatched=int((gt0 == -1).sum()),
+                      ignored=int((gt0 == -2).sum()))
+
+        # the CLI's training on the card: each step timed (synchronized), the
+        # whole run's host synchronizations counted with their source lines
+        exp_dir = os.path.join(tmp, name.replace("+", "_"))
+        step_ms, saved = [], (train.build_matcher_train_step, train.build_superglue_train_step)
+
+        def timed(builder):
+            def make():
+                step = builder()
+
+                def run(*args):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = step(*args)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    return out
+
+                return run
+
+            return make
+
+        train.build_matcher_train_step, train.build_superglue_train_step = map(timed, saved)
+        argv = ["match", "--train", "--experiment", name, "--steps", str(TRAIN16_STEPS),
+                "--batch-size", str(TRAIN16_BATCH), "--image-size", str(MATCH_IMG),
+                "--exp-dir", exp_dir]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    lines = _run_cli(cli, argv + ["--ckpt-every", str(TRAIN16_CKPT), "--val-pairs",
+                                                  str(TRAIN16_VAL)])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps_ms = list(step_ms)
+            resumed = _run_cli(cli, argv[:4] + ["--steps", "1"] + argv[6:] + ["--resume"])
+        finally:
+            train.build_matcher_train_step, train.build_superglue_train_step = saved
+        where = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                        if SYNC_WARNING in str(w.message))
+        row, row_resumed = json.loads(lines[-1]), json.loads(resumed[-1])
+        launched = _launches(counters)
+        files = sorted(os.listdir(exp_dir))
+        saved_steps = list(range(TRAIN16_CKPT, TRAIN16_STEPS + 1, TRAIN16_CKPT)) + [TRAIN16_STEPS + 1]
+        want_files = sorted([f"checkpoint_{s:08d}.{e}" for s in saved_steps
+                             for e in ("json", "msgpack")]
+                            + ["checkpoint_best.json", "checkpoint_best.msgpack", "log.txt"])
+        _, meta = experiments.load_checkpoint(exp_dir, get_last=True)
+        vals = sum(line.startswith("  val: H_err") for line in lines)
+        ok = (loss_err <= TRAIN16_LOSS_RTOL and worst <= 1.0 and files == want_files
+              and meta["step"] == TRAIN16_STEPS + 1 and resumed[0] == f"resumed {exp_dir} at step "
+              f"{TRAIN16_STEPS}" and vals == TRAIN16_STEPS // TRAIN16_CKPT
+              and all(math.isfinite(row[k]) for k in ("loss_first", "loss_last"))
+              and not sum(launched.values()))
+
+        # one step under the profiler: the device's share of it
+        m = copy.deepcopy(module).to(dev).train()
+        opt = train.make_adam(m, float(tb["lr"]))
+        step = build()
+        bdev = {k: v.to(dev) for k, v in batch.items()}
+        for _ in range(2):
+            step(m, opt, bdev)
+        median = statistics.median(steps_ms[1:])
+        prof = _profile_step(torch, lambda gt: step(m, opt, bdev), (), None, median)
+        records[name] = dict(ok=ok, loss_card=loss_card, loss_cpu=loss_cpu, loss_err=loss_err,
+                             grad_worst=worst, grad_worst_tensor=worst_name, labels=labels,
+                             row=row, row_resumed=row_resumed, seconds=seconds,
+                             step_ms_median=median, step_ms_first=steps_ms[0], peak_gib=peak,
+                             syncs=sum(where.values()), syncs_per_step=sum(where.values()) /
+                             TRAIN16_STEPS, sync_where=dict(where), launches=launched,
+                             files=files, profile=prof)
+        print(f"training (a): {name}: first step card loss {loss_card:.6f} against CPU "
+              f"{loss_cpu:.6f} (rel {loss_err:.2e}, tol {TRAIN16_LOSS_RTOL}); gradients: worst "
+              f"{worst:.3f} of the allowance ({worst_name}; tol {TRAIN16_GRAD_RTOL} of each norm, "
+              f"floor {TRAIN16_GRAD_FLOOR} of the largest); labels {labels}; match --train "
+              f"{TRAIN16_STEPS} steps at batch {TRAIN16_BATCH}, {MATCH_IMG} px: "
+              f"{json.dumps(row)} in {seconds:.1f} s; step {median:.1f} ms median (first "
+              f"{steps_ms[0]:.1f}); peak {peak:.3f} GiB; host syncs {sum(where.values())} over the "
+              f"run ({sum(where.values()) / TRAIN16_STEPS:.2f} per step) at {dict(where)}; one "
+              f"step's device time {prof['device_ms']:.1f} ms in {prof['launches']} kernel "
+              f"launches, idle share {prof['idle']:.2f}; checkpoints {files}; resumed: "
+              f"{resumed[0]!r}, {json.dumps(row_resumed)}; K1-K5 launches {launched}"
+              + ("" if ok else " FAILED"), flush=True)
+    return records
+
+
+def _subpixel_diffs(np, got_kp, got_sc, want_kp, want_sc, px, window):
+    """:func:`_keypoint_diffs` with a distance: two keypoints are the same
+    within ``px`` pixels (sub-pixel keypoints). Returns (disagreements,
+    near-ties, pairs of indices (card, CPU) of the keypoints both sets
+    hold)."""
+    tol = MATCH_NEAR_TIE * max(float(np.abs(want_sc).max()), 1e-12)
+    dist = np.abs(got_kp[:, None] - want_kp[None]).max(-1)
+    diff = near = 0
+    for d, scores, other_sc in ((dist, got_sc, want_sc), (dist.T, want_sc, got_sc)):
+        for i in np.nonzero(d.min(1) > px)[0]:
+            diff += 1
+            close = d[i] <= window
+            s = scores[i]
+            if (s == 0 or abs(s - other_sc[-1]) <= tol
+                    or (close.any() and np.abs(other_sc[close] - s).min() <= tol)):
+                near += 1
+    same = [(i, int(dist[i].argmin())) for i in range(len(got_kp)) if dist[i].min() <= px]
+    return diff, near, same
+
+
+def extract16(torch, np, counters, dev, tmp):
+    """Phase 16 (b): ALIKED (aliked-n16), DISK and KeyNet on the card against
+    the CPU on the two images of a benchmark pair; then ``match`` for
+    EXTRACT16_EXPERIMENTS on the card and the CPU, as phase 15 (b). Returns
+    the records."""
+    import os
+
+    from comet_tpu_torch import cli
+    from comet_tpu_torch.matching import benchmarks, configs, experiments, lightglue
+    from comet_tpu_torch.matching.registry import get_model
+    from comet_tpu_torch.models.aliked import ALIKED
+    from comet_tpu_torch.models.blocks import init_params
+    from comet_tpu_torch.twoview import estimators
+    from comet_tpu_torch.utils.serialization import save_params_msgpack
+    from comet_tpu_torch.weights import module_params_to_jax
+
+    cpu = torch.device("cpu")
+    # ALIKED's random SDDH aggregation weights are drawn from [0, 1) (flax's
+    # init), which makes every descriptor nearly parallel and every nearest
+    # neighbour a near-tie; these weights sign them. The benchmark's pairs are
+    # one-channel images, for which ALIKED builds a one-channel network.
+    aliked = ALIKED("aliked-n16", in_ch=1)
+    init_params(aliked, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        agg = aliked.desc_head.agg_weights
+        agg.normal_(0.0, agg.shape[-1] ** -0.5, generator=torch.Generator().manual_seed(1))
+    aliked_path = save_params_msgpack(os.path.join(tmp, "aliked_n16_gray.msgpack"), aliked)
+    img0, img1, _ = benchmarks.make_synthetic_pairs(1, (MATCH_IMG, MATCH_IMG), seed=3,
+                                                    device=cpu)[0]
+    records, failures = {"extractors": {}, "rows": {}}, []
+    _reset(counters)
+    with torch.no_grad():
+        for name, window in EXTRACT16.items():
+            conf = {"params_path": aliked_path} if name == "extractor_aliked" else {}
+            f_card = get_model(name, **conf, device=dev)
+            f_cpu = get_model(name, **conf, device=cpu)
+            rec = dict(disagreements=0, near_ties=0, descriptor_err=0.0, score_err=0.0,
+                       valid_equal=True, card_ms=[], cpu_ms=[])
+            for img in (img0, img1):
+                f_card(img.to(dev))  # build and warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = f_card(img.to(dev))
+                torch.cuda.synchronize()
+                rec["card_ms"].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                want = f_cpu(img)
+                rec["cpu_ms"].append((time.perf_counter() - t0) * 1e3)
+                gk, gs = got["keypoints"].cpu().numpy(), got["scores"].cpu().numpy()
+                wk, ws = want["keypoints"].numpy(), want["scores"].numpy()
+                # DISK's and KeyNet's keypoints lie on the pixel grid: the same
+                # within half a pixel; ALIKED's are sub-pixel
+                px = EXTRACT16_SUBPIXEL if name == "extractor_aliked" else 0.5
+                diff, near, same = _subpixel_diffs(np, gk, gs, wk, ws, px, window)
+                gi, wi = (np.array([a for a, _ in same]), np.array([b for _, b in same]))
+                rec["disagreements"] += diff
+                rec["near_ties"] += near
+                rec["descriptor_err"] = max(rec["descriptor_err"], _rel_err(
+                    np, got["descriptors"].cpu().numpy()[gi], want["descriptors"].numpy()[wi]))
+                rec["score_err"] = max(rec["score_err"], _rel_err(np, gs[gi], ws[wi]))
+                rec["valid_equal"] &= bool((got["valid"].cpu().numpy()[gi]
+                                            == want["valid"].numpy()[wi]).all())
+                rec.setdefault("valid", []).append(int(want["valid"].sum()))
+            ok = (rec["disagreements"] == rec["near_ties"] and rec["valid_equal"]
+                  and rec["descriptor_err"] <= MATCH_TOL and rec["score_err"] <= MATCH_TOL)
+            rec["ok"] = ok
+            records["extractors"][name] = rec
+            print(f"extractors (b): {name} on 2 images of {MATCH_IMG} px, 512 keypoints: "
+                  f"valid {rec['valid']}, {rec['disagreements']} keypoints differ "
+                  f"({rec['near_ties']} near-ties), score err {rec['score_err']:.2e}, descriptor "
+                  f"err {rec['descriptor_err']:.2e} (tol {MATCH_TOL}), valid equal "
+                  f"{rec['valid_equal']}; ms per image card {rec['card_ms']}, CPU "
+                  f"{rec['cpu_ms']}" + ("" if ok else " FAILED"), flush=True)
+            if not ok:
+                failures.append(f"(b) {name}")
+
+    # the experiments' rows on the card and the CPU; ALIKED from the signed
+    # weights, LightGlue from a cosine checkpoint over its 128-d descriptors
+    saved = {n: configs.EXPERIMENTS[n] for n in EXTRACT16_EXPERIMENTS}
+    lg = configs.get_experiment("aliked+lightglue_homography")["matcher"]
+    lg.pop("name")
+    m = lightglue.LightGlueMatcher(**lg, in_dim=128)
+    init_params(m, torch.Generator().manual_seed(0))
+    m.load_state_dict(_cosine_weights(torch, m))
+    ckpt = os.path.join(tmp, "aliked_lightglue")
+    experiments.save_experiment(ckpt, 1, module_params_to_jax(m))
+    draw = estimators.ransac_samples
+    try:
+        for name in EXTRACT16_EXPERIMENTS:
+            exp = configs.get_experiment(name)
+            if exp["extractor"]["name"] == "extractor_aliked":
+                exp["extractor"]["params_path"] = aliked_path
+            configs.EXPERIMENTS[name] = exp
+            base = ["match", "--experiment", name, "--image-size", str(MATCH_IMG)]
+            if name in ("aliked+lightglue_homography",):
+                base += ["--load-experiment", ckpt]
+            drawn, replayed = [], [0, 0]
+
+            def keep(n, *a, **k):
+                drawn.append((n, draw(n, *a, **k)))
+                return drawn[-1][1]
+
+            def replay(n, *a, **k):
+                if drawn and drawn[0][0] == n:
+                    replayed[0] += 1
+                    return drawn.pop(0)[1].cpu()
+                replayed[1] += 1  # a near-tie changed this pair's match count
+                if drawn:
+                    drawn.pop(0)
+                return draw(n, *a, **k)
+
+            card, t_card = _timed_match(torch, cli, configs, estimators, dev,
+                                        base + ["--n-pairs", str(MATCH_PAIRS)], draw)
+            small = base + ["--n-pairs", str(MATCH_CPU_PAIRS)]
+            card_small, _ = _timed_match(torch, cli, configs, estimators, dev, small, keep)
+            host, t_cpu = _timed_match(torch, cli, configs, estimators, cpu,
+                                       small + ["--device", "cpu"], replay)
+            bad = [k for k, v in card.items() if k != "experiment" and
+                   not (isinstance(v, float) and math.isfinite(v))]
+            off = _row_gaps(card_small, host, replayed[1] == 0)
+            records["rows"][name] = dict(card=card, card_small=card_small, cpu=host,
+                                         replayed=replayed, card_timing=t_card, cpu_timing=t_cpu)
+            print(f"extractors (b): match --experiment {name} --image-size {MATCH_IMG}: at "
+                  f"{MATCH_PAIRS} pairs, card {json.dumps(card)} in {t_card['seconds']:.1f} s "
+                  f"(extractor {t_card['extractor_ms']:.2f} + matcher {t_card['matcher_ms']:.2f} ms "
+                  f"per pair); at {MATCH_CPU_PAIRS} pairs, card {json.dumps(card_small)}, CPU "
+                  f"{json.dumps(host)} in {t_cpu['seconds']:.1f} s (extractor "
+                  f"{t_cpu['extractor_ms']:.2f} + matcher {t_cpu['matcher_ms']:.2f} ms per pair; "
+                  f"RANSAC samples replayed {replayed[0]}, drawn anew {replayed[1]})"
+                  + (f"; not finite {bad}" if bad else "") + (f"; off {off}" if off else ""),
+                  flush=True)
+            if bad or off or card["num_matches"] <= 0:
+                failures.append(f"(b) {name}: not finite {bad}, off {off}")
+    finally:
+        configs.EXPERIMENTS.update(saved)
+        estimators.ransac_samples = draw
+    records["launches"] = _launches(counters)
+    if sum(records["launches"].values()):
+        failures.append(f"(b) kernels launched {records['launches']}")
+    print(f"extractors (b): K1-K5 launches {records['launches']}", flush=True)
+    records["failures"] = failures
+    return records
+
+
+def backbone16(torch, np, F, attn, counters, dev, gen):
+    """Phase 16 (c): ``backbone_dinov2`` (ViT-S/14, random weights) on the card
+    at BACKBONE16_SIZES: K1 launches 12 times per call at each shape and the
+    plain attention never; the outputs against the same ViT in f32 with the
+    plain attention on the card; K1 timed at both shapes (``_k1_row``).
+    Returns (records, K1 rows, launches by K1 shape)."""
+    from comet_tpu_torch.matching.extractors import _build
+    from comet_tpu_torch.matching.registry import get_model
+    from comet_tpu_torch.models import vit
+
+    records, failures = [], []
+    bb = {size: get_model("backbone_dinov2", allow_resize=size != (224, 224), device=dev)
+          for size in BACKBONE16_SIZES}
+    ref = _build(vit.DinoViT(img_size=224, patch_size=14, embed_dim=384, depth=12, num_heads=6,
+                             num_register_tokens=0), None, 0).to(dev)
+    plain_calls = [0]
+    reference = attn.attention_reference
+
+    def counted_reference(*args, **kwargs):
+        plain_calls[0] += 1
+        return reference(*args, **kwargs)
+
+    shapes = Counter()
+    for size in BACKBONE16_SIZES:
+        img = torch.rand(*size, 3, generator=gen, device=dev)
+        bb[size](img)  # build, cast and warm
+        torch.cuda.synchronize()
+        _reset(counters)
+        attn.attention_reference = counted_reference
+        try:
+            ms = []
+            for _ in range(BACKBONE16_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = bb[size](img)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            attn.attention_reference = reference
+        launches = _launches(counters)
+        shapes.update(attn.fused_attention.launch_shapes)
+        # the reference: the ViT in f32, its attention the plain version
+        # (K1 takes no f32), on the same resized image
+        x = img[None]
+        if size != (224, 224):
+            nh, nw = size[0] // 14 * 14, size[1] // 14 * 14
+            x = F.interpolate(x.permute(0, 3, 1, 2), size=(nh, nw), mode="bilinear",
+                              align_corners=False, antialias=True).permute(0, 2, 3, 1)
+        saved = vit.fused_attention
+        vit.fused_attention = lambda q, k, v, h: reference(q, k, v, h, (q.shape[-1] // h) ** -0.5)
+        try:
+            with torch.no_grad():
+                tokens, cls = ref(x, return_cls=True)
+        finally:
+            vit.fused_attention = saved
+        errs = dict(descriptors=_rel_err(np, out["descriptors"].cpu(), tokens.cpu()),
+                    global_descriptor=_rel_err(np, out["global_descriptor"].cpu(), cls.cpu()))
+        tokens_n = tokens.shape[1] + 1
+        ok = (launches["K1"] == 12 * BACKBONE16_CALLS and plain_calls[0] == 0
+              and sum(launches.values()) == launches["K1"]
+              and max(errs.values()) <= BACKBONE16_RTOL
+              and out["features"].shape == (1, 384, x.shape[1] // 14, x.shape[2] // 14))
+        records.append(dict(size=size, tokens=tokens_n, ms=ms, launches=launches, errs=errs,
+                            plain_calls=plain_calls[0], ok=ok))
+        print(f"backbone (c): backbone_dinov2 ViT-S/14 at {size[0]} x {size[1]}"
+              + (f" -> {x.shape[1]} x {x.shape[2]}" if size != (224, 224) else "")
+              + f" ({tokens_n} tokens): {BACKBONE16_CALLS} calls, launches {launches} (12 K1 per "
+              f"call wanted), plain attention calls {plain_calls[0]}; against f32 with the plain "
+              f"attention: {json.dumps(errs)} (tol {BACKBONE16_RTOL} of the range); ms per call "
+              f"{['%.2f' % t for t in ms]}" + ("" if ok else " FAILED"), flush=True)
+        if not ok:
+            failures.append(f"(c) at {size}")
+    rows = [_k1_row(torch, F, attn, dev, gen, f"dinov2 backbone {r['tokens']} tokens", 1,
+                    r["tokens"], r["tokens"], 384, 6, True) for r in records]
+    return records, rows, shapes, failures
+
+
+def train_extract_phase(torch, np, F, attn, counters, dev, smi):
+    """Phase 16: matcher training (a), the new extractors (b) and the DINOv2
+    backbone on K1 (c), with TF32 off for the comparisons. Returns the
+    phase's record."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SmokeError("phase 16: TF32 matmuls are on; the comparisons run in f32")
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            training = train16(torch, np, counters, dev, tmp)
+            t_train = time.perf_counter() - t0
+            failures += [f"(a) {n}" for n, r in training.items() if not r["ok"]]
+            t0 = time.perf_counter()
+            extracted = extract16(torch, np, counters, dev, tmp)
+            t_extract = time.perf_counter() - t0
+            failures += extracted["failures"]
+        t0 = time.perf_counter()
+        backbone, k1_rows, k1_shapes, bb_failures = backbone16(
+            torch, np, F, attn, counters, dev, torch.Generator(device=dev).manual_seed(16))
+        t_backbone = time.perf_counter() - t0
+        failures += bb_failures
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    rec = dict(training=training, extracted=extracted, backbone=backbone, k1_rows=k1_rows,
+               k1_shapes=k1_shapes, seconds=time.perf_counter() - t_phase,
+               parts=dict(training=t_train, extractors=t_extract, backbone=t_backbone))
+    print(f"phase 16: {rec['seconds']:.1f} s (training {t_train:.1f}, extractors "
+          f"{t_extract:.1f}, backbone {t_backbone:.1f}), on {smi}", flush=True)
+    if failures:
+        raise SmokeError(f"phase 16: {'; '.join(failures)}")
     return rec
 
 
@@ -4278,6 +4711,7 @@ def main(argv=None) -> int:
         if sum(_launches(counters).values()):
             raise SmokeError(f"scene: kernels launched {_launches(counters)}; the geometry has none")
         matching = match_phase(torch, np, counters, dev, smi)
+        phase16 = train_extract_phase(torch, np, F, attn, counters, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4309,6 +4743,17 @@ def main(argv=None) -> int:
                 floor_ms=r.get("floor_ms"), copy_ms=r.get("copy_ms"),
                 phase12_launches_of_kernel=distributed["launches"][kernel],
             ))
+    for r in phase16["k1_rows"]:
+        # launches: K1 at this shape in phase 16 (c)'s backbone calls
+        record.append(dict(
+            name=f"K1 {r['where']} {r['shape']}", route="cuda", source="comet_tpu_torch/csrc/attn.cu",
+            replaces="comet_tpu/ops/pallas_attn.py:106",
+            launches=phase16["k1_shapes"].get(tuple(r["shape"]), 0), max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], host_us=r["host_us"],
+            library_host_us=r["library_host_us"], tolerance=r["tolerance"],
+            inference_host_us=r["inference_host_us"], launch_host_us=r["launch_host_us"],
+        ))
     for r in checked["K1_forms"]:
         # launches: this form at this shape in run_softmax_variants
         record.append(dict(
@@ -4405,6 +4850,20 @@ def main(argv=None) -> int:
         for name, t in matching["timing"].items())
     print(f"matching: phase 15 {matching['seconds']:.1f} s; per pair at {MATCH_IMG} px, "
           f"extractor + matcher: {lines}", flush=True)
+    trained = "; ".join(
+        f"{name} step {t['step_ms_median']:.1f} ms (idle {t['profile']['idle']:.2f}), loss "
+        f"{t['row']['loss_first']} -> {t['row']['loss_last']}, {t['syncs_per_step']:.2f} syncs per "
+        f"step, peak {t['peak_gib']:.2f} GiB" for name, t in phase16["training"].items())
+    extracted = "; ".join(
+        f"{name} card {statistics.median(r['card_ms']):.1f} ms, CPU "
+        f"{statistics.median(r['cpu_ms']):.1f} ms" for name, r in
+        phase16["extracted"]["extractors"].items())
+    backbone = "; ".join(f"{r['tokens']} tokens {statistics.median(r['ms']):.2f} ms, K1 "
+                         f"{r['launches']['K1'] // BACKBONE16_CALLS} per call"
+                         for r in phase16["backbone"])
+    print(f"phase 16: {phase16['seconds']:.1f} s; training (batch {TRAIN16_BATCH}, {MATCH_IMG} px, "
+          f"512 keypoints): {trained}; per image at {MATCH_IMG} px: {extracted}; "
+          f"backbone_dinov2: {backbone}", flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

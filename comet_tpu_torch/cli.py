@@ -8,6 +8,7 @@ Counterpart of ``comet_tpu/cli.py``, with its arguments and outputs:
   bench --preset ours --suite infer|train|data|all
   export --preset ours [--seq-frames 48] [--batch 1] [--output path.pt2]
   match --experiment superpoint+lightglue_homography [--load-experiment DIR] [--list]
+  match --experiment superpoint+lightglue_homography --train [--exp-dir DIR] [--resume]
 
 Every command runs on the CUDA card unless ``--device cpu`` is given, and
 raises without a card. ``eval`` writes ``test_results.csv`` rows compatible
@@ -31,10 +32,12 @@ written by the JAX package (read without JAX). ``--keypoints superpoint``
 seeds the queries with SuperPoint on the command's device. ``match`` runs a
 named matching experiment (``matching/configs.py``) on the synthetic
 homography benchmark and prints one JSON row, as the JAX package's does;
-``--load-experiment`` reads the JAX package's matcher checkpoints. Its
-``--train``, ``--resume``, ``--ckpt-every``, ``--val-pairs``, ``--pipeline``,
-``--export-features`` and ``--inspect`` are not ported yet and raise, naming
-their ROADMAP item.
+``--load-experiment`` reads matcher checkpoints of either package.
+``match --train`` trains the experiment's matcher on generated homography
+pairs and writes checkpoints that both packages read (``--resume``,
+``--ckpt-every``, ``--val-pairs``, ``--batch-size``; ``--exp-dir`` also tees
+the output to its ``log.txt``). Its ``--pipeline``, ``--export-features``
+and ``--inspect`` are not ported yet and raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -609,9 +612,7 @@ def cmd_export(args):
 
 
 # match's options that are not ported yet, and the ROADMAP item that ports each
-MATCH_NOT_PORTED = (("train", "7a"), ("resume", "7a"), ("ckpt_every", "7a"),
-                    ("val_pairs", "7a"), ("pipeline", "7b"), ("export_features", "7b"),
-                    ("inspect", "7f"))
+MATCH_NOT_PORTED = (("pipeline", "7b"), ("export_features", "7b"), ("inspect", "7f"))
 
 
 def cmd_match(args):
@@ -630,6 +631,16 @@ def cmd_match(args):
         if getattr(args, option):
             raise _not_ported(f"match --{option.replace('_', '-')}", item)
     device = _device(args)
+    if args.train:
+        if args.exp_dir:
+            # tee the training output to <exp-dir>/log.txt, as glue-factory does
+            from .matching.capture import capture_outputs
+
+            with capture_outputs(os.path.join(args.exp_dir, "log.txt")):
+                _match_train(args, device)
+        else:
+            _match_train(args, device)
+        return
     size = args.image_size
     pipeline = build_pipeline(args.experiment, image_hw=(size, size))
     if args.load_experiment:
@@ -640,6 +651,122 @@ def cmd_match(args):
     pairs = make_synthetic_pairs(args.n_pairs, hw=(size, size), seed=args.seed, device=device)
     row = run_homography_benchmark(pipeline, pairs)
     print(json.dumps(_finite_json({"experiment": args.experiment, **row})))
+
+
+def _init_matcher(matcher, in_dim: int, seed: int):
+    """The experiment's matcher module for descriptors of width ``in_dim``,
+    on the CPU, with random weights from ``torch.Generator().manual_seed(seed)``
+    (the JAX package initializes from ``PRNGKey(seed)``)."""
+    import torch
+
+    from .models.blocks import init_params
+
+    module = type(matcher)(**matcher.conf, in_dim=in_dim)
+    init_params(module, torch.Generator().manual_seed(seed))
+    return module
+
+
+def _match_train(args, device):
+    """Train a named experiment's matcher on generated homography pairs on
+    ``device``, checkpointing into the experiment directory; prints the
+    JAX package's progress lines and final JSON row."""
+    import numpy as np
+
+    from .matching.configs import get_experiment
+    from .matching.experiments import (
+        adam_state_from_jax,
+        adam_state_to_jax,
+        load_checkpoint,
+        save_experiment,
+    )
+    from .matching.registry import get_model
+    from .matching.train import (
+        build_matcher_train_step,
+        build_superglue_train_step,
+        make_adam,
+        make_homography_training_batch,
+    )
+    from .weights import module_params_from_jax, module_params_to_jax
+
+    conf = get_experiment(args.experiment)
+    tb = conf.get("train")
+    if not tb:
+        raise SystemExit(f"experiment '{args.experiment}' has no train block (eval-only pairing); "
+                         "pick a *_homography/superglue experiment")
+    ext_conf = dict(conf["extractor"])
+    ext_conf.setdefault("max_keypoints", 128)
+    extractor = get_model(ext_conf.pop("name"), **ext_conf)
+    mat_conf = dict(conf["matcher"])
+    mat_name = mat_conf.pop("name")
+    matcher = get_model(mat_name, **mat_conf)
+
+    size = args.image_size
+
+    def next_batch():
+        return make_homography_training_batch(
+            extractor, rng, batch_size=args.batch_size or 4, image_hw=(size, size),
+            difficulty=tb["homography"]["difficulty"], max_angle=tb["homography"]["max_angle"],
+            th_positive=conf["ground_truth"]["th_positive"],
+            th_negative=conf["ground_truth"]["th_negative"], device=device)
+
+    rng = np.random.default_rng(tb["seed"] + args.seed)
+    batch = next_batch()
+    module = _init_matcher(matcher, batch["desc0"].shape[-1], tb["seed"]).to(device).train()
+    optimizer = make_adam(module, float(tb["lr"]))
+
+    exp_dir = args.exp_dir or os.path.join(
+        "outputs", f"match_train_{args.experiment.replace('+', '_')}")
+    start_step = 0
+    if args.resume:
+        tree, meta = load_checkpoint(exp_dir, get_last=True)
+        module.load_state_dict(module_params_from_jax(tree["params"], module))
+        adam_state_from_jax(tree["opt"], optimizer, module)
+        start_step = int(meta.get("step", 0))
+        print(f"resumed {exp_dir} at step {start_step}")
+    ckpt_every = args.ckpt_every or max(args.steps // 4, 1)
+    best = None
+
+    # held-out validation: the current weights benchmarked on fresh pairs,
+    # "best" keyed on the homography error instead of the train loss
+    val_pipeline = None
+    if args.val_pairs:
+        from .matching.benchmarks import make_synthetic_pairs, run_homography_benchmark
+        from .matching.configs import build_pipeline
+
+        val_pipeline = build_pipeline(args.experiment, image_hw=(size, size))
+        val_pairs = make_synthetic_pairs(args.val_pairs, hw=(size, size), seed=args.seed + 10_000,
+                                         device=device)
+
+    def val_metric():
+        if val_pipeline is None:
+            return None
+        val_pipeline.matcher.holder["params"] = module_params_to_jax(module)
+        row = run_homography_benchmark(val_pipeline, val_pairs)
+        print(f"  val: H_err {row['H_error_ransac']:.3f} prec {row['prec@3px']:.3f}")
+        return float(row["H_error_ransac"])
+
+    step = (build_superglue_train_step() if mat_name == "matcher_superglue"
+            else build_matcher_train_step())
+    first = last = None
+    for i in range(args.steps):
+        if i % max(args.steps // 8, 1) == 0:
+            batch = next_batch()
+        last = float(step(module, optimizer, batch))
+        if first is None:
+            first = last
+        if i % max(args.steps // 10, 1) == 0:
+            print(f"step {i}: loss {last:.4f}")
+        if (i + 1) % ckpt_every == 0 or i == args.steps - 1:
+            ev = val_metric()
+            _, best = save_experiment(
+                exp_dir, start_step + i + 1, module_params_to_jax(module),
+                adam_state_to_jax(optimizer, module), conf={"experiment": args.experiment},
+                loss=last, eval_metric=last if ev is None else ev, best_eval=best)
+    print(json.dumps(_finite_json({
+        "experiment": args.experiment, "steps": args.steps,
+        "loss_first": round(first, 4), "loss_last": round(last, 4),
+        "exp_dir": exp_dir, "best_eval": round(best, 4),
+    })))
 
 
 def _match_parser(sub):
@@ -665,18 +792,21 @@ def _match_parser(sub):
                     help="render the K worst pairs of a --pipeline run (not ported yet: "
                          "item 7f)")
     pm.add_argument("--train", action="store_true",
-                    help="train the experiment's matcher (not ported yet: item 7a)")
+                    help="train the experiment's matcher on generated homography pairs instead "
+                         "of benchmarking")
     pm.add_argument("--steps", type=int, default=100)
     pm.add_argument("--batch-size", type=int, default=None)
     pm.add_argument("--resume", action="store_true",
-                    help="--train: continue from the last checkpoint (not ported yet: item 7a)")
+                    help="--train: continue from the last checkpoint in --exp-dir")
     pm.add_argument("--ckpt-every", type=int, default=None,
-                    help="--train: checkpoint interval in steps (not ported yet: item 7a)")
+                    help="--train: checkpoint interval in steps (default steps//4); the best "
+                         "by loss is copied to checkpoint_best.msgpack")
     pm.add_argument("--val-pairs", type=int, default=0,
-                    help="--train: validation pairs per checkpoint (not ported yet: item 7a)")
+                    help="--train: validate each checkpoint on this many held-out synthetic "
+                         "pairs and key the best checkpoint on their homography error")
     pm.add_argument("--load-experiment", default=None, metavar="DIR|FILE",
-                    help="load a trained matcher checkpoint of the JAX package (the best of an "
-                         "experiment dir, or a checkpoint_*.msgpack file) before benchmarking")
+                    help="load a trained matcher checkpoint (the best of an experiment dir, or "
+                         "a checkpoint_*.msgpack file) before benchmarking")
     pm.add_argument("--export-features", default=None, metavar="DIR",
                     help="export the extractor's features to an h5 cache (not ported yet: "
                          "item 7b)")

@@ -3,8 +3,9 @@
 Counterpart of ``comet_tpu/matching/configs.py`` (gluefactory/configs/*.yaml:
 an extractor paired with a matcher, plus ground-truth and training settings).
 ``EXPERIMENTS`` is the JAX package's, whole, so ``match --list`` names the
-same 11 experiments; building one whose extractor or matcher is not ported
-yet raises NotImplementedError naming its ROADMAP item.
+same 11 experiments; building one of the two GlueStick experiments, whose
+wireframe extractor and matcher are not ported yet, raises
+NotImplementedError naming its ROADMAP item.
 
 :class:`MatcherWrapper` is the port's counterpart of ``wrap_flax_matcher``:
 it adapts a matcher module to the pipeline's ``(feats0, feats1) -> matches``
@@ -26,7 +27,7 @@ from typing import Any, Dict
 import torch
 import torch.nn as nn
 
-from . import extractors, lightglue, matchers, sift, superglue  # noqa: F401 (registers models)
+from . import backbones, extractors, lightglue, matchers, sift, superglue  # noqa: F401 (registers models)
 from .registry import TwoViewPipeline, get_model, not_ported
 
 # Every experiment: {extractor: {name, ...conf}, matcher: {name, ...conf},

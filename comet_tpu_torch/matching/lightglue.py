@@ -1,4 +1,4 @@
-"""LightGlue, the adaptive transformer matcher: the inference path.
+"""LightGlue, the adaptive transformer matcher, and its training loss.
 
 Counterpart of ``comet_tpu/matching/lightglue.py`` (gluefactory/models/
 matchers/lightglue.py:46-530): the learnable Fourier position encoding with
@@ -15,8 +15,10 @@ rather than ``index_select``. Which layer answers (``stop_layer``), which
 points take part and the per-point layer counts (``prune0/1``) are the
 reference's; the card never waits on a data-dependent host decision.
 Keypoints come normalized to [-1, 1] (:func:`normalize_keypoints` gives the
-reference's size-based normalization). Training (``lightglue_loss``) is not
-ported yet (ROADMAP Queue 1 item 7a).
+reference's size-based normalization). ``forward(..., training=True)``
+switches stopping and pruning off and adds every layer's log assignment
+and token-confidence logits, which :func:`lightglue_loss` (the per-layer
+balanced assignment NLL and the confidence BCE) takes.
 """
 
 from __future__ import annotations
@@ -253,20 +255,31 @@ class LightGlueMatcher(nn.Module):
         self.log_assignment = nn.ModuleList(MatchAssignment(dim) for _ in range(depth))
         self.token_confidence = nn.ModuleList(TokenConfidence(dim) for _ in range(depth - 1))
 
-    def forward(self, kpts0, desc0, kpts1, desc1, valid0=None, valid1=None) -> Dict[str, torch.Tensor]:
+    def forward(self, kpts0, desc0, kpts1, desc1, valid0=None, valid1=None,
+                training: bool = False) -> Dict[str, torch.Tensor]:
+        """``training``: no stopping or pruning, and the outputs add
+        ``all_log_assignment`` [L, M+1, N+1] and ``conf_logits0/1`` [L-1, M
+        / N] (the loss's inputs)."""
         m, n = kpts0.shape[0], kpts1.shape[0]
         dev = kpts0.device
         v0 = torch.ones(m, dtype=torch.bool, device=dev) if valid0 is None else valid0
         v1 = torch.ones(n, dtype=torch.bool, device=dev) if valid1 is None else valid1
         d0, d1 = self.input_proj(desc0), self.input_proj(desc1)
         enc0, enc1 = self.posenc(kpts0), self.posenc(kpts1)
-        do_stop = self.depth_confidence > 0
-        do_prune = self.width_confidence > 0
+        do_stop = self.depth_confidence > 0 and not training
+        do_prune = self.width_confidence > 0 and not training
         act0, act1 = v0, v1  # active = valid and not pruned
+        all_la, conf0, conf1 = [], [], []
         if not (do_stop or do_prune):
-            for layer in self.transformers:
+            for i, layer in enumerate(self.transformers):
                 d0, d1 = layer(d0, d1, enc0, enc1, v0, v1)
-            scores = self.log_assignment[-1](d0, d1, v0, v1)
+                if training:
+                    all_la.append(self.log_assignment[i](d0, d1, v0, v1))
+                    if i < self.depth - 1:
+                        c0, c1 = self.token_confidence[i](d0, d1)
+                        conf0.append(c0)
+                        conf1.append(c1)
+            scores = all_la[-1] if training else self.log_assignment[-1](d0, d1, v0, v1)
             stop_layer = torch.full((), self.depth, dtype=torch.int32, device=dev)
             prune0 = torch.full((m,), self.depth, dtype=torch.int32, device=dev)
             prune1 = torch.full((n,), self.depth, dtype=torch.int32, device=dev)
@@ -304,7 +317,7 @@ class LightGlueMatcher(nn.Module):
 
         matches0, matches1, mscores0, mscores1 = filter_matches(
             scores, self.filter_threshold, act0, act1)
-        return {
+        out = {
             "matches0": matches0,
             "matches1": matches1,
             "scores0": mscores0,
@@ -317,6 +330,59 @@ class LightGlueMatcher(nn.Module):
             "prune0": prune0,
             "prune1": prune1,
         }
+        if training:
+            out["all_log_assignment"] = torch.stack(all_la)
+            out["conf_logits0"] = torch.stack(conf0)
+            out["conf_logits1"] = torch.stack(conf1)
+        return out
+
+
+def _assignment_nll(la: torch.Tensor, gt0: torch.Tensor, gt1: torch.Tensor,
+                    nll_balancing: float = 0.5) -> torch.Tensor:
+    """Balanced NLL of the ground-truth assignment under the [M+1, N+1] log
+    assignment ``la``: matched points (gt0 >= 0) maximize their inner
+    entry, unmatched ones (UNMATCHED) their dustbin, IGNORE adds nothing."""
+    from .gt_generation import UNMATCHED
+
+    m, n = la.shape[0] - 1, la.shape[1] - 1
+    pos0 = gt0 >= 0
+    ll_pos = la[:m, :n].gather(1, gt0.clamp(0, n - 1)[:, None])[:, 0]
+    nll_pos = -(ll_pos * pos0).sum() / pos0.sum().clamp_min(1)
+    neg0, neg1 = gt0 == UNMATCHED, gt1 == UNMATCHED
+    num_neg = neg0.sum().clamp_min(1) + neg1.sum().clamp_min(1)
+    nll_neg = -((la[:m, n] * neg0).sum() + (la[m, :n] * neg1).sum()) / num_neg
+    return nll_balancing * nll_pos + (1.0 - nll_balancing) * nll_neg
+
+
+def lightglue_loss(out: Dict[str, torch.Tensor], gt0: torch.Tensor, gt1: torch.Tensor,
+                   gamma: float = 1.0, nll_balancing: float = 0.5) -> Dict[str, torch.Tensor]:
+    """LightGlue's training loss on a ``training=True`` output: the final
+    layer's NLL plus each earlier layer's weighted gamma^(L-i-1) (i + 1
+    where gamma <= 0), over the weights' sum, plus the token-confidence BCE
+    against "layer i's argmax already equals the final layer's" (both log
+    assignments detached). Returns total, assignment_nll, confidence, last."""
+    all_la = out["all_log_assignment"]
+    n_layers = all_la.shape[0]
+    nll_final = _assignment_nll(all_la[-1], gt0, gt1, nll_balancing)
+    total, sum_w = nll_final, 1.0
+    for i in range(n_layers - 1):
+        w = gamma ** (n_layers - i - 1) if gamma > 0 else float(i + 1)
+        total = total + w * _assignment_nll(all_la[i], gt0, gt1, nll_balancing)
+        sum_w += w
+    total = total / sum_w
+
+    la_final = all_la[-1].detach()
+    conf_loss = all_la.new_zeros(())
+    for i in range(n_layers - 1):
+        la_i = all_la[i].detach()
+        correct0 = la_i[:-1, :].argmax(-1) == la_final[:-1, :].argmax(-1)
+        correct1 = la_i[:, :-1].argmax(0) == la_final[:, :-1].argmax(0)
+        bce0 = F.binary_cross_entropy_with_logits(out["conf_logits0"][i], correct0.float())
+        bce1 = F.binary_cross_entropy_with_logits(out["conf_logits1"][i], correct1.float())
+        conf_loss = conf_loss + (bce0 + bce1) / 2.0
+    conf_loss = conf_loss / max(n_layers - 1, 1)
+    return {"total": total + conf_loss, "assignment_nll": total, "confidence": conf_loss,
+            "last": nll_final}
 
 
 register_model(

@@ -7,8 +7,10 @@ projected descriptors, ``depth`` rounds of self message passing on both sets
 and cross message passing in both directions (an MHA message merged by an
 MLP on [x, message]), final projections, and a partial assignment from
 log-domain Sinkhorn iterations over the score matrix with a learned dustbin.
-Validity masks stand in for padding; every logit is f32. Training
-(``superglue_nll_loss``) is not ported yet (ROADMAP Queue 1 item 7a).
+Validity masks stand in for padding; every logit is f32.
+:func:`superglue_nll_loss` is the training loss; it keeps the JAX package's
+labels as they are: every label below 0, IGNORE (-2) too, goes to the
+dustbin and is counted (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -164,6 +166,32 @@ class SuperGlueMatcher(nn.Module):
             "assignment": p,
             "log_assignment": log_p,
         }
+
+
+def superglue_nll_loss(
+    log_assignment: torch.Tensor,  # [N0+1, N1+1]
+    gt0: torch.Tensor,  # [N0] ground-truth index into set 1, or < 0
+    gt1: torch.Tensor,  # [N1]
+    valid0: Optional[torch.Tensor] = None,
+    valid1: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """NLL of the ground-truth partial assignment: a matched point's cell,
+    an unmatched one's dustbin, each matched pair counted once (its row);
+    over the valid rows and the valid unmatched columns. As in the JAX
+    package, any negative label is "unmatched": IGNORE is trained as the
+    dustbin unless ``valid0`` / ``valid1`` leave it out."""
+    n0, n1 = gt0.shape[0], gt1.shape[0]
+    dev = log_assignment.device
+    v0 = torch.ones(n0, dtype=torch.bool, device=dev) if valid0 is None else valid0
+    v1 = torch.ones(n1, dtype=torch.bool, device=dev) if valid1 is None else valid1
+    col = torch.where(gt0 >= 0, gt0, n1)  # unmatched: the dustbin column
+    ll0 = log_assignment[:n0].gather(1, col[:, None])[:, 0]
+    row = torch.where(gt1 >= 0, gt1, n0)  # unmatched: the dustbin row
+    ll1 = log_assignment[:, :n1].gather(0, row[None, :])[0]
+    ll1 = torch.where(gt1 >= 0, 0.0, ll1)
+    num = v0.sum() + (v1 & (gt1 < 0)).sum()
+    total = torch.where(v0, ll0, 0.0).sum() + torch.where(v1, ll1, 0.0).sum()
+    return -total / num.float().clamp_min(1.0)
 
 
 register_model(

@@ -51,7 +51,7 @@ from ..ops.block import fused_attn_block, fused_cross_block, gelu
 from ..ops.norm import fused_layer_norm
 
 __all__ = [
-    "AttnBlock", "Conv2d", "CrossAttnBlock", "GroupNorm", "GroupNorm1", "InstanceNorm",
+    "AttnBlock", "BatchNorm", "Conv2d", "CrossAttnBlock", "GroupNorm", "GroupNorm1", "InstanceNorm",
     "LayerNorm", "Linear", "Mlp", "MultiHeadAttention", "PoseEmbedding", "ResidualBlock",
     "SimplePoseEmbedding", "gelu", "init_params", "lecun_normal_", "megatron_pair", "set_route",
 ]
@@ -133,19 +133,23 @@ def megatron_pair(fc1: Linear, act, fc2: Linear, x):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv on NCHW tensors: f32 parameters, computes in ``dtype``."""
+    """nn.Conv on NCHW tensors: f32 parameters, computes in ``dtype``;
+    ``bias=False`` for flax's ``use_bias=False``."""
 
-    def __init__(self, cin, cout, kernel, stride=1, padding=0, dtype=torch.float32):
-        super().__init__(cin, cout, kernel, stride=stride, padding=padding)
+    def __init__(self, cin, cout, kernel, stride=1, padding=0, dtype=torch.float32,
+                 bias: bool = True):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
         self.compute_dtype = dtype
 
     def init_own_params(self, generator):
         lecun_normal_(self.weight, generator)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.Module):
@@ -198,6 +202,19 @@ class GroupNorm1(nn.Module):
 
     def forward(self, x):
         return F.group_norm(x.float(), 1, self.weight.float(), self.bias.float(), self.eps)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(use_running_average=True)`` on NCHW maps: always
+    the running statistics (eps 1e-5), in train mode too; the statistics come
+    from flax's ``batch_stats`` through the weight bridge."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean.to(x.dtype), self.running_var.to(x.dtype),
+                            self.weight.to(x.dtype), self.bias.to(x.dtype), False, 0.0, self.eps)
 
 
 class InstanceNorm(nn.Module):

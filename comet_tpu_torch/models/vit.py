@@ -2,8 +2,12 @@
 
 Counterpart of ``comet_tpu/models/vit.py``: patch size 14, 1 cls token and 4
 register tokens, LayerScale on both branches, a final LayerNorm; returns the
-normalized patch tokens. The position embedding is stored at the target
-grid (img_size / 14), so no resampling happens at run time.
+normalized patch tokens (and, with ``return_cls``, the normalized cls token).
+The position embedding is stored at the configured grid (img_size / 14); an
+input of another size (a multiple of 14, square or not) resamples it to its
+grid with torch's bicubic (``ops.bilinear.resize_bicubic_torch``), in f32,
+as DINOv2's ``interpolate_pos_encoding`` does. At the configured size
+nothing is resampled.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.attn import fused_attention
+from ..ops.bilinear import resize_bicubic_torch
 from .blocks import Conv2d, LayerNorm, Linear, gelu
 
 
@@ -96,19 +101,33 @@ class DinoViT(nn.Module):
         if self.register_tokens is not None:
             self.register_tokens.zero_()
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images [B, img_size, img_size, 3] -> patch tokens [B, P, C]."""
+    def pos_embed_for(self, gh: int, gw: int) -> torch.Tensor:
+        """The position embedding [1, 1 + gh gw, C] of a gh x gw patch grid:
+        the stored one at the configured grid, else its patch part resampled
+        bicubically in f32 (the cls entry kept)."""
+        grid = self.img_size // self.patch_size
+        if (gh, gw) == (grid, grid):
+            return self.pos_embed
+        c = self.embed_dim
+        patch = resize_bicubic_torch(self.pos_embed[0, 1:].float().reshape(grid, grid, c), gh, gw)
+        return torch.cat([self.pos_embed[:, :1].float(), patch.reshape(1, gh * gw, c)], dim=1)
+
+    def forward(self, images: torch.Tensor, return_cls: bool = False):
+        """images [B, H, W, 3], H and W multiples of 14 -> patch tokens [B, P,
+        C], and the cls token [B, C] with ``return_cls``."""
         b, h, w, _ = images.shape
-        if (h, w) != (self.img_size, self.img_size):
-            raise ValueError(f"DinoViT expects {self.img_size}px inputs, got {h}x{w}")
+        gh, gw = h // self.patch_size, w // self.patch_size
+        if not (gh and gw):
+            raise ValueError(f"DinoViT takes inputs of at least {self.patch_size}px, got {h}x{w}")
         dt, c = self.compute_dtype, self.embed_dim
         x = self.patch_embed(images.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
         x = torch.cat([self.cls_token.to(dt).expand(b, 1, c), x], dim=1)
-        x = x + self.pos_embed.to(dt)
+        x = x + self.pos_embed_for(gh, gw).to(dt)
         if self.register_tokens is not None:
             regs = self.register_tokens.to(dt).expand(b, self.num_register_tokens, c)
             x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
         for blk in self.blocks:
             x = blk(x)
         x = self.norm(x)
-        return x[:, 1 + (self.num_register_tokens or 0):]
+        patches = x[:, 1 + (self.num_register_tokens or 0):]
+        return (patches, x[:, 0]) if return_cls else patches

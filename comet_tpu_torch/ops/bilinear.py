@@ -1,7 +1,8 @@
 """Bilinear sampling and align-corners resizing, channel-last.
 
 Counterpart of ``comet_tpu/ops/bilinear.py`` (``bilinear_sample``,
-``sample_features`` and ``resize_bilinear_align_corners``). Coordinates are in pixels (x, y): 0 is
+``sample_features``, ``resize_bilinear_align_corners`` and the torch-bicubic
+``resize_bicubic_torch``). Coordinates are in pixels (x, y): 0 is
 the center of the first pixel and W-1 / H-1 the center of the last
 (align_corners=True).
 """
@@ -110,3 +111,38 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
     if tuple(x.shape[-3:-1]) == (out_h, out_w):
         return x
     return resize_nchw(x.movedim(-1, -3), out_h, out_w).movedim(-3, -1)
+
+
+def interp_matrix_bicubic_torch(n_in: int, n_out: int, a: float = -0.75,
+                                device=None) -> torch.Tensor:
+    """[n_out, n_in] 1-D bicubic weights of ``F.interpolate(mode="bicubic",
+    align_corners=False, antialias=False)``: half-pixel source coordinates,
+    the Keys kernel with ``a`` = -0.75, taps clamped to the border. Built in
+    f32 as the JAX package builds it."""
+    src = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * (n_in / n_out) - 0.5
+    f = torch.floor(src)
+    frac = src - f
+    i0 = f.long()
+
+    def kernel(t):
+        at = t.abs()
+        near = (a + 2.0) * at ** 3 - (a + 3.0) * at ** 2 + 1.0
+        far = a * at ** 3 - 5.0 * a * at ** 2 + 8.0 * a * at - 4.0 * a
+        return torch.where(at <= 1.0, near, torch.where(at < 2.0, far, 0.0))
+
+    rows = torch.arange(n_out, device=device)
+    m = torch.zeros(n_out, n_in, device=device)
+    for j in (-1, 0, 1, 2):
+        m.index_put_((rows, (i0 + j).clamp(0, n_in - 1)), kernel(j - frac), accumulate=True)
+    return m
+
+
+def resize_bicubic_torch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize [..., H, W, C] to [..., out_h, out_w, C] with torch-bicubic
+    weights (:func:`interp_matrix_bicubic_torch`) as two matrix products,
+    the weights in x's dtype (DINOv2's position-embedding resample)."""
+    h, w = x.shape[-3], x.shape[-2]
+    mh = interp_matrix_bicubic_torch(h, out_h, device=x.device).to(x.dtype)
+    mw = interp_matrix_bicubic_torch(w, out_w, device=x.device).to(x.dtype)
+    x = torch.einsum("oh,...hwc->...owc", mh, x)
+    return torch.einsum("ow,...hwc->...hoc", mw, x)

@@ -1,7 +1,7 @@
 """Correlation-pyramid sampling and patch extraction for the trackers.
 
 Counterpart of ``comet_tpu/ops/corr.py`` (``corr_volume_pyramid_sample``,
-``extract_patches_ex``, and the feature-pyramid form ``avg_pool_2x2``,
+``extract_patches`` and ``extract_patches_ex``, and the feature-pyramid form ``avg_pool_2x2``,
 ``build_fmap_pyramid`` and ``corr_pyramid_sample``, the semantic reference
 the trackers' volume form equals). The TPU version replaced gathers by two-hot
 selection matmuls; here the windows are plain gathers, with the same
@@ -136,6 +136,13 @@ def corr_pyramid_sample(
         vol = torch.matmul(tf, f.reshape(b * s, hl * wl, c).transpose(1, 2)).float()
         outs.append(_sample_windows(vol.reshape(b * s * n, hl, wl), pts / (2.0 ** lvl), radius))
     return torch.cat(outs, dim=-1).reshape(b, s, n, -1).to(track_feats.dtype)
+
+
+def extract_patches(images: torch.Tensor, topleft: torch.Tensor, psize: int) -> torch.Tensor:
+    """Integer-aligned patches [B, N, P, P, C] of images [B, H, W, C] at
+    topleft [B, N, 2] (x, y) corners, clamped into the image
+    (:func:`extract_patches_ex` in batch-major order)."""
+    return extract_patches_ex(images, topleft, psize, track_major=False)
 
 
 def extract_patches_ex(

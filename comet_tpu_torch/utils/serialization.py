@@ -6,7 +6,11 @@ package's weight file, a flax ``.msgpack`` (``save_params_msgpack``), without
 JAX, flax or the ``msgpack`` package: :func:`msgpack_restore` decodes the
 subset of msgpack that ``flax.serialization.msgpack_serialize`` writes, and
 :func:`load_params_msgpack` maps the tree onto the port's names through
-``weights.state_dict_from_flax``. The port writes no ``.msgpack``.
+``weights.state_dict_from_flax``. :func:`msgpack_serialize` writes that
+subset, byte for byte as flax does for the same tree, so the JAX package
+reads what the port writes: :func:`save_params_msgpack` (a module's weights as
+the flax tree of its JAX counterpart) and the matcher checkpoints of
+``matching.experiments``.
 """
 
 from __future__ import annotations
@@ -48,11 +52,12 @@ def check_gathered(model: nn.Module) -> None:
 
 def save_params(path: str, model: nn.Module) -> str:
     """Save ``model``'s state dict to ``path`` (a ``.pt`` file), whole or not
-    at all; returns the path. A ``.msgpack`` path (JAX's format, which the
-    port reads but does not write) and a tensor-parallel model raise."""
+    at all; returns the path. A ``.msgpack`` path (JAX's format:
+    :func:`save_params_msgpack` writes one) and a tensor-parallel model
+    raise."""
     if is_msgpack(path):
-        raise ValueError(f"{path}: the port writes its weights as .pt; a .msgpack is the JAX "
-                         "package's format")
+        raise ValueError(f"{path}: save_params writes its weights as .pt; save_params_msgpack "
+                         "writes the JAX package's .msgpack")
     check_gathered(model)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
@@ -83,6 +88,7 @@ def load_params(path: str, model: nn.Module) -> nn.Module:
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2 ** 30
 _DTYPES = frozenset({"bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
                      "uint64", "float16", "float32", "float64", "complex64", "complex128"})
 # fixed-size headers: tag -> (struct format of the length or value, kind)
@@ -206,6 +212,137 @@ class _Reader:
                              "value")
 
 
+def _packed_header(n: int, small: int, small_limit: int, tags: tuple) -> bytes:
+    """A length header: ``small | n`` below ``small_limit``, else the first
+    of ``tags`` (8-, 16-, 32-bit length; a tag of None is skipped) that holds n."""
+    if small is not None and n < small_limit:
+        return bytes([small | n])
+    for tag, fmt in zip(tags, (">B", ">H", ">I")):
+        if tag is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([tag]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: a length of {n} is too long")
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n < 0x80:
+        return bytes([n])
+    if -32 <= n < 0:
+        return struct.pack(">b", n)
+    if n >= 0:
+        for tag, fmt in ((0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"), (0xcf, ">Q")):
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([tag]) + struct.pack(fmt, n)
+    else:
+        for tag, fmt in ((0xd0, ">b"), (0xd1, ">h"), (0xd2, ">i"), (0xd3, ">q")):
+            if n >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                return bytes([tag]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: the integer {n} is out of range")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    n = len(payload)
+    head = bytes([fixed[n]]) if n in fixed else _packed_header(n, None, 0, (0xc7, 0xc8, 0xc9))
+    return head + struct.pack(">b", code) + payload
+
+
+def _ndarray_payload(arr: Union[np.ndarray, torch.Tensor]) -> bytes:
+    """An ext-1 payload: msgpack of (shape, dtype name, C-order bytes)."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().contiguous()
+        if arr.dtype == torch.bfloat16:
+            shape, name, buf = list(arr.shape), "bfloat16", arr.view(torch.int16).numpy().tobytes()
+        else:
+            return _ndarray_payload(arr.numpy())
+    else:
+        if arr.dtype.name not in _DTYPES:
+            raise ValueError(f"msgpack: ndarray dtype {arr.dtype.name!r} is not one flax writes")
+        shape, name, buf = list(arr.shape), arr.dtype.name, arr.tobytes("C")
+    out = bytearray([0x93])
+    _pack_value([int(d) for d in shape], out)
+    _pack_value(name, out)
+    out += _packed_header(len(buf), None, 0, (0xc4, 0xc5, 0xc6)) + buf
+    return bytes(out)
+
+
+def _pack_value(x: Any, out: bytearray) -> None:
+    if x is True or x is False:
+        out.append(0xc3 if x else 0xc2)
+    elif type(x) is int:
+        out += _pack_int(x)
+    elif type(x) is float:
+        out += b"\xcb" + struct.pack(">d", x)
+    elif type(x) is str:
+        raw = x.encode("utf-8")
+        out += _packed_header(len(raw), 0xa0, 32, (0xd9, 0xda, 0xdb)) + raw
+    elif type(x) is bytes:
+        out += _packed_header(len(x), None, 0, (0xc4, 0xc5, 0xc6)) + x
+    elif type(x) is list:
+        out += _packed_header(len(x), 0x90, 16, (None, 0xdc, 0xdd))
+        for v in x:
+            _pack_value(v, out)
+    elif type(x) is dict:
+        if not all(isinstance(k, str) for k in x):
+            raise ValueError(f"msgpack: a map key of {sorted(map(repr, x))} is not a string")
+        out += _packed_header(len(x), 0x80, 16, (None, 0xde, 0xdf))
+        for k, v in x.items():
+            _pack_value(k, out)
+            _pack_value(v, out)
+    elif isinstance(x, (np.ndarray, torch.Tensor)):
+        out += _pack_ext(_EXT_NDARRAY, _ndarray_payload(x))
+    elif isinstance(x, np.generic):
+        out += _pack_ext(_EXT_NPSCALAR, _ndarray_payload(np.asarray(x)))
+    elif type(x) is complex:
+        payload = bytearray([0x92])
+        _pack_value(x.real, payload)
+        _pack_value(x.imag, payload)
+        out += _pack_ext(_EXT_COMPLEX, bytes(payload))
+    else:
+        raise TypeError(f"msgpack: a {type(x).__name__} is not a leaf flax writes")
+
+
+def _chunked(tree: Any) -> Any:
+    """flax's chunked form of every array over MAX_CHUNK_SIZE bytes."""
+    if isinstance(tree, dict):
+        return {k: _chunked(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        flat = tree.reshape(-1)
+        step = max(1, MAX_CHUNK_SIZE // tree.dtype.itemsize)
+        chunks = [flat[i:i + step] for i in range(0, flat.size, step)]
+        return {_CHUNKED: True, "shape": {str(i): int(d) for i, d in enumerate(tree.shape)},
+                "chunks": {str(i): c for i, c in enumerate(chunks)}}
+    return tree
+
+
+def msgpack_serialize(tree: Dict[str, Any]) -> bytes:
+    """A tree of dicts with string keys and array, scalar or string leaves as
+    ``flax.serialization.to_bytes`` writes it (the same bytes): maps in
+    their order, numpy arrays and torch tensors (bf16 too) as ext type 1, numpy scalars
+    as ext 3, arrays over flax's MAX_CHUNK_SIZE in its chunked form. Raises
+    on anything else."""
+    out = bytearray()
+    _pack_value(_chunked(tree), out)
+    return bytes(out)
+
+
+def save_params_msgpack(path: str, params) -> str:
+    """Write a flax tree, or a module's weights as the flax variables of its
+    JAX counterpart (``weights.module_params_to_jax``), as the JAX package's
+    ``save_params_msgpack`` writes them (``flax.serialization.to_bytes``),
+    whole or not at all; returns the path."""
+    if isinstance(params, nn.Module):
+        from ..weights import module_params_to_jax
+
+        check_gathered(params)
+        params = module_params_to_jax(params)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(params))
+    os.replace(tmp, path)
+    return path
+
+
 def _unchunk(tree: Any, what: str) -> Any:
     """flax's chunked form of an oversized array back to the array."""
     if not isinstance(tree, dict):
@@ -248,11 +385,11 @@ def load_params_msgpack(path: str, model_or_cfg) -> Union[nn.Module, Dict[str, t
     parameter, a shape that differs or a parameter left unfilled. Given a
     model, loads the weights into it in place and returns it; given a
     config, returns the state dict."""
-    from ..weights import state_dict_from_flax
+    from ..weights import module_params_from_jax, state_dict_from_flax
 
     tree = read_msgpack(path)
     if isinstance(model_or_cfg, nn.Module):
-        model_or_cfg.load_state_dict(state_dict_from_flax(tree, model_or_cfg.state_dict()))
+        model_or_cfg.load_state_dict(module_params_from_jax(tree, model_or_cfg))
         return model_or_cfg
     from ..models.comet import build_comet
 

@@ -7,25 +7,34 @@ mechanical:
 - a Dense ``kernel`` [in, out] becomes ``weight`` [out, in];
 - a Conv ``kernel`` (HWIO) becomes ``weight`` (OIHW);
 - ``in_proj_kernel`` [E, 3E] becomes ``in_proj_weight`` [3E, E];
-- a LayerNorm / GroupNorm ``scale`` becomes ``weight``;
-- every other leaf keeps its name and shape.
+- a LayerNorm / GroupNorm / BatchNorm ``scale`` becomes ``weight``;
+- a BatchNorm's statistics, in the ``batch_stats`` collection beside
+  ``params``, become its buffers: ``mean`` ``running_mean`` and ``var``
+  ``running_var`` (flax keeps no ``num_batches_tracked``: it is filled with 0);
+- every other leaf keeps its name and shape (a module whose parameter
+  keeps a flax layout says so, as ALIKED's deformable ``weight`` does).
 
 The tree is a nested dict of numpy arrays (a ``bfloat16`` leaf, which
 numpy has no dtype for, may be a torch tensor: ``utils.serialization``'s
-msgpack reader gives one); no JAX is needed here.
+msgpack reader gives one); no JAX is needed here. :func:`module_params_to_jax`
+is the way back, a module's state dict as the flax variables
+(``{"params": ..., "batch_stats": ...}``) with numpy leaves.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, Iterator, Mapping, Tuple, Union
+from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from .config import CometConfig
 
 _INDEXED = re.compile(r"^(.+)_(\d+)$")
+# a BatchNorm's statistics: flax's batch_stats leaf -> the port's buffer
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -72,12 +81,18 @@ def state_dict_from_flax(tree: Mapping, expected: Mapping,
     differs, or a parameter is left unfilled. The tensors share memory with
     the given arrays where those are writable.
     """
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    stats: Mapping = {}
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        tree, stats = tree["params"], tree.get("batch_stats", {})
     expected = {k: tuple(getattr(v, "shape", v)) for k, v in expected.items()}
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _leaves(tree):
-        name, arr = convert_leaf(path, value, verbatim)
+    leaves = [(path, convert_leaf(path, value, verbatim)) for path, value in _leaves(tree)]
+    for path, value in _leaves(stats):
+        if path[-1] not in _STATS:
+            raise KeyError(f"batch_stats leaf {'/'.join(path)}: not a BatchNorm statistic")
+        name, arr = convert_leaf(path[:-1] + ("x",), value, verbatim)
+        leaves.append((("batch_stats",) + path, (name[:-1] + _STATS[path[-1]], arr)))
+    for path, (name, arr) in leaves:
         if name not in expected:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {name}: no such port parameter")
         if name in out:
@@ -92,6 +107,9 @@ def state_dict_from_flax(tree: Mapping, expected: Mapping,
         if not arr.flags.writeable:
             arr = arr.copy()
         out[name] = torch.from_numpy(arr)
+    for name in expected:
+        if name.endswith(".num_batches_tracked") and name not in out:
+            out[name] = torch.zeros((), dtype=torch.long)
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"port parameters not filled: {missing[:8]}{' ...' if len(missing) > 8 else ''}")
@@ -115,3 +133,99 @@ def module_params_from_jax(flax_params: Mapping, module: torch.nn.Module) -> Dic
     Raises like :func:`state_dict_from_flax`."""
     return state_dict_from_flax(flax_params, module.state_dict(),
                                 getattr(module, "FLAX_VERBATIM", ()))
+
+
+def module_params_to_jax(module: torch.nn.Module,
+                         values: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Dict]:
+    """``module``'s state dict as the flax variables of its JAX counterpart,
+    numpy f32 leaves: ``{"params": tree}``, with ``"batch_stats"`` where it
+    holds BatchNorms. The exact inverse of :func:`module_params_from_jax`: a
+    ``nn.Linear`` / ``nn.Conv2d`` ``weight`` becomes a ``kernel`` in flax's
+    layout, a norm's ``weight`` its ``scale``, an attention's
+    ``in_proj_weight`` its ``in_proj_kernel``, a BatchNorm's running
+    statistics ``mean`` and ``var`` (its ``num_batches_tracked`` is dropped),
+    a ModuleList index ``name.<i>`` the component ``name_<i>``; every other
+    leaf keeps its name and layout. Every map's keys are sorted.
+
+    ``values`` (parameter name -> tensor of its shape, such as an optimizer's
+    moments) puts those tensors in the parameters' places, and leaves the
+    buffers out: the tree of an optax state over the parameters."""
+    norms = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
+    leaves = []  # (module name, module, leaf name, tensor)
+    for mod_name, mod in module.named_modules():
+        own = list(mod.named_parameters(recurse=False))
+        if values is None:
+            own += [(n, b) for n, b in mod.named_buffers(recurse=False)
+                    if n not in mod._non_persistent_buffers_set and n != "num_batches_tracked"]
+        for leaf, value in own:
+            if values is not None:
+                value = values[f"{mod_name}.{leaf}" if mod_name else leaf]
+            leaves.append((mod_name, mod, leaf, value))
+    out: Dict[str, Dict] = {"params": {}}
+    for (mod_name, mod, leaf, _), arr in zip(leaves, _host_arrays([v for *_, v in leaves])):
+        section = "params"
+        if leaf == "weight" and isinstance(mod, (nn.Linear, nn.Conv2d)):
+            arr, leaf = (arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)), "kernel"
+        elif leaf == "weight" and (isinstance(mod, norms) or _is_norm(mod)):
+            leaf = "scale"
+        elif leaf == "in_proj_weight":
+            arr, leaf = arr.T, "in_proj_kernel"
+        elif leaf in ("running_mean", "running_var"):
+            section, leaf = "batch_stats", leaf[len("running_"):]
+        node = out.setdefault(section, {})
+        for comp in _flax_components(mod_name):
+            node = node.setdefault(comp, {})
+        node[leaf] = np.array(arr, order="C")  # (ascontiguousarray makes a 0-d array 1-d)
+    return _sorted(out)
+
+
+def _host_arrays(tensors):
+    """The tensors as f32 numpy arrays, with one device-to-host copy per
+    device (a copy per tensor would wait on the card once per tensor)."""
+    out = [None] * len(tensors)
+    by_device: Dict[torch.device, list] = {}
+    for i, t in enumerate(tensors):
+        by_device.setdefault(t.device, []).append(i)
+    for idx in by_device.values():
+        flat = torch.cat([tensors[i].detach().float().reshape(-1) for i in idx]).cpu().numpy()
+        start = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[start:start + n].reshape(tensors[i].shape)
+            start += n
+    return out
+
+
+def numpy_tree(tree):
+    """A writable numpy copy of a nested dict of arrays (the upstream
+    checkpoint converters fill one from a template)."""
+    if isinstance(tree, Mapping):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return np.array(tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree)
+
+
+def _sorted(tree):
+    """Every map's keys in order, as JAX's tree utilities leave a tree (so
+    that flax's ``to_bytes`` of the JAX tree and the port's encoder of this
+    one write the same bytes)."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _is_norm(mod: torch.nn.Module) -> bool:
+    from .models.blocks import GroupNorm, GroupNorm1, LayerNorm
+
+    return isinstance(mod, (LayerNorm, GroupNorm, GroupNorm1))
+
+
+def _flax_components(name: str):
+    """A dotted module name as flax path components: ``a.b.3.c`` ->
+    ``a, b_3, c``."""
+    comps = []
+    for part in name.split(".") if name else ():
+        if part.isdigit():
+            comps[-1] = f"{comps[-1]}_{part}"
+        else:
+            comps.append(part)
+    return comps

@@ -305,12 +305,12 @@ def test_eval_msgpack_checkpoint_matches_jax(monkeypatch, data, tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["match", "--experiment", "superpoint+lsd+gluestick"],
-    ["match", "--train"],
+    ["match", "--pipeline", "hpatches"],
 ], ids=["superpoint", "match"])
 def test_what_is_not_ported_raises(argv):
-    """What is still not ported raises (``--keypoints superpoint`` and
-    ``match`` are, since the matching slice): SuperPoint with lines and
-    GlueStick, and matcher training."""
+    """What is still not ported raises (``--keypoints superpoint``, ``match``
+    and ``match --train`` are, since the matching slices): SuperPoint with
+    lines and GlueStick, and the cached-prediction pipelines."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tcli.main(argv + ["--device", "cpu"])
 

@@ -203,8 +203,7 @@ def test_match_load_experiment_prints_jax_row(sp_params, lg_experiment, jax_draw
 
 
 @pytest.mark.parametrize("option,item", [
-    (["--train"], "7a"), (["--resume"], "7a"), (["--ckpt-every", "2"], "7a"),
-    (["--val-pairs", "2"], "7a"), (["--pipeline", "hpatches"], "7b"),
+    (["--pipeline", "hpatches"], "7b"), (["--pipeline", "relpose"], "7b"),
     (["--export-features", "."], "7b"), (["--inspect", "2"], "7f"),
 ])
 def test_unported_match_options_raise(option, item):
@@ -212,7 +211,8 @@ def test_unported_match_options_raise(option, item):
         tcli.main(["match", "--device", "cpu", *option])
 
 
-@pytest.mark.parametrize("experiment,item", [("aliked+nn", "7c"), ("deeplsd+gluestick", "7d")])
+@pytest.mark.parametrize("experiment,item", [("superpoint+lsd+gluestick", "7d"),
+                                             ("deeplsd+gluestick", "7d")])
 def test_unported_experiments_raise(experiment, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}"):
         tcli.main(["match", "--device", "cpu", "--experiment", experiment, "--n-pairs", "1"])

@@ -1,4 +1,4 @@
-"""The port's reader of flax ``.msgpack`` weight files, without JAX.
+"""The port's reader and writer of flax ``.msgpack`` files, without JAX.
 
 Files are written by this host's flax (``comet_tpu.utils.serialization.
 save_params_msgpack``, ``flax.serialization.msgpack_serialize``) and read
@@ -6,7 +6,9 @@ by ``comet_tpu_torch.utils.serialization``'s own decoder; every comparison
 is exact: f32 leaves bit for bit, bf16 leaves bit for bit as bf16 (and so
 after the exact widening into the port's f32 parameters), and flax's
 chunked form of an array over its ``MAX_CHUNK_SIZE`` (lowered here by
-``monkeypatch`` so that a tiny tree holds one).
+``monkeypatch`` so that a tiny tree holds one). What the port writes
+(``msgpack_serialize``, ``save_params_msgpack``) is byte for byte what
+flax's ``to_bytes`` writes for the same tree, and reads back in flax.
 """
 
 import jax.numpy as jnp
@@ -174,3 +176,91 @@ def test_a_tree_of_another_model_raises(tree, tmp_path):
 def test_the_port_writes_no_msgpack(tmp_path):
     with pytest.raises(ValueError, match=r"\.pt"):
         tser.save_params(str(tmp_path / "w.msgpack"), torch.nn.Linear(2, 2))
+
+
+def _encoder_tree():
+    rng = np.random.default_rng(3)
+    return {
+        "params": {"dense": {"kernel": rng.normal(size=(3, 5)).astype(np.float32),
+                             "bias": np.zeros(5, np.float32)},
+                   "b_0": {"idx": np.arange(300, dtype=np.int64), "flag": np.array([True, False])},
+                   "half": jnp.asarray(rng.normal(size=(2, 3)), jnp.bfloat16)},
+        "opt": {"0": {"count": np.array(7, np.int32), "mu": {}, "scalar": np.float32(2.5)},
+                "1": {}},
+        "meta": {"name": "x" * 40, "ints": [0, 1, -5, -33, 127, 200, 300, -200, 70000, -70000,
+                                             2 ** 40, -(2 ** 40)],
+                 "pi": 3.25, "on": True, "off": False, "z": 1 + 2j,
+                 "empty": np.zeros((0, 3), np.float32), "f64": np.ones((2, 2))},
+    }
+
+
+def _as_port(tree):
+    """bfloat16 leaves as the torch tensors the port holds them in."""
+    if isinstance(tree, dict):
+        return {k: _as_port(v) for k, v in tree.items()}
+    if hasattr(tree, "dtype") and tree.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.asarray(tree, np.float32)).to(torch.bfloat16)
+    return tree
+
+
+@pytest.mark.parametrize("chunk", [None, 512], ids=["whole", "chunked"])
+def test_the_encoder_writes_what_flax_writes(monkeypatch, chunk):
+    """``msgpack_serialize`` gives flax's bytes for the same tree: its
+    ``msgpack_serialize`` of the tree as it is (maps in their order, every
+    leaf type flax writes, bf16 from a torch tensor, lists, flax's chunked
+    form over MAX_CHUNK_SIZE), and its ``to_bytes`` of a tree of maps and
+    arrays (``to_bytes`` turns a list into a map); flax and the port's
+    decoder read it back."""
+    import copy
+
+    tree = _encoder_tree()
+    if chunk:
+        monkeypatch.setattr(fser, "MAX_CHUNK_SIZE", chunk)
+        monkeypatch.setattr(tser, "MAX_CHUNK_SIZE", chunk)
+    want = fser.msgpack_serialize(copy.deepcopy(tree), in_place=True)
+    got = tser.msgpack_serialize(_as_port(tree))
+    assert got == want
+    state = {k: v for k, v in tree.items() if k != "meta"}
+    assert tser.msgpack_serialize(_as_port(state)) == fser.to_bytes(state)
+    if chunk:
+        assert got.count(b"__msgpack_chunked_array__") >= 1
+    back = tser.msgpack_restore(got)
+    np.testing.assert_array_equal(back["params"]["dense"]["kernel"], tree["params"]["dense"]["kernel"])
+    assert back["opt"]["0"]["count"].dtype == np.int32 and int(back["opt"]["0"]["count"]) == 7
+    assert back["meta"]["ints"] == tree["meta"]["ints"] and back["meta"]["z"] == 1 + 2j
+    assert fser.msgpack_restore(got)["meta"]["name"] == "x" * 40
+    for leaf in (object(), None):
+        with pytest.raises(TypeError, match="not a leaf flax writes"):
+            tser.msgpack_serialize({"x": leaf})
+    with pytest.raises(ValueError, match="not a string"):
+        tser.msgpack_serialize({1: np.zeros(2)})
+
+
+def test_save_params_msgpack_writes_a_file_jax_loads(tmp_path):
+    """A port module's weights written by ``save_params_msgpack``: JAX's
+    ``load_params_msgpack`` restores them onto its own template bit for bit,
+    and the port's ``load_params`` reads them back."""
+    import jax
+
+    from comet_tpu.matching.superglue import SuperGlueMatcher as JaxSuperGlue
+    from comet_tpu.utils.serialization import load_params_msgpack
+    from comet_tpu_torch.matching.superglue import SuperGlueMatcher
+    from comet_tpu_torch.models.blocks import init_params
+
+    port = SuperGlueMatcher(depth=1, dim=32, in_dim=16)
+    init_params(port, torch.Generator().manual_seed(2))
+    path = tser.save_params_msgpack(str(tmp_path / "sub" / "sg.msgpack"), port)
+    x = jnp.zeros((4, 16))
+    template = jax.eval_shape(JaxSuperGlue(depth=1, dim=32).init, jax.random.PRNGKey(0),
+                              x[:, :2], x, x[:, :2], x)
+    template = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), template)
+    restored = load_params_msgpack(path, template)
+    from comet_tpu_torch.weights import module_params_from_jax
+
+    sd = module_params_from_jax(jax.tree_util.tree_map(np.asarray, restored), port)
+    for k, v in port.state_dict().items():
+        assert torch.equal(sd[k], v), k
+    again = SuperGlueMatcher(depth=1, dim=32, in_dim=16)
+    tser.load_params(path, again)
+    assert all(torch.equal(a, b) for a, b in zip(again.state_dict().values(),
+                                                 port.state_dict().values()))

@@ -21,7 +21,13 @@ import comet_tpu.config as jcfg
 import comet_tpu_torch.config as tcfg
 from comet_tpu.models import COMET as JaxCOMET
 from comet_tpu_torch.models import build_comet
-from comet_tpu_torch.weights import convert_leaf, params_from_jax, state_dict_from_flax
+from comet_tpu_torch.weights import (
+    convert_leaf,
+    module_params_from_jax,
+    module_params_to_jax,
+    params_from_jax,
+    state_dict_from_flax,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -108,3 +114,114 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ------------------------------------------------------------ batch_stats and the way back
+
+def test_bridge_maps_batch_stats_to_the_running_statistics():
+    """flax's ``batch_stats`` collection: ``mean`` -> ``running_mean``,
+    ``var`` -> ``running_var``; ``num_batches_tracked`` (which flax does not
+    keep) is filled with 0; a statistic of no BatchNorm, or one missing,
+    raises."""
+    import torch
+
+    from comet_tpu_torch.models.blocks import BatchNorm, Conv2d
+
+    module = torch.nn.Module()
+    module.conv0 = Conv2d(3, 4, 3, bias=False)
+    module.bn0 = BatchNorm(4)
+    rng = np.random.default_rng(1)
+    tree = {
+        "params": {"conv0": {"kernel": rng.normal(size=(3, 3, 3, 4)).astype(np.float32)},
+                   "bn0": {"scale": rng.random(4, np.float32), "bias": rng.random(4, np.float32)}},
+        "batch_stats": {"bn0": {"mean": rng.random(4, np.float32),
+                                "var": rng.random(4, np.float32)}},
+    }
+    sd = module_params_from_jax(tree, module)
+    np.testing.assert_array_equal(sd["bn0.running_mean"], tree["batch_stats"]["bn0"]["mean"])
+    np.testing.assert_array_equal(sd["bn0.running_var"], tree["batch_stats"]["bn0"]["var"])
+    np.testing.assert_array_equal(sd["bn0.weight"], tree["params"]["bn0"]["scale"])
+    assert int(sd["bn0.num_batches_tracked"]) == 0
+    module.load_state_dict(sd)
+    back = module_params_to_jax(module)
+    assert _paths(back) == _paths(tree)
+    np.testing.assert_array_equal(back["batch_stats"]["bn0"]["var"], tree["batch_stats"]["bn0"]["var"])
+    bad = {**tree, "batch_stats": {"bn0": {**tree["batch_stats"]["bn0"], "count": np.zeros(4)}}}
+    with pytest.raises(KeyError, match="not a BatchNorm statistic"):
+        module_params_from_jax(bad, module)
+    with pytest.raises(KeyError, match="not filled"):
+        module_params_from_jax({"params": tree["params"]}, module)
+
+
+def _paths(tree, prefix=""):
+    """path -> shape of every leaf of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_paths(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = tuple(np.shape(v))
+    return out
+
+
+def _slice_modules():
+    """(name, JAX module and init arguments, port module) of every matcher,
+    extractor and backbone of the matching slice, at full width."""
+    from comet_tpu.matching import lightglue as jlg
+    from comet_tpu.matching import superglue as jsg
+    from comet_tpu.models import aliked as jal
+    from comet_tpu.models import disk as jdisk
+    from comet_tpu.models import keynet as jkn
+    from comet_tpu.models import vit as jvit
+    from comet_tpu_torch.matching import lightglue as tlg
+    from comet_tpu_torch.matching import superglue as tsg
+    from comet_tpu_torch.models import aliked as tal
+    from comet_tpu_torch.models import disk as tdisk
+    from comet_tpu_torch.models import keynet as tkn
+    from comet_tpu_torch.models.vit import DinoViT
+
+    k, d = jnp.zeros((8, 2)), jnp.zeros((8, 256))
+    img = jnp.zeros((1, 64, 64, 3))
+    out = {
+        "lightglue": (jlg.LightGlueMatcher(), (k, d, k, d), lambda: tlg.LightGlueMatcher(in_dim=256)),
+        "superglue": (jsg.SuperGlueMatcher(), (k, d, k, d), lambda: tsg.SuperGlueMatcher(in_dim=256)),
+        "disk": (jdisk.DISK(), (img,), lambda: tdisk.DISK()),
+        "dense_disk": (jdisk.DISKUnet(up=(64, 64, 64, 129)), (img,), lambda: tdisk.DISKUnet()),
+        "keynet": (jkn.KeyNetHardNet(), (img[0],), lambda: tkn.KeyNetHardNet()),
+        "dinov2_vits14": (jvit.DinoViT(img_size=224, embed_dim=384, depth=12, num_heads=6,
+                                       num_register_tokens=0), (jnp.zeros((1, 224, 224, 3)),),
+                          lambda: DinoViT(img_size=224, embed_dim=384, depth=12, num_heads=6,
+                                          num_register_tokens=0)),
+    }
+    for cfg in jal.ALIKED_CFGS:
+        out[cfg] = (jal.ALIKED(model_name=cfg), (img,), lambda cfg=cfg: tal.ALIKED(cfg))
+    return out
+
+
+SLICE = ["lightglue", "superglue", "aliked-t16", "aliked-n16", "aliked-n16rot", "aliked-n32",
+         "disk", "dense_disk", "keynet", "dinov2_vits14"]
+
+
+@pytest.mark.parametrize("name", SLICE)
+def test_module_params_to_jax_is_the_inverse_of_the_bridge(name):
+    """For every module of the matching slice: the port's state dict as a
+    flax tree has exactly the JAX module's variables (paths and shapes, from
+    ``jax.eval_shape``), and the bridge carries it back bit for bit."""
+    import torch
+
+    from comet_tpu_torch.models.blocks import init_params
+
+    jmod, args, make = _slice_modules()[name]
+    shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(0), *args)
+    module = make()
+    init_params(module, torch.Generator().manual_seed(0))
+    tree = module_params_to_jax(module)
+    assert _paths(tree) == _paths(jax.tree_util.tree_map(lambda a: np.zeros(a.shape), shapes))
+    sd = module_params_from_jax(tree, module)
+    want = module.state_dict()
+    assert set(sd) == set(want)
+    for key, value in want.items():
+        assert torch.equal(sd[key], value), key
+    # numpy f32 leaves, every map's keys in order (as JAX's tree utilities give it)
+    leaves = jax.tree_util.tree_leaves(tree)
+    assert all(isinstance(a, np.ndarray) and a.dtype == np.float32 for a in leaves)
