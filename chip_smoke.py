@@ -125,7 +125,7 @@ Phases, each of which makes the script exit nonzero when it fails:
    mp4 codec) was written is printed; its absence fails nothing; and
 11. serving (``utils/serving.py``) on a copy of the model cast to bf16 once
    with frozen weights: the forward on each route and the windowed chain at
-   T 48 (default route) exported with ``torch.export`` (the graph must hold
+   T 32 (default route) exported with ``torch.export`` (the graph must hold
    each route's kernels as ``comet::`` operator nodes, as many as the
    forward launches) and saved, the weights saved as a ``.pt`` file; a
    fresh process (``chip_smoke.py --serve DIR``, which must not import
@@ -236,7 +236,32 @@ Phases, each of which makes the script exit nonzero when it fails:
    the card the host synchronizations of one benchmark pair (with their
    source lines) and the peak memory. K1-K5
    may not launch in (a), (b), (d) or (c)'s seeding; (c)'s eval runs the
-   COMET forward, whose launches are printed.
+   COMET forward, whose launches are printed; and
+16. matcher training, the ALIKED, DISK and KeyNet extractors and the DINOv2
+   backbone on K1 (``train_extract_phase``); and
+17. line matching, depth ground truth and the cached-prediction pipelines
+   (``matching/lines.py``, ``deeplsd.py``, ``gluestick.py``, ``depth_gt.py``,
+   ``eval_pipeline.py``, ``cache_loader.py``; no kernel), TF32 off: (a) the
+   two line experiments as named (GlueStick depth 6, width 128) and
+   GlueStick at depth 9, width 256, DeepLSD at base 32, on phase 15's 8
+   synthetic 480 px pairs (512 keypoints, 64 lines): on 3 pairs the card
+   against the CPU (keypoints and segments equal but for near-ties, a
+   differing segment coming back when the card marches the CPU's fields,
+   the fields within LINES17_FIELD_TOL, a check that must see the card's
+   orientation moved by LINES17_PERTURB where a march reads it; GlueStick
+   on the CPU's features, its log assignments within MATCH_TOL and
+   matches equal but for near-ties),
+   then the benchmark row on the card and ms per pair of the extractor, the
+   detector and the matcher, host syncs per pair and peak memory; (b)
+   ``gt_matches_from_pose_depth`` and ``gt_line_matches_from_pose_depth``
+   on 512 keypoints and 480 px depth maps, labels equal card against CPU,
+   ms per call; (c) each pipeline's model over its loader (``--pipeline
+   hpatches`` on synthetic pairs and on an image directory with a pairs
+   file written here, ``--pipeline relpose`` on synthetic pairs and on an
+   AMD fixture) on the card against the CPU: keypoints and matches0 index
+   for index equal but for near-ties; without h5py, ``run`` and
+   ``--export-features`` raising, naming it (with h5py the .h5 round trip
+   is held to the JAX package by the CPU tests, not here).
 
 The script prints its total time; the line before the last holds the
 kernels' JSON record, and the last line
@@ -1957,9 +1982,12 @@ def cli_phase(torch, cfg, counters, smi):
     return walls
 
 
-# phase 11: serving. The windowed artifact's length (5 windows of seqlen 16),
-# and the serving process's time limit (it loads three artifacts)
-SERVE_WINDOWED_T = 48
+# phase 11: serving. The windowed artifact's length (3 windows of seqlen 16;
+# at T 48, 5 windows, its export, save and load took 363 s of a run that
+# ended 42 s inside the script's 1,200 s limit on a slow host, the card's
+# kernel rows as in faster runs), and the serving process's time limit (it
+# loads three artifacts)
+SERVE_WINDOWED_T = 32
 SERVE_TIMEOUT = 1200
 # the artifacts: the forward on each route, the windowed chain on the default
 SERVED = ("default", "fused", "windowed")
@@ -4547,6 +4575,522 @@ def train_extract_phase(torch, np, F, attn, counters, dev, smi):
     return rec
 
 
+# phase 17: line matching, depth ground truth and the cached-prediction
+# pipelines (matching/lines.py, deeplsd.py, gluestick.py, depth_gt.py,
+# eval_pipeline.py, cache_loader.py, viz.py; no kernel). (a) runs the two line
+# experiments as named (GlueStick depth 6, width 128), GlueStick at the
+# registry's width and DeepLSD at base 32 on phase 15's MATCH_PAIRS synthetic
+# MATCH_IMG px pairs (512 keypoints, 64 lines), LINES17_CPU_PAIRS of them on
+# the CPU too; GlueStick loads the weights of ``_gluestick_cosine`` (random
+# ones match nothing)
+LINES17 = (("superpoint+lsd+gluestick", {}), ("deeplsd+gluestick", {}),
+           ("superpoint+lsd+gluestick", {"depth": 9, "dim": 256}))
+LINES17_CPU_PAIRS = 3
+# the fields a march reads, card against CPU, within LINES17_FIELD_TOL
+# (``_field_gaps``); segments within LINES17_SEG_TOL px
+LINES17_FIELD_TOL = 1e-5
+LINES17_SEG_TOL = 1e-3
+# the field check must see the card's orientation (DeepLSD: twice the line
+# angle) moved by LINES17_PERTURB rad where a march reads it
+LINES17_PERTURB = 1e-4
+# (b): the depth maps' size and keypoints; (c): the pipelines' pairs
+DEPTH17_KP = 512
+PIPE17_PAIRS = 4
+PIPE17_AMD_PAIRS = 2
+
+
+def _gib(x):
+    return "not measured" if x is None else f"{x:.3f} GiB"
+
+
+def _sync_ms(torch, dev, fn, *args):
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _sync(torch, dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _field_gaps(torch, np, lines, gray, dev, detector, threshold):
+    """The fields a detector marches on both devices: (value gap, orientation
+    gap, the check's reach (the orientation gap of a perturbed card field,
+    the share of the marched pixels where the perturbation is seen), the
+    CPU's march fields). The LSD stand-in: the Sobel's magnitude
+    (gap relative to its range) and orientation (its difference, 2 pi
+    wrapped, times the magnitude over the magnitude's range: the gradient's
+    perpendicular part); DeepLSD: the distance field (relative to its range)
+    and the line angle (its difference times the angle head's vector norm
+    over that norm's largest: the vector's perpendicular part)."""
+    fields, out = [], []
+    for d in (dev, torch.device("cpu")):
+        g = gray.to(d)
+        with torch.no_grad():
+            if detector is None:
+                gx, gy = lines.image_gradients(g)
+                mag = lines.gradient_magnitude(gx, gy)
+                out.append((mag, torch.atan2(gy, gx), mag))
+                fields.append((mag, out[-1][1]))
+            else:
+                f = detector.module(d)(g)
+                out.append((f["df"], 2.0 * f["angle"],
+                            torch.linalg.vector_norm(f["angle_vec"], dim=-1)))
+                fields.append((torch.exp(-f["df"] / detector.tau), f["angle"] + math.pi / 2.0))
+    (gv, gt, _), (wv, wt, ww) = [tuple(a.cpu().double().numpy() for a in o) for o in out]
+
+    def orientation_gap(theta):
+        dth = np.abs(theta - wt) % (2 * np.pi)
+        dth = np.minimum(dth, 2 * np.pi - dth)
+        return float((dth * ww).max() / max(float(ww.max()), 1e-12))
+
+    # the check's reach: the card's orientation moved by LINES17_PERTURB at
+    # every pixel a march step can pass (the value field over half the
+    # threshold), and the share of those pixels where that move alone
+    # would exceed LINES17_FIELD_TOL
+    read = fields[1][0].numpy() > threshold / 2
+    reach = (orientation_gap(gt + LINES17_PERTURB * read),
+             float((LINES17_PERTURB * ww[read] / max(float(ww.max()), 1e-12)
+                    > LINES17_FIELD_TOL).mean()))
+    value_gap = float(np.abs(gv - wv).max() / max(float(wv.max() - wv.min()), 1e-12))
+    return value_gap, orientation_gap(gt), reach, fields[1]
+
+
+def _gluestick_cosine(torch, module):
+    """GlueStick's state with every layer's update zeroed, the keypoint and
+    endpoint encoders' last layers zeroed, the input and endpoint
+    projections identities and the final projections MATCH_COSINE_SCALE^(1/2)
+    x dim^(1/4) x identity: points and lines are then scored by
+    MATCH_COSINE_SCALE x the dot product of their (leading) descriptor
+    entries (random weights match nothing)."""
+    sd = {k: v.clone() for k, v in module.state_dict().items()}
+    scale = MATCH_COSINE_SCALE ** 0.5 * module.dim ** 0.25
+    for k in sd:
+        head = k.split(".")[0]
+        if head in ("input_proj", "endpoint_proj", "final_proj", "final_line_proj"):
+            eye = torch.eye(*sd[k].shape) if k.endswith("weight") else None
+            sd[k] = (eye * (scale if head.startswith("final") else 1.0) if eye is not None
+                     else torch.zeros_like(sd[k]))
+        elif k.startswith(("kenc.encoder.fc4.", "lenc.encoder.fc4.")) or ".mlp.fc1." in k:
+            sd[k] = torch.zeros_like(sd[k])
+    sd["bin_score"], sd["line_bin_score"] = torch.tensor(1.0), torch.tensor(1.0)
+    return sd
+
+
+def _segment_slots(np, got, want):
+    """Slots whose validity differs or, both valid, whose endpoints are more
+    than LINES17_SEG_TOL px apart."""
+    gv, wv = got.valid.cpu().numpy(), want.valid.cpu().numpy()
+    err = np.abs(got.segments.cpu().numpy() - want.segments.cpu().numpy()).reshape(len(gv), -1)
+    return np.nonzero((gv != wv) | (wv & (err.max(1) > LINES17_SEG_TOL)))[0]
+
+
+def lines17(torch, np, dev):
+    """Phase 17 (a): per configuration of LINES17, on LINES17_CPU_PAIRS pairs
+    the card against the CPU: SuperPoint's keypoints (near-ties counted), the
+    detector's fields and segments (a differing segment must come back when
+    the card marches the CPU's fields: a near-tie of the fields' rounding),
+    GlueStick on the CPU's features (log assignments within MATCH_TOL,
+    matches equal but for near-ties); then the benchmark over MATCH_PAIRS
+    pairs on the card, ms per pair of the extractor, the detector and the
+    matcher, host syncs per pair and peak memory. Returns (records,
+    failures)."""
+    from comet_tpu_torch.matching import benchmarks, configs, lines
+    from comet_tpu_torch.models.blocks import init_params
+    from comet_tpu_torch.weights import module_params_to_jax
+
+    cpu = torch.device("cpu")
+    pairs = benchmarks.make_synthetic_pairs(MATCH_PAIRS, (MATCH_IMG, MATCH_IMG), seed=0, device=dev)
+    records, failures = [], []
+    for name, matcher in LINES17:
+        label = name + (f" (GlueStick depth {matcher['depth']}, width {matcher['dim']})" if matcher
+                        else "")
+        pipes = {d: configs.build_pipeline(name, image_hw=(MATCH_IMG, MATCH_IMG), matcher=matcher)
+                 for d in ("card", "cpu")}
+        m = type(pipes["cpu"].matcher.matcher)(**pipes["cpu"].matcher.matcher.conf, in_dim=256,
+                                               line_in_dim=3)
+        init_params(m, torch.Generator().manual_seed(0))
+        m.load_state_dict(_gluestick_cosine(torch, m))
+        params = module_params_to_jax(m)
+        for p in pipes.values():
+            p.matcher.holder["params"] = params
+        rec = dict(name=label, kp_diff=0, kp_near=0, line_diff=0, line_near=0, field_gap=0.0,
+                   match_diff=0, match_near=0, line_match_diff=0, line_match_near=0, la_err=0.0,
+                   perturbed_gap=math.inf, perturb_seen=1.0)
+        for i in range(LINES17_CPU_PAIRS):
+            img0, img1, _ = pairs[i]
+            feats = {}
+            for side, img in (("0", img0), ("1", img1)):
+                got = pipes["card"].extractor(img)
+                want = pipes["cpu"].extractor(img.cpu())
+                feats[side] = want
+                d, n, _ = _keypoint_diffs(np, got["keypoints"].cpu().numpy(),
+                                          got["scores"].cpu().numpy(), want["keypoints"].numpy(),
+                                          want["scores"].numpy(), 9)
+                rec["kp_diff"] += d
+                rec["kp_near"] += n
+                det = pipes["cpu"].extractor.line_detector
+                gray = img.mean(dim=-1)
+                kw = {} if det is None else dict(mag_threshold=0.3, angle_tol=0.4)
+                mag_gap, th_gap, reach, fields = _field_gaps(
+                    torch, np, lines, gray, dev, det, kw.get("mag_threshold", 0.02))
+                rec["field_gap"] = max(rec["field_gap"], mag_gap, th_gap)
+                rec["perturbed_gap"] = min(rec["perturbed_gap"], reach[0])
+                rec["perturb_seen"] = min(rec["perturb_seen"], reach[1])
+                segs = lambda o: lines.LineSegments(o["lines"], o["line_scores"],  # noqa: E731
+                                                    o["line_valid"])
+                slots = _segment_slots(np, segs(got), segs(want))
+                replay = lines.march_segments_from_fields(*(f.to(dev) for f in fields),
+                                                          max_lines=64, **kw)
+                rec["line_diff"] += len(slots)
+                rec["line_near"] += int(sum(i not in _segment_slots(np, replay, segs(want))
+                                            for i in slots))
+            # the matcher on the CPU's features, on both devices
+            card_m = pipes["card"].matcher
+            f_card = [{k: v.to(dev) if hasattr(v, "to") else v for k, v in feats[s].items()}
+                      for s in "01"]
+            got = {k: v.cpu() for k, v in card_m(*f_card).items()}
+            want = pipes["cpu"].matcher(feats["0"], feats["1"])
+            for key, la, dk, nk in (("matches0", "log_assignment", "match_diff", "match_near"),
+                                    ("line_matches0", "line_log_assignment", "line_match_diff",
+                                     "line_match_near")):
+                lg, lw = got[la].numpy(), want[la].numpy()
+                rec["la_err"] = max(rec["la_err"], _rel_err(np, lg, lw))
+                d, n = _match_diffs(np, got[key].numpy(), want[key].numpy(), lg[:-1, :-1],
+                                    lw[:-1, :-1])
+                rec[dk] += d
+                rec[nk] += n
+        # the benchmark on the card, then the parts' ms per pair
+        pipe = pipes["card"]
+        t0 = time.perf_counter()
+        row = benchmarks.run_homography_benchmark(pipe, pairs)
+        _sync(torch, dev)
+        rec["benchmark_s"] = time.perf_counter() - t0
+        ms = {"extractor": [], "detector": [], "matcher": []}
+        det = pipe.extractor.line_detector
+        for img0, img1, _ in pairs:
+            f = []
+            for img in (img0, img1):
+                out, t = _sync_ms(torch, dev, pipe.extractor, img)
+                f.append(out)
+                ms["extractor"].append(t)
+                gray = img.mean(dim=-1)
+                _, t = _sync_ms(torch, dev, (lambda g: lines.detect_line_segments(g, 64))
+                                if det is None else det, gray)
+                ms["detector"].append(t)
+            ms["matcher"].append(_sync_ms(torch, dev, pipe.matcher, *f)[1])
+        clock = _StageClock(torch, dev)
+        clock.measure("benchmark", benchmarks.run_homography_benchmark, pipe, pairs[:1])
+        r = clock.records[0]
+        rec.update(row=row, syncs_per_pair=r["syncs"], where=r["where"], peak_gib=r["peak_gib"],
+                   extractor_ms=2 * statistics.median(ms["extractor"][2:]),
+                   detector_ms=2 * statistics.median(ms["detector"][2:]),
+                   matcher_ms=statistics.median(ms["matcher"][1:]))
+        bad = [k for k, v in row.items() if isinstance(v, float) and not math.isfinite(v)
+               and k != "H_error_ransac"]
+        ok = (rec["kp_diff"] == rec["kp_near"] and rec["line_diff"] == rec["line_near"]
+              and rec["field_gap"] <= LINES17_FIELD_TOL < rec["perturbed_gap"]
+              and rec["la_err"] <= MATCH_TOL
+              and rec["match_diff"] == rec["match_near"]
+              and rec["line_match_diff"] == rec["line_match_near"] and not bad)
+        print(f"lines (a): {label}: on {LINES17_CPU_PAIRS} pairs card against CPU: keypoints "
+              f"{rec['kp_diff']} differ ({rec['kp_near']} near-ties), lines {rec['line_diff']} "
+              f"differ ({rec['line_near']} near-ties of the fields: the card's march on the CPU's "
+              f"fields gives the CPU's), fields within {rec['field_gap']:.2e} (tol "
+              f"{LINES17_FIELD_TOL}; the card's orientation moved by {LINES17_PERTURB} rad where "
+              f"a march reads it reads {rec['perturbed_gap']:.2e}, and at "
+              f"{100 * rec['perturb_seen']:.1f} % of those pixels alone would be seen), log "
+              f"assignments within {rec['la_err']:.2e} (tol {MATCH_TOL}), "
+              f"matches {rec['match_diff']} differ ({rec['match_near']} near-ties), line matches "
+              f"{rec['line_match_diff']} ({rec['line_match_near']} near-ties); benchmark at "
+              f"{MATCH_PAIRS} pairs on the card {json.dumps(row)} in {rec['benchmark_s']:.1f} s; "
+              f"per pair: extractor {rec['extractor_ms']:.1f} ms (both images; of it the detector "
+              f"{rec['detector_ms']:.1f}), matcher {rec['matcher_ms']:.1f} ms, "
+              f"{rec['syncs_per_pair']} host syncs {rec['where']}, peak {_gib(rec['peak_gib'])}"
+              + ("" if ok else " FAILED"), flush=True)
+        if not ok:
+            failures.append(f"(a) {label}")
+        records.append(rec)
+    return records, failures
+
+
+def _plane_views(np, size, n_kp, seed=0):
+    """Two size x size views of a plane with exact depth maps (holes of
+    depth 0), n_kp keypoints of view 0 and their noisy projections into view
+    1 (the last quarter at random) and 64 segments with their warps."""
+    rng = np.random.default_rng(seed)
+    f = 0.9 * size
+    k = np.asarray([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]])
+    axis = np.asarray([0.2, 1.0, 0.1]) / np.linalg.norm([0.2, 1.0, 0.1])
+    kx = np.asarray([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    r = np.eye(3) + np.sin(0.15) * kx + (1 - np.cos(0.15)) * kx @ kx
+    t = np.asarray([0.4, -0.1, 0.05])
+    n, d = np.asarray([0.1, -0.05, 1.0]), 4.0
+    ys, xs = np.mgrid[0:size, 0:size] + 0.5
+    rays = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(k).T
+    depth0 = d / (rays @ n)
+    n1 = r @ n
+    depth1 = (d + n1 @ t) / (rays @ n1)
+    for dm in (depth0, depth1):
+        for _ in range(6):
+            y, x = rng.integers(0, size - size // 8, 2)
+            dm[y:y + size // 8, x:x + size // 10] = 0.0
+    h01 = k @ (r + np.outer(t, n) / d) @ np.linalg.inv(k)
+
+    def warp(p):
+        q = np.concatenate([p, np.ones_like(p[:, :1])], -1) @ h01.T
+        return q[:, :2] / q[:, 2:]
+
+    kp0 = rng.uniform(2, size - 2, (n_kp, 2))
+    kp1 = warp(kp0) + rng.normal(0, 0.5, kp0.shape)
+    kp1[3 * n_kp // 4:] = rng.uniform(2, size - 2, (n_kp - 3 * n_kp // 4, 2))
+    l0 = rng.uniform(4, size - 4, (64, 2, 2))
+    l1 = warp(l0.reshape(-1, 2)).reshape(64, 2, 2) + rng.normal(0, 0.3, (64, 2, 2))
+    return {k_: np.asarray(v, np.float32) for k_, v in dict(
+        kp0=kp0, kp1=kp1, depth0=depth0, depth1=depth1, K0=k, K1=k, R=r, t=t, l0=l0,
+        l1=l1).items()}
+
+
+def depth17(torch, np, dev):
+    """Phase 17 (b): ``gt_matches_from_pose_depth`` (with circle and
+    epipolar checks) and ``gt_line_matches_from_pose_depth`` on DEPTH17_KP
+    keypoints and 64 segments of MATCH_IMG px depth maps, card against CPU:
+    labels equal, ms per call. Returns (record, failures)."""
+    from comet_tpu_torch.matching import depth_gt
+
+    s = _plane_views(np, MATCH_IMG, DEPTH17_KP)
+    pose = ("depth0", "depth1", "K0", "K1", "R", "t")
+    calls = {
+        "gt_matches_from_pose_depth": lambda a: depth_gt.gt_matches_from_pose_depth(
+            a["kp0"], a["kp1"], *(a[k] for k in pose), cc_threshold=4.0, epi_threshold=1.0),
+        "gt_line_matches_from_pose_depth": lambda a: depth_gt.gt_line_matches_from_pose_depth(
+            a["l0"], a["l1"], *(a[k] for k in pose)),
+    }
+    rec, failures = {}, []
+    for name, fn in calls.items():
+        out, times = {}, {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            a = {k: torch.as_tensor(v, device=d) for k, v in s.items()}
+            fn(a)
+            ts = []
+            for _ in range(5):
+                res, t = _sync_ms(torch, d, fn, a)
+                ts.append(t)
+            out[where], times[where] = res, statistics.median(ts)
+        keys = [k for k in out["cpu"] if k.startswith(("matches", "line_matches", "visible",
+                                                       "assignment"))]
+        unequal = [k for k in keys if not torch.equal(out["card"][k].cpu(), out["cpu"][k])]
+        m = out["cpu"]["matches0" if "matches0" in out["cpu"] else "line_matches0"]
+        rec[name] = dict(card_ms=times["card"], cpu_ms=times["cpu"], unequal=unequal,
+                         matched=int((m >= 0).sum()))
+        print(f"depth GT (b): {name} ({DEPTH17_KP} keypoints, 64 segments, {MATCH_IMG} px): labels "
+              f"{'equal' if not unequal else f'UNEQUAL {unequal}'} card against CPU ({keys}; "
+              f"{rec[name]['matched']} matched), card {times['card']:.2f} ms, CPU "
+              f"{times['cpu']:.2f} ms per call", flush=True)
+        if unequal:
+            failures.append(f"(b) {name}")
+    return rec, failures
+
+
+def _slot_map(np, got_kp, want_kp):
+    """For each keypoint slot of the card, the CPU's slot of the same
+    keypoint; None where the sets differ or a keypoint repeats."""
+    where = {tuple(p): i for i, p in enumerate(want_kp.tolist())}
+    slots = [where.get(tuple(p)) for p in got_kp.tolist()]
+    if len(where) != len(want_kp) or len(slots) != len(want_kp) or None in slots:
+        return None
+    return np.asarray(slots)
+
+
+def _pair_matches(torch, np, ext, items, preds):
+    """One pair of a pipeline's loader, card against CPU: (keypoint
+    disagreements, near-ties among them, whether matches0 compared, its
+    disagreements, near-ties among them). ``items``/``preds`` are (card,
+    CPU); ``ext`` the extractors (card, CPU) or None where the model is the
+    synthetic pairs' oracle. Where both devices found the same keypoints,
+    the card's matches0 and similarities are put in the CPU's slots
+    (``_slot_map``) and compared index for index; a differing match is a
+    near-tie where a row or a column it involves has its two best
+    similarities within MATCH_NEAR_TIE (``_match_diffs``)."""
+    m = [np.asarray(p["matches0"].cpu() if hasattr(p["matches0"], "cpu") else p["matches0"])
+         for p in preds]
+    if ext is None:
+        return 0, 0, True, int((m[0] != m[1]).sum()), 0
+    feats = [[e(it[f"image{s}"]) for s in "01"] for e, it in zip(ext, items)]
+    kd = kn = 0
+    slots = []
+    for side in (0, 1):
+        g, w = (f[side] for f in feats)
+        gk, wk = g["keypoints"].cpu().numpy(), w["keypoints"].numpy()
+        d, n, _ = _keypoint_diffs(np, gk, g["scores"].cpu().numpy(), wk, w["scores"].numpy(), 1)
+        kd, kn = kd + d, kn + n
+        slots.append(_slot_map(np, gk, wk))
+    if kd or slots[0] is None or slots[1] is None:
+        return kd, kn, False, 0, 0
+    s0, s1 = slots
+    got = np.full_like(m[1], -1)
+    got[s0] = np.where(m[0] >= 0, s1[np.clip(m[0], 0, None)], -1)
+    sims = []
+    for f0, f1 in feats:
+        sim = (f0["descriptors"] @ f1["descriptors"].T).cpu().numpy()
+        ok = f0["valid"].cpu().numpy()[:, None] & f1["valid"].cpu().numpy()[None, :]
+        sims.append(np.where(ok, sim, -np.inf))
+    card_sim = np.empty_like(sims[0])
+    card_sim[np.ix_(s0, s1)] = sims[0]
+    md, mn = _match_diffs(np, got, m[1], card_sim, sims[1])
+    return kd, kn, True, md, mn
+
+
+def _pipeline_models(torch, np, cli, dev, tmp, images, pairs_file, amd, have_h5py):
+    """(c): each pipeline's model over its loader on the card against the
+    CPU, pair by pair (``_pair_matches``: keypoints and matches0 equal but
+    for near-ties); without h5py, ``run`` and --export-features raising,
+    naming it. Returns (records, failures)."""
+    import os
+
+    from comet_tpu_torch.matching import eval_pipeline, registry
+
+    confs = [
+        ("hpatches, synthetic", eval_pipeline.HomographyEvalPipeline,
+         {"data": {"n_pairs": PIPE17_PAIRS, "image_size": MATCH_IMG}}),
+        ("hpatches, pairs file", eval_pipeline.HomographyEvalPipeline,
+         {"data": {"image_dir": images, "pairs_file": pairs_file}}),
+        ("relpose, synthetic", eval_pipeline.RelativePoseEvalPipeline,
+         {"data": {"n_pairs": PIPE17_PAIRS}}),
+        ("relpose, AMD fixture", eval_pipeline.RelativePoseEvalPipeline,
+         {"data": {"amd_dir": amd, "max_pairs": PIPE17_AMD_PAIRS}}),
+    ]
+    records, failures = [], []
+    for label, cls, conf in confs:
+        pipes = [cls(conf, device=d) for d in (dev, torch.device("cpu"))]
+        loaders = [list(p.get_dataloader()) for p in pipes]
+        models = [p.get_model() for p in pipes]
+        mc = pipes[1].conf["model"]
+        oracle = "kpts_proj0" in loaders[1][0]
+        ext = None if oracle else [registry.get_model(mc["extractor"], **mc["extractor_conf"],
+                                                      device=p.device) for p in pipes]
+        t0 = time.perf_counter()
+        rec = dict(name=label, pairs=len(loaders[1]), kp_diff=0, kp_near=0, compared=0,
+                   match_diff=0, match_near=0, matches=[])
+        for items in zip(*loaders):
+            preds = [mdl(it) for mdl, it in zip(models, items)]
+            kd, kn, compared, md, mn = _pair_matches(torch, np, ext, items, preds)
+            rec["compared"] += compared
+            rec["kp_diff"] += kd
+            rec["kp_near"] += kn
+            rec["match_diff"] += md
+            rec["match_near"] += mn
+            rec["matches"].append(int((np.asarray(preds[1]["matches0"]) >= 0).sum()))
+        _sync(torch, dev)
+        rec["seconds"] = time.perf_counter() - t0
+        raised = None
+        if not have_h5py:
+            try:
+                cls(conf, device=dev).run(os.path.join(tmp, "no_h5py"))
+            except ModuleNotFoundError as exc:
+                raised = str(exc)
+        ok = (rec["kp_diff"] == rec["kp_near"] and rec["match_diff"] == rec["match_near"]
+              and (have_h5py or (raised is not None and "h5py" in raised)))
+        print(f"pipelines (c): {label}: {rec['pairs']} pairs, card against CPU: keypoints "
+              f"{rec['kp_diff']} differ ({rec['kp_near']} near-ties), matches0 "
+              f"{rec['match_diff']} differ index for index on the {rec['compared']} pairs with "
+              f"equal keypoints ({rec['match_near']} near-ties); "
+              f"matches per pair {rec['matches']}; {rec['seconds']:.1f} s"
+              + ("" if have_h5py else f"; run raised: {raised}") + ("" if ok else " FAILED"),
+              flush=True)
+        if not ok:
+            failures.append(f"(c) {label}")
+        records.append(rec)
+    if have_h5py:
+        print("pipelines (c): h5py is installed: the .h5 file round trip is held to the JAX "
+              "package on the CPU (tests/test_torch_port_pipelines.py), not run here", flush=True)
+        return records, failures
+    try:
+        _run_cli(cli, ["match", "--experiment", "sift+nn", "--export-features", images])
+        raised = None
+    except ModuleNotFoundError as exc:
+        raised = str(exc)
+    print(f"pipelines (c): --export-features raised: {raised}; the .h5 file round trip was not "
+          "run on the card (no h5py on this machine)", flush=True)
+    if raised is None or "h5py" not in raised:
+        failures.append("(c) --export-features without h5py")
+    return records, failures
+
+
+def pipelines17(torch, np, dev, tmp):
+    """Phase 17 (c): the fixtures (a directory of MATCH_IMG px images, a
+    pairs file of their known warps, an AMD fixture), then the pipelines'
+    models (``_pipeline_models``). Returns (records, failures, have_h5py)."""
+    import importlib.util
+    import os
+
+    from PIL import Image
+
+    from comet_tpu_torch import cli
+    from comet_tpu_torch.data import fixtures
+    from comet_tpu_torch.matching import benchmarks
+
+    images = os.path.join(tmp, "images")
+    os.makedirs(images)
+    rng = np.random.default_rng(17)
+    lines_ = []
+    for i in range(2):
+        img = benchmarks.synthetic_texture(rng, MATCH_IMG, MATCH_IMG)
+        h = benchmarks.random_homography(rng, MATCH_IMG, MATCH_IMG)
+        warped = benchmarks.warp_image(torch.as_tensor(img), torch.as_tensor(h, dtype=torch.float32))
+        for name, a in ((f"a{i}.png", img), (f"b{i}.png", warped.numpy())):
+            Image.fromarray((np.clip(a[..., 0], 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(images, name))
+        lines_.append(f"a{i}.png b{i}.png " + " ".join(f"{v:.9g}" for v in h.ravel()))
+    pairs_file = os.path.join(tmp, "pairs.txt")
+    with open(pairs_file, "w") as f:
+        f.write("\n".join(lines_) + "\n")
+    amd = os.path.join(tmp, "AMD")
+    fixtures.generate_amd_fixture(amd, n_seqs=1, n_frames=2 * PIPE17_AMD_PAIRS + 1, seed=17)
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    print(f"pipelines (c): h5py {'is' if have_h5py else 'is NOT'} installed here", flush=True)
+    records, failures = _pipeline_models(torch, np, cli, dev, tmp, images, pairs_file, amd,
+                                         have_h5py)
+    return records, failures, have_h5py
+
+
+def lines_pipelines_phase(torch, np, counters, dev, smi):
+    """Phase 17: line matching (a), depth ground truth (b) and the
+    cached-prediction pipelines (c), TF32 off for the comparisons; no kernel
+    may launch. Returns the phase's record."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SmokeError("phase 17: TF32 matmuls are on; the comparisons run in f32")
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    _reset(counters)
+    failures, parts = [], {}
+    try:
+        t0 = time.perf_counter()
+        lines_rec, f = lines17(torch, np, dev)
+        parts["lines"], failures = time.perf_counter() - t0, failures + f
+        t0 = time.perf_counter()
+        depth_rec, f = depth17(torch, np, dev)
+        parts["depth"], failures = time.perf_counter() - t0, failures + f
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            pipe_rec, f, have_h5py = pipelines17(torch, np, dev, tmp)
+        parts["pipelines"], failures = time.perf_counter() - t0, failures + f
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    launched = _launches(counters)
+    if sum(launched.values()):
+        failures.append(f"kernels launched {launched}")
+    rec = dict(lines=lines_rec, depth=depth_rec, pipelines=pipe_rec, h5py=have_h5py, parts=parts,
+               seconds=time.perf_counter() - t_phase)
+    print(f"phase 17: {rec['seconds']:.1f} s (lines {parts['lines']:.1f}, depth GT "
+          f"{parts['depth']:.1f}, pipelines {parts['pipelines']:.1f}); K1-K5 launches {launched}; "
+          f"on {smi}", flush=True)
+    if failures:
+        raise SmokeError(f"phase 17: {'; '.join(failures)}")
+    return rec
+
+
 def _profile_step(torch, step, request, gt, step_ms):
     """torch.profiler over one warm train step: its device time and the
     device's idle share of the median step."""
@@ -4712,6 +5256,7 @@ def main(argv=None) -> int:
             raise SmokeError(f"scene: kernels launched {_launches(counters)}; the geometry has none")
         matching = match_phase(torch, np, counters, dev, smi)
         phase16 = train_extract_phase(torch, np, F, attn, counters, dev, smi)
+        phase17 = lines_pipelines_phase(torch, np, counters, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4864,6 +5409,17 @@ def main(argv=None) -> int:
     print(f"phase 16: {phase16['seconds']:.1f} s; training (batch {TRAIN16_BATCH}, {MATCH_IMG} px, "
           f"512 keypoints): {trained}; per image at {MATCH_IMG} px: {extracted}; "
           f"backbone_dinov2: {backbone}", flush=True)
+    lined = "; ".join(f"{r['name']} extractor {r['extractor_ms']:.1f} ms (detector "
+                      f"{r['detector_ms']:.1f}) + matcher {r['matcher_ms']:.1f} ms, "
+                      f"{r['syncs_per_pair']} syncs, peak {_gib(r['peak_gib'])}"
+                      for r in phase17["lines"])
+    piped = "; ".join(f"{r['name']} card {r['card_s']:.1f} s, CPU {r['cpu_s']:.1f} s"
+                      for r in phase17["pipelines"] if "card_s" in r)
+    print(f"phase 17: {phase17['seconds']:.1f} s; per pair at {MATCH_IMG} px: {lined}; depth GT "
+          + "; ".join(f"{k} card {v['card_ms']:.2f} ms, CPU {v['cpu_ms']:.2f} ms"
+                      for k, v in phase17["depth"].items())
+          + f"; pipelines (h5py {phase17['h5py']}): {piped or 'file round trip not run'}",
+          flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

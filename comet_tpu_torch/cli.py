@@ -9,6 +9,8 @@ Counterpart of ``comet_tpu/cli.py``, with its arguments and outputs:
   export --preset ours [--seq-frames 48] [--batch 1] [--output path.pt2]
   match --experiment superpoint+lightglue_homography [--load-experiment DIR] [--list]
   match --experiment superpoint+lightglue_homography --train [--exp-dir DIR] [--resume]
+  match --pipeline hpatches|relpose [--exp-dir DIR] [--image-dir DIR [--pairs-file F]] [--inspect K]
+  match --experiment superpoint+nn --export-features DIR [--exp-dir DIR]
 
 Every command runs on the CUDA card unless ``--device cpu`` is given, and
 raises without a card. ``eval`` writes ``test_results.csv`` rows compatible
@@ -36,8 +38,15 @@ homography benchmark and prints one JSON row, as the JAX package's does;
 ``match --train`` trains the experiment's matcher on generated homography
 pairs and writes checkpoints that both packages read (``--resume``,
 ``--ckpt-every``, ``--val-pairs``, ``--batch-size``; ``--exp-dir`` also tees
-the output to its ``log.txt``). Its ``--pipeline``, ``--export-features``
-and ``--inspect`` are not ported yet and raise, naming their ROADMAP item.
+the output to its ``log.txt``). ``match --pipeline hpatches|relpose`` runs a
+cached-prediction evaluation pipeline (``matching/eval_pipeline.py``) into
+``--exp-dir`` and prints its summary row; as in the JAX package its conf
+comes from ``--n-pairs``, ``--seed``, ``--image-size`` and ``--image-dir``
+alone, so ``--experiment`` does not change it (SIFT and mutual nearest
+neighbours). ``--inspect K`` then draws its K worst pairs.
+``--export-features DIR`` writes the experiment's extractor features of
+every image in DIR to ``<exp-dir>/features.h5`` (read back by the
+``cache_loader`` model). The ``.h5`` files are the JAX package's format.
 """
 
 from __future__ import annotations
@@ -49,14 +58,8 @@ import os
 import sys
 import time
 
-NOT_PORTED = "not ported yet"
 # the devices an artifact is exported for (JAX's --platforms)
 EXPORT_DEVICES = ("cuda", "cpu")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"comet_tpu_torch.cli: {what} is {NOT_PORTED} (ROADMAP Queue 1 "
-                               f"item {item})")
 
 
 def _common(parser):
@@ -611,10 +614,6 @@ def cmd_export(args):
     print(json.dumps({"artifact": out, **manifest}, sort_keys=True))
 
 
-# match's options that are not ported yet, and the ROADMAP item that ports each
-MATCH_NOT_PORTED = (("pipeline", "7b"), ("export_features", "7b"), ("inspect", "7f"))
-
-
 def cmd_match(args):
     """Run a named matching experiment on the synthetic homography
     benchmark (pairs, extractor, matcher and estimator on the command's
@@ -627,9 +626,6 @@ def cmd_match(args):
         for name in list_experiments():
             print(name)
         return
-    for option, item in MATCH_NOT_PORTED:
-        if getattr(args, option):
-            raise _not_ported(f"match --{option.replace('_', '-')}", item)
     device = _device(args)
     if args.train:
         if args.exp_dir:
@@ -641,6 +637,12 @@ def cmd_match(args):
         else:
             _match_train(args, device)
         return
+    if args.pipeline:
+        _match_pipeline(args, device)
+        return
+    if args.export_features:
+        _match_export(args, device)
+        return
     size = args.image_size
     pipeline = build_pipeline(args.experiment, image_hw=(size, size))
     if args.load_experiment:
@@ -651,6 +653,65 @@ def cmd_match(args):
     pairs = make_synthetic_pairs(args.n_pairs, hw=(size, size), seed=args.seed, device=device)
     row = run_homography_benchmark(pipeline, pairs)
     print(json.dumps(_finite_json({"experiment": args.experiment, **row})))
+
+
+def _match_pipeline(args, device):
+    """Run a cached-prediction evaluation pipeline on ``device``: export the
+    predictions to <exp-dir>/predictions.h5 (reused on a rerun), evaluate,
+    and print the summaries as one JSON row (the JAX package's)."""
+    from .matching.eval_pipeline import HomographyEvalPipeline, RelativePoseEvalPipeline
+
+    cls = {"hpatches": HomographyEvalPipeline, "relpose": RelativePoseEvalPipeline}[args.pipeline]
+    conf = {"data": {"n_pairs": args.n_pairs, "seed": args.seed}}
+    if args.pipeline == "hpatches":
+        conf["data"]["image_size"] = args.image_size
+        if args.image_dir:
+            conf["data"]["image_dir"] = args.image_dir
+            conf["data"]["pairs_file"] = args.pairs_file
+    elif args.image_dir:
+        conf["data"]["amd_dir"] = args.image_dir
+        conf["data"]["max_pairs"] = args.n_pairs
+    pipe = cls(conf, device=device)
+    exp_dir = args.exp_dir or os.path.join("outputs", f"match_{args.pipeline}")
+    summaries, _ = pipe.run(exp_dir, overwrite=args.overwrite, overwrite_eval=args.overwrite)
+    if args.inspect:
+        paths = pipe.inspect(exp_dir, k=args.inspect)
+        print(f"inspect: wrote {len(paths)} renders under {os.path.join(exp_dir, 'inspect')}")
+    print(json.dumps(_finite_json({"pipeline": args.pipeline, "exp_dir": exp_dir,
+                                   **{k: (round(v, 5) if isinstance(v, float) else v)
+                                      for k, v in summaries.items()}})))
+
+
+def _match_export(args, device):
+    """The experiment's extractor features (keypoints, descriptors and the
+    scores) of every image under --export-features, resized to
+    --image-size, into <exp-dir>/features.h5; prints one JSON row."""
+    import numpy as np
+    from PIL import Image
+
+    from .matching.configs import build_pipeline
+    from .matching.eval_pipeline import export_predictions
+
+    size = args.image_size
+    pipeline = build_pipeline(args.experiment, image_hw=(size, size), extractor={"device": device})
+    exts = (".png", ".jpg", ".jpeg", ".bmp")
+    names = sorted(f for f in os.listdir(args.export_features) if f.lower().endswith(exts))
+    if not names:
+        raise SystemExit(f"no images found under {args.export_features}")
+
+    def loader():
+        for name in names:
+            img = Image.open(os.path.join(args.export_features, name)).convert("L").resize(
+                (size, size), Image.BILINEAR)
+            yield {"name": os.path.splitext(name)[0],
+                   "image": np.asarray(img, np.float32) / 255.0}
+
+    out = os.path.join(args.exp_dir or os.path.join("outputs", "match_features"), "features.h5")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    export_predictions(loader(), lambda data: pipeline.extractor(data["image"]), out,
+                       keys=["keypoints", "descriptors"],
+                       optional_keys=["keypoint_scores", "scores"])
+    print(json.dumps({"exported": len(names), "experiment": args.experiment, "path": out}))
 
 
 def _init_matcher(matcher, in_dim: int, seed: int):
@@ -780,17 +841,18 @@ def _match_parser(sub):
     pm.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs on the CPU)")
     pm.add_argument("--pipeline", default=None, choices=["hpatches", "relpose"],
-                    help="a cached-prediction eval pipeline (not ported yet: ROADMAP Queue "
-                         "1 item 7b)")
+                    help="run a cached-prediction eval pipeline instead of the direct benchmark")
     pm.add_argument("--exp-dir", default=None)
     pm.add_argument("--image-dir", default=None, metavar="DIR",
-                    help="--pipeline on on-disk images (not ported yet: item 7b)")
+                    help="--pipeline on on-disk data: hpatches takes a folder of images (each "
+                         "warped with exact GT unless --pairs-file gives pairs and H rows); "
+                         "relpose an AMD-layout sequence root")
     pm.add_argument("--pairs-file", default=None, metavar="FILE",
                     help="with --image-dir: 'name0 name1 h00..h22' per line")
     pm.add_argument("--overwrite", action="store_true")
     pm.add_argument("--inspect", type=int, default=0, metavar="K",
-                    help="render the K worst pairs of a --pipeline run (not ported yet: "
-                         "item 7f)")
+                    help="after a --pipeline run, render the K worst pairs of the prediction "
+                         "cache to <exp-dir>/inspect/*.png")
     pm.add_argument("--train", action="store_true",
                     help="train the experiment's matcher on generated homography pairs instead "
                          "of benchmarking")
@@ -808,8 +870,8 @@ def _match_parser(sub):
                     help="load a trained matcher checkpoint (the best of an experiment dir, or "
                          "a checkpoint_*.msgpack file) before benchmarking")
     pm.add_argument("--export-features", default=None, metavar="DIR",
-                    help="export the extractor's features to an h5 cache (not ported yet: "
-                         "item 7b)")
+                    help="export the extractor's features of every image in DIR to "
+                         "<exp-dir>/features.h5")
     pm.set_defaults(fn=cmd_match)
 
 

@@ -1,13 +1,16 @@
-"""The point-matching stack: extractors, matchers, training, the benchmark.
+"""The matching stack: extractors, matchers, training, the benchmarks.
 
 Counterpart of ``comet_tpu/matching`` for point features: the registry and
 pipeline; SuperPoint, SIFT, ALIKED, DISK, KeyNet, the dense and mixed
 extractors and the DINOv2 backbone; mutual nearest neighbour, LightGlue and
 SuperGlue with their losses; ground-truth generation, photometric
 augmentation and the matcher train steps; the metrics, the synthetic
-homography benchmark, the named experiments and their checkpoints. The
-cached-prediction pipelines, lines and GlueStick and the viz and inspect
-tools are not ported yet (ROADMAP Queue 1 items 7b, 7d and 7f).
+homography benchmark, the named experiments and their checkpoints; line
+detection (the LSD and DeepLSD stand-ins), wireframes and GlueStick; depth
+ground truth for points and lines; the cached-prediction evaluation
+pipelines (homography and relative pose), the feature cache and the viz
+drawing. The glue-factory tools, misc, image, inspect-frame and patch
+helpers are not ported yet (ROADMAP Queue 1 item 7f).
 """
 
 from .registry import TwoViewPipeline, get_model, list_models, register_model
@@ -54,6 +57,51 @@ from .benchmarks import (
     run_homography_benchmark,
     synthetic_texture,
     warp_image,
+)
+from .depth_gt import (
+    dense_warp_consistency,
+    essential_to_fundamental,
+    gt_line_matches_from_homography,
+    gt_line_matches_from_pose_depth,
+    gt_matches_from_pose_depth,
+    pose_to_essential,
+    project_points_with_depth,
+    sample_depth,
+    sym_epipolar_distance_all,
+)
+from .eval_pipeline import (
+    AUCMetric,
+    EvalPipeline,
+    HomographyEvalPipeline,
+    cal_error_auc,
+    eval_poses,
+    exists_eval,
+    export_predictions,
+    load_eval,
+    load_predictions,
+    save_eval,
+)
+from .gluestick import GlueStickMatcher, gluestick_nll_loss
+from .lines import (
+    LineSegments,
+    detect_line_segments,
+    make_wireframe,
+    match_lines_nn,
+    sample_line_descriptors,
+    sample_line_points,
+)
+from .deeplsd import DeepLSDDetector, DeepLSDNet, deeplsd_field_loss, extract_lines_from_fields
+from .cache_loader import CacheLoader, TripletPipeline, pad_local_features, pad_to_length
+from .viz import (
+    cm_RdGn,
+    draw_epipolar_lines,
+    draw_keypoints,
+    draw_line_matches,
+    draw_lines,
+    draw_matches,
+    heatmap_overlay,
+    plot_cumulative_errors,
+    side_by_side,
 )
 from .configs import EXPERIMENTS, MatcherWrapper, build_pipeline, get_experiment, list_experiments
 from .experiments import (

@@ -3,16 +3,16 @@
 Counterpart of ``comet_tpu/matching/configs.py`` (gluefactory/configs/*.yaml:
 an extractor paired with a matcher, plus ground-truth and training settings).
 ``EXPERIMENTS`` is the JAX package's, whole, so ``match --list`` names the
-same 11 experiments; building one of the two GlueStick experiments, whose
-wireframe extractor and matcher are not ported yet, raises
-NotImplementedError naming its ROADMAP item.
+same 11 experiments, and each builds and runs.
 
 :class:`MatcherWrapper` is the port's counterpart of ``wrap_flax_matcher``:
 it adapts a matcher module to the pipeline's ``(feats0, feats1) -> matches``
 contract, normalizing the pixel keypoints to [-1, 1] by the image size and
 passing the validity masks and nothing else, as the JAX wrapper does (so
-SuperGlue runs with detector scores of 1). The module is built at the first
-call, when the descriptors' width is known: with random weights drawn on the
+SuperGlue runs with detector scores of 1); a matcher that takes lines
+(GlueStick) also gets the normalized segments, the line descriptors and the
+line validity. The module is built at the first call, when the
+descriptors' widths are known: with random weights drawn on the
 CPU from ``torch.Generator().manual_seed(seed)`` (JAX draws from
 ``PRNGKey(seed)``), or with the flax tree put in ``holder["params"]``
 (``experiments.load_experiment_into_pipeline``), then copied to the
@@ -22,13 +22,26 @@ features' device, so the card and the CPU hold the same weights.
 from __future__ import annotations
 
 import copy
+import inspect
 from typing import Any, Dict
 
 import torch
 import torch.nn as nn
 
-from . import backbones, extractors, lightglue, matchers, sift, superglue  # noqa: F401 (registers models)
-from .registry import TwoViewPipeline, get_model, not_ported
+from . import (  # noqa: F401 (registers models)
+    backbones,
+    cache_loader,
+    deeplsd,
+    depth_gt,
+    extractors,
+    gluestick,
+    lightglue,
+    lines,
+    matchers,
+    sift,
+    superglue,
+)
+from .registry import TwoViewPipeline, get_model
 
 # Every experiment: {extractor: {name, ...conf}, matcher: {name, ...conf},
 # ground_truth: {...}, train: {...}}; inference reads the extractor and
@@ -146,11 +159,6 @@ def get_experiment(name: str) -> Dict[str, Any]:
     return copy.deepcopy(EXPERIMENTS[name])
 
 
-not_ported("extractor_wireframe", "7d", {"point_extractor": "extractor_superpoint",
-                                         "max_lines": 64})
-not_ported("matcher_gluestick", "7d", {"depth": 6, "dim": 128})
-
-
 class MatcherWrapper:
     """``(feats0, feats1) -> matches`` over a matcher module (see the
     module docstring). ``holder["params"]`` takes a flax tree of the JAX
@@ -160,17 +168,20 @@ class MatcherWrapper:
         h, w = image_hw
         self.matcher, self.seed = matcher, seed
         self.scale = (max(w - 1.0, 1.0), max(h - 1.0, 1.0))
+        self.takes_lines = "lines0" in inspect.signature(matcher.forward).parameters
         self.holder = {"params": None}
-        self._built = None  # (params id, in_dim, CPU module)
+        self._built = None  # (params id, input widths, CPU module)
         self._on = {}
 
-    def module(self, in_dim: int, device: torch.device) -> nn.Module:
+    def module(self, device: torch.device, **in_dims) -> nn.Module:
+        """The matcher for descriptors of the widths ``in_dims`` (``in_dim``,
+        and ``line_in_dim`` for a matcher that takes lines) on ``device``."""
         from ..models.blocks import init_params
         from ..weights import module_params_from_jax
 
-        key = (id(self.holder["params"]), in_dim)
+        key = (id(self.holder["params"]), tuple(sorted(in_dims.items())))
         if self._built is None or self._built[:2] != key:
-            m = type(self.matcher)(**self.matcher.conf, in_dim=in_dim)
+            m = type(self.matcher)(**self.matcher.conf, **in_dims)
             init_params(m, torch.Generator().manual_seed(self.seed))
             if self.holder["params"] is not None:
                 m.load_state_dict(module_params_from_jax(self.holder["params"], m))
@@ -180,23 +191,30 @@ class MatcherWrapper:
         return self._on[device]
 
     def __call__(self, f0, f1):
-        k0, k1 = f0["keypoints"], f1["keypoints"]
         sx, sy = self.scale
 
-        def norm(k):  # per column: no constant tensor copied to the device
+        def norm(k):  # per coordinate: no constant tensor copied to the device
             k = k.float()
-            return torch.stack([k[:, 0] / sx, k[:, 1] / sy], dim=-1) * 2.0 - 1.0
+            return torch.stack([k[..., 0] / sx, k[..., 1] / sy], dim=-1) * 2.0 - 1.0
 
-        module = self.module(f0["descriptors"].shape[-1], k0.device)
+        args = [norm(f0["keypoints"]), f0["descriptors"], norm(f1["keypoints"]),
+                f1["descriptors"]]
+        kw = {"valid0": f0.get("valid"), "valid1": f1.get("valid")}
+        in_dims = {"in_dim": f0["descriptors"].shape[-1]}
+        if self.takes_lines:  # GlueStick: the joint point and line token set
+            args += [norm(f0["lines"]), f0["line_descriptors"], norm(f1["lines"]),
+                     f1["line_descriptors"]]
+            kw.update(lvalid0=f0.get("line_valid"), lvalid1=f1.get("line_valid"))
+            in_dims["line_in_dim"] = f0["line_descriptors"].shape[-1]
+        module = self.module(f0["keypoints"].device, **in_dims)
         with torch.no_grad():
-            return module(norm(k0), f0["descriptors"], norm(k1), f1["descriptors"],
-                          valid0=f0.get("valid"), valid1=f1.get("valid"))
+            return module(*args, **kw)
 
 
 def build_pipeline(name: str, image_hw=None, **overrides) -> TwoViewPipeline:
     """The extractor and matcher of a named experiment; ``overrides`` update
     its top-level blocks (``matcher={"threshold": 0.2}``). A matcher module
-    (LightGlue, SuperGlue) is wrapped by :class:`MatcherWrapper` when
+    (LightGlue, SuperGlue, GlueStick) is wrapped by :class:`MatcherWrapper` when
     ``image_hw`` is given, and returned as the module otherwise."""
     conf = get_experiment(name)
     for k, v in overrides.items():

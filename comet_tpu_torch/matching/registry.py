@@ -37,17 +37,6 @@ def list_models():
     return sorted(_REGISTRY)
 
 
-def not_ported(name: str, item: str, default_conf: Dict[str, Any] = None) -> None:
-    """Register ``name`` with a factory that raises NotImplementedError
-    naming the ROADMAP item that ports it."""
-
-    def factory(**conf):
-        raise NotImplementedError(
-            f"comet_tpu_torch.matching: '{name}' is not ported yet (ROADMAP Queue 1 item {item})")
-
-    register_model(name, default_conf)(factory)
-
-
 class TwoViewPipeline:
     """extractor -> matcher over two images."""
 

@@ -168,5 +168,10 @@ def extract_sift(image: torch.Tensor, max_keypoints: int = 512,
 
 
 @register_model("extractor_sift", {"max_keypoints": 512, "threshold": 0.005})
-def make_sift(max_keypoints=512, threshold=0.005):
-    return lambda image: extract_sift(image, max_keypoints, threshold)
+def make_sift(max_keypoints=512, threshold=0.005, device=None):
+    """SIFT on an image where it lives; a numpy image goes to ``device``
+    (the card by default)."""
+    from .extractors import as_image
+
+    return lambda image: extract_sift(as_image(image, device, "extractor_sift"), max_keypoints,
+                                      threshold)

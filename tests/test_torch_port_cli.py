@@ -307,12 +307,34 @@ def test_eval_msgpack_checkpoint_matches_jax(monkeypatch, data, tmp_path):
     ["match", "--experiment", "superpoint+lsd+gluestick"],
     ["match", "--pipeline", "hpatches"],
 ], ids=["superpoint", "match"])
-def test_what_is_not_ported_raises(argv):
-    """What is still not ported raises (``--keypoints superpoint``, ``match``
-    and ``match --train`` are, since the matching slices): SuperPoint with
-    lines and GlueStick, and the cached-prediction pipelines."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+def test_what_is_not_ported_raises(argv, tmp_path, monkeypatch, capsys):
+    """What raised as not ported until the line and pipeline slice (SuperPoint
+    with lines and GlueStick, the cached-prediction pipelines) now prints
+    JAX's row on one 64 px pair: the line experiment with the same SuperPoint
+    and GlueStick weights (``torch_port_line_helpers.line_experiment``), the
+    pipeline with its default SIFT; JAX's RANSAC samples replayed."""
+    from test_torch_port_match_cli import _same_row
+    from torch_port_line_helpers import jax_draws, jit_jax_matching, line_experiment
+    from torch_port_line_helpers import same_pipeline_row
+
+    jit_jax_matching(monkeypatch)
+    jax_draws(monkeypatch)
+    argv = argv + ["--n-pairs", "1", "--image-size", "64"]
+    if argv[1] == "--experiment":
+        argv += ["--load-experiment", line_experiment(monkeypatch, tmp_path, argv[2])]
+        jcli.main(argv)
+        want = json.loads(capsys.readouterr().out.splitlines()[-1])
         tcli.main(argv + ["--device", "cpu"])
+        got = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert want["num_matches"] > 0
+        _same_row(got, want)
+        return
+    jcli.main(argv + ["--exp-dir", str(tmp_path / "jax")])
+    want = json.loads(capsys.readouterr().out.splitlines()[-1])
+    tcli.main(argv + ["--exp-dir", str(tmp_path / "port"), "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert want["mnum_matches"] > 4
+    same_pipeline_row(got, want, skip=("exp_dir",))
 
 
 def test_eval_superpoint_keypoints_match_jax(tiny_cli, monkeypatch, tmp_path):

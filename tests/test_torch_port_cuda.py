@@ -31,7 +31,11 @@ also their program: ``--tp-worker RANK PORT DIR``) stays within 3e-2 of the
 replicated step's loss and global norm and 0.1 of each camera gradient's
 norm, and the native loader's decode on the card equals PIL's bit for bit
 where the native library builds (it skips where it does not, naming the
-compiler's error).
+compiler's error). The line stack's modules run on the card against the
+CPU in f32 with TF32 off: GlueStick at depth 9, width 256 (log assignments
+within 1e-4 of the largest |value|, matches equal but at near-ties),
+DeepLSD's fields at base 32 (within 1e-5 of their range), and the homography
+pipeline's model runs on the card by default.
 """
 
 import ctypes
@@ -1014,3 +1018,82 @@ if __name__ == "__main__":
     if sys.argv[1:2] != ["--tp-worker"]:
         sys.exit("usage: test_torch_port_cuda.py --tp-worker RANK PORT DIR")
     _tp_train_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+
+
+@pytest.fixture
+def tf32_off():
+    """f32 on the card without TF32 for the comparisons with the CPU."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("line_attention", [False, True])
+def test_gluestick_full_width_on_the_card_matches_the_cpu(cuda_device, tf32_off, line_attention):
+    """GlueStick at the registry's width (depth 9, dim 256, 4 heads) over 512
+    keypoints and 64 lines: the log assignments within 1e-4 of the largest
+    |value| on the card against the CPU, the matches equal but where a row
+    of the CPU's log assignment has its best two within 1e-4 (a near-tie)."""
+    from comet_tpu_torch.matching.gluestick import GlueStickMatcher
+    from comet_tpu_torch.models.blocks import init_params
+
+    g = torch.Generator().manual_seed(3)
+    m = GlueStickMatcher(line_attention=line_attention, filter_threshold=0.0, in_dim=256,
+                         line_in_dim=3)
+    init_params(m, torch.Generator().manual_seed(0))
+    m.eval()
+    inp = {}
+    for s, n in ((0, 512), (1, 480)):
+        inp[f"kpts{s}"] = torch.rand(n, 2, generator=g) * 2 - 1
+        inp[f"desc{s}"] = torch.nn.functional.normalize(torch.randn(n, 256, generator=g), dim=-1)
+        inp[f"lines{s}"] = torch.rand(64, 2, 2, generator=g) * 2 - 1
+        inp[f"ldesc{s}"] = torch.randn(64, 5, 3, generator=g)
+        inp[f"lvalid{s}"] = torch.arange(64) % 9 != 4
+    with torch.no_grad():
+        want = m(**inp)
+        got = {k: v.cpu() for k, v in m.to(cuda_device)(
+            **{k: v.to(cuda_device) for k, v in inp.items()}).items()}
+    for k in ("log_assignment", "line_log_assignment"):
+        w = want[k]
+        assert (got[k] - w).abs().max() <= 1e-4 * max(float(w.abs().max()), 1.0), k
+    for k, la in (("matches0", "log_assignment"), ("line_matches0", "line_log_assignment")):
+        rows = (got[k] != want[k]).nonzero()[:, 0]
+        for i in rows:
+            top = want[la][i, :-1].topk(2).values
+            assert float(top[0] - top[1]) <= 1e-4, (k, int(i))
+
+
+@pytest.mark.cuda
+def test_deeplsd_fields_on_the_card_match_the_cpu(cuda_device, tf32_off):
+    """DeepLSD at base 32 on a 480 x 480 image: the fields within 1e-5 of
+    each field's range on the card against the CPU (TF32 off)."""
+    from comet_tpu_torch.matching.deeplsd import DeepLSDNet
+    from comet_tpu_torch.models.blocks import init_params
+
+    net = DeepLSDNet(base=32)
+    init_params(net, torch.Generator().manual_seed(0))
+    net.eval()
+    gray = torch.rand(480, 480, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = net(gray)
+        got = net.to(cuda_device)(gray.to(cuda_device))
+    for k in ("df", "angle_vec"):
+        w = want[k]
+        assert (got[k].cpu() - w).abs().max() <= 1e-5 * float(w.max() - w.min()), k
+
+
+@pytest.mark.cuda
+def test_pipeline_model_runs_on_the_card(cuda_device):
+    """The homography pipeline's model (SIFT, mutual nearest neighbours) on
+    the card by default: its predictions live there and equal the CPU's
+    keypoints."""
+    from comet_tpu_torch.matching.eval_pipeline import HomographyEvalPipeline
+
+    conf = {"data": {"n_pairs": 1, "image_size": 96}}
+    card, cpu = HomographyEvalPipeline(conf), HomographyEvalPipeline(conf, device="cpu")
+    item, item_cpu = card.get_dataloader()[0], cpu.get_dataloader()[0]
+    got, want = card.get_model()(item), cpu.get_model()(item_cpu)
+    assert got["keypoints0"].device.type == "cuda"
+    assert (got["keypoints0"].cpu() - want["keypoints0"]).abs().max() <= 1e-3

@@ -206,16 +206,98 @@ def test_match_load_experiment_prints_jax_row(sp_params, lg_experiment, jax_draw
     (["--pipeline", "hpatches"], "7b"), (["--pipeline", "relpose"], "7b"),
     (["--export-features", "."], "7b"), (["--inspect", "2"], "7f"),
 ])
-def test_unported_match_options_raise(option, item):
-    with pytest.raises(NotImplementedError, match=rf"not ported yet \(ROADMAP Queue 1 item {item}\)"):
-        tcli.main(["match", "--device", "cpu", *option])
+def test_unported_match_options_raise(option, item, tmp_path, monkeypatch, capsys):
+    """The options that raised until ROADMAP Queue 1 items 7b and 7f were
+    ported now work as JAX's do, on the same inputs (JAX's RANSAC samples
+    replayed): ``--pipeline hpatches`` and ``relpose`` print JAX's row
+    (``torch_port_line_helpers.same_pipeline_row``) and write the files JAX
+    reads; ``--export-features`` (over a directory of images) writes the
+    features JAX's ``cache_loader`` reads back; ``--inspect 2`` after a
+    ``--pipeline hpatches`` run draws JAX's PNGs."""
+    import os
+
+    import cv2
+    from PIL import Image
+
+    from comet_tpu.matching import eval_pipeline as jep
+    from comet_tpu.matching import registry as jreg
+    from comet_tpu_torch.matching import eval_pipeline as tep
+    from comet_tpu_torch.matching import registry as treg
+    from torch_port_line_helpers import jax_draws as draws
+    from torch_port_line_helpers import jit_jax_matching, same_pipeline_row
+
+    jit_jax_matching(monkeypatch)
+    draws(monkeypatch)
+    argv = ["match", "--n-pairs", "1", "--image-size", str(SIZE)]
+    if option[0] == "--export-features":
+        images = tmp_path / "images"
+        images.mkdir()
+        rng = np.random.default_rng(2)
+        for i in range(2):
+            img = (tbench.synthetic_texture(rng, 80, 72)[..., 0] * 255).astype(np.uint8)
+            Image.fromarray(img).save(images / f"im{i}.png")
+        argv += ["--experiment", "sift+nn", "--export-features", str(images)]
+    elif option[0] == "--inspect":
+        argv += ["--pipeline", "hpatches", *option]
+    else:
+        argv += option
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jcli.main(argv + ["--exp-dir", jdir])
+    want = capsys.readouterr().out.splitlines()
+    tcli.main(argv + ["--exp-dir", tdir, "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    row, jrow = json.loads(got[-1]), json.loads(want[-1])
+    assert len(got) == len(want)
+    if option[0] == "--export-features":
+        assert row["exported"] == jrow["exported"] == 2 and row["path"].startswith(tdir)
+        for name in ("im0", "im1"):
+            loaded = [reg.get_model("cache_loader", path=os.path.join(d, "features.h5"))(
+                {"name": name}) for reg, d in ((jreg, tdir), (treg, jdir))]
+            assert loaded[0].keys() == loaded[1].keys() == {"keypoints", "descriptors", "scores"}
+            for k in loaded[0]:
+                np.testing.assert_allclose(loaded[0][k], loaded[1][k], rtol=0, atol=1e-5,
+                                           err_msg=k)
+        return
+    assert row["pipeline"] == jrow["pipeline"] and row["exp_dir"] == tdir
+    same_pipeline_row(row, jrow, skip=("exp_dir",))
+    names = list(jep.load_eval(jdir)[1]["names"])
+    for name in names:  # each reads the other's prediction cache
+        a = jep.load_predictions(os.path.join(tdir, "predictions.h5"), name)
+        b = tep.load_predictions(os.path.join(jdir, "predictions.h5"), name)
+        assert a.keys() == b.keys() and all(a[k].dtype == b[k].dtype for k in a)
+    if option[0] == "--inspect":
+        assert got[0].replace(tdir, jdir) == want[0]
+        drawn = sorted(os.listdir(os.path.join(tdir, "inspect")))
+        assert drawn == sorted(os.listdir(os.path.join(jdir, "inspect"))) and drawn
+        for f in drawn:
+            np.testing.assert_array_equal(cv2.imread(os.path.join(tdir, "inspect", f)),
+                                          cv2.imread(os.path.join(jdir, "inspect", f)))
 
 
 @pytest.mark.parametrize("experiment,item", [("superpoint+lsd+gluestick", "7d"),
                                              ("deeplsd+gluestick", "7d")])
-def test_unported_experiments_raise(experiment, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}"):
-        tcli.main(["match", "--device", "cpu", "--experiment", experiment, "--n-pairs", "1"])
+def test_unported_experiments_raise(experiment, item, tmp_path, monkeypatch, capsys):
+    """The two line experiments, which raised until ROADMAP Queue 1 item 7d
+    was ported, print JAX's row on the same pair with the same SuperPoint,
+    DeepLSD and GlueStick weights (cut to 64 keypoints, 8 lines, depth 2,
+    width 32; ``torch_port_line_helpers.line_experiment``), JAX's RANSAC
+    samples replayed."""
+    from torch_port_line_helpers import jax_draws as draws
+    from torch_port_line_helpers import jit_jax_matching, line_experiment
+
+    jit_jax_matching(monkeypatch)
+    draws(monkeypatch)
+    ckpt = line_experiment(monkeypatch, tmp_path, experiment, SIZE)
+    argv = ["match", "--experiment", experiment, "--n-pairs", "1", "--image-size", str(SIZE),
+            "--load-experiment", ckpt]
+    jcli.main(argv)
+    want = capsys.readouterr().out.splitlines()
+    tcli.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert got[0] == want[0]
+    row, jrow = json.loads(got[-1]), json.loads(want[-1])
+    assert jrow["num_matches"] > 0
+    _same_row(row, jrow)
 
 
 def test_match_runs_on_the_card_by_default(monkeypatch):

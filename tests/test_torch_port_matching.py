@@ -469,10 +469,60 @@ def test_module_params_from_jax_fills_every_parameter(lightglue):
 
 
 @pytest.mark.parametrize("name", ["extractor_wireframe", "matcher_gluestick"])
-def test_unported_models_keep_their_names_and_raise(name):
-    assert name in tm.list_models()
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP Queue 1 item 7"):
-        tm.get_model(name)
+def test_unported_models_keep_their_names_and_raise(name, monkeypatch):
+    """The two models that raised until the line slice keep their names,
+    take JAX's default configuration and now run as JAX's do: the wireframe
+    (SIFT and the LSD stand-in, 32 keypoints, 8 lines) on a 48 x 48 image,
+    the JAX side given the port's segments (the detector is held to JAX in
+    ``test_torch_port_lines.py``), every output within 1e-5; GlueStick
+    (depth 1, width 16) with JAX's weights, its log assignments within 1e-4
+    and its matches equal."""
+    from comet_tpu.matching import gluestick as jgs
+    from comet_tpu.matching import lines as jlines
+    from comet_tpu_torch.matching import lines as tlines
+
+    assert name in tm.list_models() and tm.registry._DEFAULTS[name] == jreg._DEFAULTS[name]
+    rng = np.random.default_rng(3)
+    if name == "extractor_wireframe":
+        gray = tbench.synthetic_texture(rng, 48, 48)[..., 0]
+        gray[10:30, 12:40] = 0.8
+
+        def port_segments(g, max_lines):
+            segs = tlines.detect_line_segments(torch.as_tensor(np.asarray(g)), max_lines=max_lines)
+            return jlines.LineSegments(*(jnp.asarray(a.numpy()) for a in segs))
+
+        monkeypatch.setattr(jlines, "detect_line_segments", port_segments)
+        monkeypatch.setattr(jsift, "extract_sift", jax.jit(
+            jsift.extract_sift, static_argnames=("max_keypoints", "threshold")))
+        conf = dict(point_conf={"max_keypoints": 32}, max_lines=8)
+        want = jreg.get_model(name, **conf)(jnp.asarray(gray))
+        got = tm.get_model(name, **conf, device="cpu")(gray)
+        assert set(got) == set(want) and int(want["line_valid"].sum()) >= 1
+        for k, w in want.items():
+            w = np.asarray(w, np.float64)
+            np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                       atol=1e-5 * max(np.abs(w).max(initial=0), 1), err_msg=k)
+        return
+    conf = dict(depth=1, dim=16, filter_threshold=0.0)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    inp = dict(kpts0=f32(rng.uniform(-1, 1, (12, 2))), desc0=f32(rng.normal(size=(12, 8))),
+               kpts1=f32(rng.uniform(-1, 1, (10, 2))), desc1=f32(rng.normal(size=(10, 8))),
+               lines0=f32(rng.uniform(-1, 1, (4, 2, 2))), ldesc0=f32(rng.normal(size=(4, 3, 3))),
+               lines1=f32(rng.uniform(-1, 1, (3, 2, 2))), ldesc1=f32(rng.normal(size=(3, 3, 3))))
+    jm = jreg.get_model(name, **conf)
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(1), **inp)
+    want = jax.jit(jm.apply)(variables, **inp)
+    m = tm.get_model(name, **conf)
+    m = type(m)(**m.conf, in_dim=8, line_in_dim=3)
+    m.load_state_dict(module_params_from_jax(variables, m))
+    with torch.no_grad():
+        got = m(**{k: torch.as_tensor(v) for k, v in inp.items()})
+    assert isinstance(jm, jgs.GlueStickMatcher) and set(got) == set(want)
+    for k in ("log_assignment", "line_log_assignment"):
+        w = np.asarray(want[k])
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0, atol=1e-4 * max(np.abs(w).max(), 1))
+    for k in ("matches0", "line_matches0"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 def test_matching_imports_no_jax_flax_optax_or_the_jax_package():
