@@ -238,7 +238,8 @@ Phases, each of which makes the script exit nonzero when it fails:
    may not launch in (a), (b), (d) or (c)'s seeding; (c)'s eval runs the
    COMET forward, whose launches are printed; and
 16. matcher training, the ALIKED, DISK and KeyNet extractors and the DINOv2
-   backbone on K1 (``train_extract_phase``); and
+   backbone on K1 (``train_extract_phase``), LightGlue's loss on one fixed
+   batch falling by OVERFIT16_FALL over OVERFIT16_STEPS steps; and
 17. line matching, depth ground truth and the cached-prediction pipelines
    (``matching/lines.py``, ``deeplsd.py``, ``gluestick.py``, ``depth_gt.py``,
    ``eval_pipeline.py``, ``cache_loader.py``; no kernel), TF32 off: (a) the
@@ -261,7 +262,28 @@ Phases, each of which makes the script exit nonzero when it fails:
    AMD fixture) on the card against the CPU: keypoints and matches0 index
    for index equal but for near-ties; without h5py, ``run`` and
    ``--export-features`` raising, naming it (with h5py the .h5 round trip
-   is held to the JAX package by the CPU tests, not here).
+   is held to the JAX package by the CPU tests, not here); and
+18. resuming the JAX package's training run, checkpoints of a
+   tensor-parallel model and the last matching helpers (``resume_phase``):
+   (a) phase 8's train steps on the default route (K1 and K2): after
+   RESUME18_STEPS steps the state is written in the JAX package's checkpoint
+   layout (``jax_train_state``, the port's msgpack writer; what
+   ``tools/orbax_to_msgpack.py`` makes of an orbax directory) and restored by
+   ``training.auto_resume`` into a fresh model, optimizer and scheduler on
+   the card: every parameter, Adam moment, step and the scheduler's count
+   bit for bit, the bytes and the write and read seconds printed; the next
+   step from the restored state against the uninterrupted one, within
+   RESUME18_SPREAD x the spread of RESUME18_RERUNS uninterrupted reruns; (b)
+   in phase 12's two ranks on the (data 1, model 2) gloo mesh, after the
+   first tensor-parallel step (default route), ``save_checkpoint`` gathers
+   the shards and rank 0 writes; the checkpoint restored into the replicated
+   model (each rank's part of each whole tensor) and into a fresh sharded
+   model equals the shards as saved bit for bit, and the step from it is the
+   uninterrupted second step within REF_RTOL; (c) ``matching.patches``'
+   ``extract_patches`` and ``batch_extract_patches`` on the card equal to the
+   CPU, ``matching.misc.batch_to_device`` of a nested batch, and
+   ``matching.tools.benchmark_model`` of K1 at the ViT's shape beside phase
+   3's time between CUDA events.
 
 The script prints its total time; the line before the last holds the
 kernels' JSON record, and the last line
@@ -2350,7 +2372,7 @@ def _range_gaps(got, want):
 
 
 def tp_train_steps(torch, dist, models, training, parallel, data_parallel, cfg, route, mesh,
-                   counters, dev, gt, want32):
+                   counters, dev, gt, want32, ckpt_dir=None):
     """Phase 12 (e) on one rank, one route: TP_TRAIN_STEPS train steps of the
     full-width model from seed 0 with still tracks, replicated in this rank,
     then sharded with
@@ -2361,7 +2383,9 @@ def tp_train_steps(torch, dist, models, training, parallel, data_parallel, cfg, 
     (``tp_f32_grads``), over its range, each step's global norm,
     the replicated camera tensors compared bit for bit with model-rank 0's
     after each step, the frozen tensors, the bytes of this rank's parameters
-    and optimizer state, ms and launches per step."""
+    and optimizer state, ms and launches per step. With ``ckpt_dir``, phase
+    18 (b) as well: the TP state saved after the first step and restored
+    (``_tp_restore18``), its record under "ckpt"."""
     requests = _tp_requests(torch, cfg, dev)
     out = {}
     for name in ("replicated", "tp"):
@@ -2392,6 +2416,8 @@ def tp_train_steps(torch, dist, models, training, parallel, data_parallel, cfg, 
             r["norms"].append(optimizer.last_norm.item())
             if i == 0:
                 r["grads"] = grads
+            if name == "tp" and ckpt_dir and i == 0:
+                saved = _tp_save18(torch, training, model, optimizer, scheduler, ckpt_dir)
             if name == "tp":
                 # the replicated camera tensors against model-rank 0's
                 group = mesh.get_group("model")
@@ -2419,6 +2445,11 @@ def tp_train_steps(torch, dist, models, training, parallel, data_parallel, cfg, 
                                    for v in st.values() if isinstance(v, torch.Tensor))
             r["sharded"] = sum(parallel.tp_axis(p) is not None for p in model.parameters())
             del frozen
+            if ckpt_dir:
+                out["ckpt"] = _tp_restore18(torch, models, training, parallel, data_parallel, cfg,
+                                            route, mesh, dev, gt, requests[1], model, optimizer,
+                                            saved, r)
+                del saved
         del model, trained, optimizer, scheduler, step, aux
         torch.cuda.empty_cache()
     return out
@@ -2546,11 +2577,12 @@ def dist_child(rank, port, directory):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     want32 = torch.load(os.path.join(directory, "f32_grads.pt"))
-    res["tp_train"] = {route_name: tp_train_steps(torch, dist, models, training, parallel,
-                                                  data_parallel, cfg, route, tp_mesh, counters,
-                                                  dev, gt, want32)
-                       for route_name, route in routes}
+    res["tp_train"] = {route_name: tp_train_steps(
+        torch, dist, models, training, parallel, data_parallel, cfg, route, tp_mesh, counters, dev,
+        gt, want32, os.path.join(directory, "tp_ckpt") if route_name == "default" else None)
+        for route_name, route in routes}
     res["tp_train_s"] = time.perf_counter() - t0
+    res["tp_ckpt"] = res["tp_train"]["default"].pop("ckpt")
     torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
     dist.destroy_process_group()
     return 0
@@ -2660,8 +2692,9 @@ def distributed_phase(torch, np, data, geom, tcfg, models, training, parallel, c
     """Phase 12: (a) NCCL at world size 1 in this process; then 2 gloo ranks
     on the card (``--dist``) for (b) data parallelism, (c) tensor
     parallelism and (d) the mesh eval, checked against this process's
-    two-halves step and the ranks' own replicated runs. Returns the
-    phase's record."""
+    two-halves step and the ranks' own replicated runs, and (e)
+    tensor-parallel training (where the ranks also run phase 18 (b), which
+    ``resume_phase`` checks). Returns the phase's record."""
     import os
     import tempfile
 
@@ -2862,7 +2895,7 @@ def distributed_phase(torch, np, data, geom, tcfg, models, training, parallel, c
                 for ln in ranks[r]["tp_train"][rn]["tp"]["launches"])
     return dict(seconds=seconds, launches=launches, shapes=shapes, probe=probe,
                 grad_bytes=d["grad_bytes"], reduce_ms=d["reduce_ms"], tp_bytes=(mine, full),
-                tp_train=tp_train)
+                tp_train=tp_train, tp_ckpt=[ranks[r]["tp_ckpt"] for r in range(2)])
 
 
 # phase 13: the load paths, on an AMD fixture of data.fixtures (frames of the
@@ -4121,6 +4154,15 @@ TRAIN16_VAL = 2
 TRAIN16_LOSS_RTOL = 1e-4
 TRAIN16_GRAD_RTOL = 1e-3
 TRAIN16_GRAD_FLOOR = 1e-3
+# (a) also overfits LightGlue's fixed batch (its first experiment's, at its
+# width) for OVERFIT16_STEPS steps of Adam at OVERFIT16_LR: the loss must fall
+# by OVERFIT16_FALL of its first value: half the fall of the CPU reading
+# (tools/matcher_overfit.py --jax: 14.339 -> 13.309 over 30 steps, 7.2 %). At
+# the experiments' lr 1e-4 the loss of either package sits at -ln 1e-8 from
+# the second step on (matcher_nll_loss's floor), so the check runs at 1e-5
+OVERFIT16_STEPS = 30
+OVERFIT16_LR = 1e-5
+OVERFIT16_FALL = 0.035
 # (b): the extractors of EXTRACT16_EXPERIMENTS on the card against the CPU, on
 # the two images of a benchmark pair, at MATCH_IMG px with 512 keypoints
 # the NMS window of each (pixels): a keypoint missing from one set is a
@@ -4273,7 +4315,19 @@ def train16(torch, np, counters, dev, tmp):
             step(m, opt, bdev)
         median = statistics.median(steps_ms[1:])
         prof = _profile_step(torch, lambda gt: step(m, opt, bdev), (), None, median)
+        overfit = None
+        if name == TRAIN16_EXPERIMENTS[0]:  # LightGlue on one fixed batch
+            m = copy.deepcopy(module).to(dev).train()
+            opt = train.make_adam(m, OVERFIT16_LR)
+            overfit = [float(step(m, opt, bdev)) for _ in range(OVERFIT16_STEPS)]
+            fall = 1.0 - overfit[-1] / overfit[0]
+            print(f"training (a): {name}: {OVERFIT16_STEPS} steps on one fixed batch at lr "
+                  f"{OVERFIT16_LR}: loss {overfit[0]:.6f} -> {overfit[-1]:.6f}, a fall of "
+                  f"{fall:.4f} (at least {OVERFIT16_FALL}); curve "
+                  f"{['%.4f' % x for x in overfit]}", flush=True)
+            ok = ok and fall >= OVERFIT16_FALL and all(math.isfinite(x) for x in overfit)
         records[name] = dict(ok=ok, loss_card=loss_card, loss_cpu=loss_cpu, loss_err=loss_err,
+                             overfit=overfit,
                              grad_worst=worst, grad_worst_tensor=worst_name, labels=labels,
                              row=row, row_resumed=row_resumed, seconds=seconds,
                              step_ms_median=median, step_ms_first=steps_ms[0], peak_gib=peak,
@@ -5091,6 +5145,325 @@ def lines_pipelines_phase(torch, np, counters, dev, smi):
     return rec
 
 
+# phase 18: resuming the JAX package's training run, checkpoints of a
+# tensor-parallel model, and the matching helpers on the card. (a) phase 8's
+# train steps on the default route: RESUME18_STEPS steps, the state written in
+# the JAX package's checkpoint layout (jax_train_state, the port's msgpack
+# writer) and restored through training.auto_resume into a fresh model,
+# optimizer and scheduler; the next step taken RESUME18_RERUNS times from the
+# uninterrupted state, whose spread (the plain backwards' atomics) sets the
+# restored step's tolerance, RESUME18_SPREAD x it (0 where the reruns agree
+# bit for bit)
+RESUME18_STEPS = 2
+RESUME18_RERUNS = 3
+RESUME18_SPREAD = 2.0
+# (c): the patches of matching/patches.py at these corners of a 3 x 480 x 640
+# image (ps 31), and benchmark_model's calls of K1
+HELPERS18_PS = 31
+HELPERS18_CORNERS = 256
+HELPERS18_REPS = 50
+
+
+def _masked_moments(tree, trained, convert_leaf, path=()):
+    """A flax tree of per-parameter values with the leaves of parameters
+    not in ``trained`` as optax's masked-out leaves, ``{}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _masked_moments(v, trained, convert_leaf, path + (k,))
+        else:
+            out[k] = v if convert_leaf(path + (k,), v)[0] in trained else {}
+    return out
+
+
+def jax_train_state(model, optimizer, scheduler):
+    """The port's training state as the JAX package's checkpoint tree, in
+    flax's layout, as ``tools/orbax_to_msgpack.py`` writes it:
+    ``{"params": the model's flax variables, "opt": optax's
+    multi_transform({"train": masked(chain(clip_by_global_norm,
+    adamw))}, ...) state}``, ``exp_avg`` -> ``mu``, ``exp_avg_sq`` -> ``nu``,
+    the scheduler's count -> both counts. The inverse of
+    ``training.checkpoints``' mapping, built on ``weights.module_params_to_jax``."""
+    import numpy as np
+    import torch
+
+    from comet_tpu_torch.weights import convert_leaf, module_params_to_jax
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    held = [p for group in optimizer.param_groups for p in group["params"]]
+    trained = {names[id(p)] for p in held}
+    count = np.array(scheduler.last_epoch, np.int32)
+
+    def moments(key):
+        values = {n: torch.zeros((), device=p.device).expand(p.shape)
+                  for n, p in model.named_parameters()}
+        for p in held:
+            if p in optimizer.state:
+                values[names[id(p)]] = optimizer.state[p][key]
+        tree = module_params_to_jax(model, values)
+        return {"params": _masked_moments(tree["params"], trained, convert_leaf)}
+
+    adam = {"count": count, "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")}
+    return {"params": module_params_to_jax(model), "opt": {"inner_states": {
+        "freeze": {"inner_state": {}},
+        "train": {"inner_state": {"0": {}, "1": {"0": adam, "1": {}, "2": {"count": count}}}}}}}
+
+
+def _trained_params(model, optimizer):
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: p.detach().clone() for g in optimizer.param_groups for p in g["params"]}
+
+
+def _largest_gap(got, want):
+    return max((got[n] - want[n]).abs().max().item() for n in want)
+
+
+def resume18(torch, tcfg, geom, models, training, serialization, cfg, model, counters, dev, tmp):
+    """Phase 18 (a): returns its record."""
+    import copy
+    import os
+
+    import numpy as np
+
+    model.set_route(tcfg.KernelRoute())
+    gt = _train_gt(torch, np, geom, cfg, dev)
+    requests = [_request(torch, cfg, 200 + i, dev) for i in range(RESUME18_STEPS + 1)]
+    optimizer, scheduler = training.build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+    step = training.build_train_step(model, cfg, optimizer, scheduler)
+    _reset(counters)
+    for images, queries in requests[:-1]:
+        step(images, queries, gt)
+    launched = _launches(counters)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt_state, sched_state = copy.deepcopy(optimizer.state_dict()), scheduler.state_dict()
+
+    # the JAX package's layout, written with the port's msgpack writer
+    path = os.path.join(tmp, "ckpt", f"ckpt_{RESUME18_STEPS - 1:06d}")
+    os.makedirs(path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = serialization.msgpack_serialize(jax_train_state(model, optimizer, scheduler))
+    with open(os.path.join(path, "state.msgpack"), "wb") as f:
+        f.write(blob)
+    write_s, nbytes = time.perf_counter() - t0, len(blob)
+    del blob
+
+    # the uninterrupted next step, RESUME18_RERUNS times from the same state
+    reruns = []
+    for i in range(RESUME18_RERUNS):
+        if i:
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(params[n])
+            optimizer.load_state_dict(copy.deepcopy(opt_state))
+            scheduler.load_state_dict(sched_state)
+        aux = step(*requests[-1], gt)
+        reruns.append((aux["loss"].item(), _trained_params(model, optimizer)))
+    loss_spread = max(abs(a[0] - b[0]) for a in reruns for b in reruns)
+    param_spread = max(_largest_gap(a[1], b[1]) for a in reruns for b in reruns)
+
+    # restored into a fresh model, optimizer and scheduler on the card
+    fresh = models.build_comet(cfg, device=dev, seed=1)
+    f_opt, f_sched = training.build_optimizer(fresh, cfg.train.lr, steps_per_epoch=100)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start, state = training.auto_resume(os.path.join(tmp, "ckpt"), {
+        "model": fresh, "optimizer": f_opt, "scheduler": f_sched, "epoch": -1})
+    torch.cuda.synchronize()
+    read_s, count = time.perf_counter() - t0, f_sched.last_epoch
+    unequal = [n for n, p in fresh.named_parameters() if not torch.equal(p, params[n])]
+    held = [p for g in f_opt.param_groups for p in g["params"]]
+    moments_unequal = sum(
+        not torch.equal(f_opt.state[p][k], opt_state["state"][i][k])
+        for i, p in enumerate(held) for k in ("exp_avg", "exp_avg_sq"))
+    steps = {float(f_opt.state[p]["step"]) for p in held}
+    want_steps = {float(st["step"]) for st in opt_state["state"].values()}
+    lr, want_lr = f_opt.param_groups[0]["lr"], opt_state["param_groups"][0]["lr"]
+    f_step = training.build_train_step(fresh, cfg, f_opt, f_sched)
+    _reset(counters)
+    aux = f_step(*requests[-1], gt)
+    restored_launches = _launches(counters)
+    loss = aux["loss"].item()
+    loss_gap = abs(loss - reruns[0][0])
+    param_gap = _largest_gap(_trained_params(fresh, f_opt), reruns[0][1])
+    rec = dict(bytes=nbytes, write_s=write_s, read_s=read_s, start=start, epoch=state["epoch"],
+               unequal=unequal, moments_unequal=moments_unequal, steps=sorted(steps),
+               sched=count, lr=lr, loss=loss, rerun_losses=[r[0] for r in reruns],
+               loss_spread=loss_spread, param_spread=param_spread, loss_gap=loss_gap,
+               param_gap=param_gap, launches=launched, restored_launches=restored_launches)
+    ok = (start == RESUME18_STEPS and state["epoch"] == RESUME18_STEPS - 1 and not unequal
+          and not moments_unequal and steps == want_steps == {float(RESUME18_STEPS)}
+          and count == RESUME18_STEPS and lr == want_lr and math.isfinite(loss)
+          and loss_gap <= RESUME18_SPREAD * loss_spread
+          and param_gap <= RESUME18_SPREAD * param_spread
+          and launched == {k: RESUME18_STEPS * n for k, n in PER_FORWARD["default"].items()}
+          and restored_launches == PER_FORWARD["default"])
+    print(f"phase 18 (a): {RESUME18_STEPS} train steps (default route), the state in the JAX "
+          f"package's checkpoint layout: {nbytes} bytes, written in {write_s:.1f} s, restored "
+          f"by auto_resume into a fresh model, optimizer and scheduler in {read_s:.1f} s (start "
+          f"epoch {start}); parameters unequal {len(unequal)}, moments unequal "
+          f"{moments_unequal}, step {sorted(steps)}, scheduler count {count}, lr "
+          f"{lr:.6g} (want {want_lr:.6g}); next step from the restored state: loss {loss:.6f} "
+          f"against {reruns[0][0]:.6f} uninterrupted (|diff| {loss_gap:.3e}), camera "
+          f"parameters |diff| {param_gap:.3e}; spread of {RESUME18_RERUNS} uninterrupted steps: "
+          f"loss {loss_spread:.3e}, parameters {param_spread:.3e} (tolerance {RESUME18_SPREAD} x "
+          f"the spread); launches {launched} over {RESUME18_STEPS} steps, {restored_launches} in "
+          f"the restored step" + ("" if ok else " FAILED"), flush=True)
+    if not ok:
+        raise SmokeError(f"phase 18 (a): {rec}")
+    del fresh, f_opt, f_sched, f_step, reruns, params, opt_state, optimizer, scheduler, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tp_save18(torch, training, model, optimizer, scheduler, ckpt_dir):
+    """Phase 18 (b) in a rank, after the first tensor-parallel step: the
+    checkpoint (every rank calls ``save_checkpoint``; the shards gathered
+    whole, rank 0 writes), timed, and this rank's shards of the parameters
+    and of the Adam moments as they were saved."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = training.save_checkpoint(ckpt_dir, 0, {"model": model, "optimizer": optimizer,
+                                                  "scheduler": scheduler})
+    held = [p for g in optimizer.param_groups for p in g["params"]]
+    return dict(path=path, save_s=time.perf_counter() - t0,
+                params={n: p.detach().clone() for n, p in model.named_parameters()},
+                moments=[{k: optimizer.state[p][k].clone() for k in ("exp_avg", "exp_avg_sq")}
+                         for p in held])
+
+
+def _moments_match(torch, optimizer, saved, part):
+    """The optimizer's moments, each through ``part(i, tensor)``, equal
+    bit for bit to the saved shards; and its steps."""
+    held = [p for g in optimizer.param_groups for p in g["params"]]
+    equal = all(torch.equal(part(i, optimizer.state[p][k]), saved["moments"][i][k])
+                for i, p in enumerate(held) for k in ("exp_avg", "exp_avg_sq"))
+    return equal, sorted({float(optimizer.state[p]["step"]) for p in held})
+
+
+def _tp_restore18(torch, models, training, parallel, data_parallel, cfg, route, mesh, dev, gt,
+                  request, tp_model, tp_optimizer, saved, uninterrupted):
+    """Phase 18 (b) in a rank: the checkpoint restored into the replicated
+    model (this rank's part of every whole tensor equal to its shard as
+    saved) and into a fresh tensor-parallel model (equal to the shards),
+    then the second step from that state, against the uninterrupted one."""
+    import os
+
+    held_tp = [p for g in tp_optimizer.param_groups for p in g["params"]]
+    rec = dict(save_s=saved["save_s"],
+               bytes=os.path.getsize(os.path.join(saved["path"], training.checkpoints.STATE_FILE)))
+    for kind in ("replicated", "tp"):
+        model = models.build_comet(cfg, device=dev, seed=1, route=route)
+        if kind == "tp":
+            parallel.shard_params_tp(mesh, model)
+        optimizer, scheduler = training.build_optimizer(model, cfg.train.lr, steps_per_epoch=100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        training.restore_checkpoint(saved["path"], {"model": model, "optimizer": optimizer,
+                                                    "scheduler": scheduler})
+        torch.cuda.synchronize()
+        rec[f"{kind}_read_s"] = time.perf_counter() - t0
+        whole = kind == "replicated"  # this rank's part of each whole tensor, else the shard
+        rec[f"{kind}_params_equal"] = all(
+            torch.equal(parallel.shard_of(tp_model, n, p.detach()) if whole else p,
+                        saved["params"][n]) for n, p in model.named_parameters())
+        rec[f"{kind}_moments_equal"], rec[f"{kind}_steps"] = _moments_match(
+            torch, optimizer, saved,
+            lambda i, t: parallel.local_part(held_tp[i], t) if whole else t)
+        rec[f"{kind}_sched"] = scheduler.last_epoch
+        if kind == "tp":
+            trained = data_parallel.replicate_train_state(mesh, model, optimizer)
+            aux = training.build_train_step(trained, cfg, optimizer, scheduler)(*request, gt)
+            rec.update(loss=aux["loss"].item(), norm=optimizer.last_norm.item(),
+                       want_loss=uninterrupted["losses"][1], want_norm=uninterrupted["norms"][1])
+            del trained, aux
+        del model, optimizer, scheduler
+        torch.cuda.empty_cache()
+    return rec
+
+
+def check_tp18(ranks, smi):
+    """Phase 18 (b)'s records from phase 12's ranks, held to their checks
+    (the step after the restore at phase 12 (e)'s REF_RTOL)."""
+    for r, rec in enumerate(ranks):
+        loss_gap = abs(rec["loss"] - rec["want_loss"]) / abs(rec["want_loss"])
+        norm_gap = abs(rec["norm"] - rec["want_norm"]) / abs(rec["want_norm"])
+        ok = (all(rec[f"{k}_params_equal"] and rec[f"{k}_moments_equal"]
+                  and rec[f"{k}_steps"] == [1.0] and rec[f"{k}_sched"] == 1
+                  for k in ("replicated", "tp"))
+              and loss_gap <= REF_RTOL and norm_gap <= REF_RTOL)
+        print(f"phase 18 (b), rank {r}: tensor-parallel checkpoint (data 1, model 2, gloo on one "
+              f"card) after one step: {rec['bytes']} bytes, saved in {rec['save_s']:.1f} s; "
+              f"restored into the replicated model in {rec['replicated_read_s']:.1f} s (this "
+              f"rank's parts equal to its shards: parameters {rec['replicated_params_equal']}, "
+              f"moments {rec['replicated_moments_equal']}) and into tensor parallelism in "
+              f"{rec['tp_read_s']:.1f} s (parameters {rec['tp_params_equal']}, moments "
+              f"{rec['tp_moments_equal']}); the next step from it: loss {rec['loss']:.6f} "
+              f"against {rec['want_loss']:.6f} uninterrupted ({loss_gap:.2e}), norm "
+              f"{rec['norm']:.6g} against {rec['want_norm']:.6g} ({norm_gap:.2e}; limit "
+              f"{REF_RTOL}); on {smi}" + ("" if ok else " FAILED"), flush=True)
+        if not ok:
+            raise SmokeError(f"phase 18 (b) rank {r}: {rec}")
+
+
+def helpers18(torch, np, attn, k1_rows, dev, smi):
+    """Phase 18 (c): the matching helpers on the card. Returns the record."""
+    from comet_tpu_torch.matching import misc, patches, tools
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(18)
+    img = torch.rand(3, 480, 640, generator=gen)
+    corners = torch.rand(HELPERS18_CORNERS, 2, generator=gen) * torch.tensor([700.0, 540.0]) - 30
+    got = patches.extract_patches(img.to(dev), corners.to(dev), HELPERS18_PS)
+    want = patches.extract_patches(img, corners, HELPERS18_PS)
+    imgs, kpts = img[None].repeat(2, 1, 1, 1), corners.view(2, -1, 2)
+    got_b = patches.batch_extract_patches(imgs.to(dev), kpts.to(dev), HELPERS18_PS)
+    want_b = patches.batch_extract_patches(imgs, kpts, HELPERS18_PS)
+    equal = all(g.is_cuda and torch.equal(g.cpu(), w) for g, w in zip(got + got_b, want + want_b))
+    batch = {"image": np.zeros((2, 3, 8, 8), np.float32), "views": [torch.ones(2, 4), {
+        "kpts": torch.zeros(2, 5, 2), "n": 3}], "name": "pair", "none": None}
+    moved = misc.batch_to_device(batch, dev)
+    leaves = []
+    misc.map_tensor(moved, leaves.append)
+    on_card = all(isinstance(t, torch.Tensor) and t.is_cuda for t in leaves)
+    # benchmark_model of K1 at the ViT's shape, beside phase 3's CUDA-event time
+    where, b, lq, lk, c, h, *_ = K1_SHAPES[0]
+    qkv = torch.randn(b, lq, 3 * c, device=dev).bfloat16()
+    q, k, v = qkv.split(c, dim=-1)
+    bench = tools.benchmark_model(lambda x: attn.fused_attention(*x, h), (q, k, v),
+                                  r=HELPERS18_REPS, warmup=5)
+    event_ms = next(r["ms"] for r in k1_rows if r["where"] == where)
+    rec = dict(patches_equal=equal, on_card=on_card, leaves=len(leaves), bench=bench,
+               event_ms=event_ms)
+    print(f"phase 18 (c): extract_patches and batch_extract_patches (ps {HELPERS18_PS}, "
+          f"{HELPERS18_CORNERS} corners of a 3 x 480 x 640 image, the clamp included) on the "
+          f"card equal to the CPU: {equal}; batch_to_device of a nested batch: {len(leaves)} "
+          f"leaves, every tensor on the card: {on_card}; benchmark_model of K1 at {where} "
+          f"[{b},{lq},{c}] H{h}: {bench['mean']:.4f} ms mean ({bench['std']:.4f} std, host clock, "
+          f"launch + synchronize) against {event_ms:.4f} ms between CUDA events (phase 3); on "
+          f"{smi}", flush=True)
+    if not (equal and on_card and bench["mean"] > 0):
+        raise SmokeError(f"phase 18 (c): {rec}")
+    return rec
+
+
+def resume_phase(torch, np, tcfg, geom, models, training, serialization, attn, cfg, model,
+                 counters, k1_rows, distributed, dev, smi):
+    """Phase 18: (a) ``resume18``; (b) ``check_tp18`` of phase 12's ranks;
+    (c) ``helpers18``. Returns the records and the phase's seconds."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        resumed = resume18(torch, tcfg, geom, models, training, serialization, cfg, model,
+                           counters, dev, tmp)
+    check_tp18(distributed["tp_ckpt"], smi)
+    helped = helpers18(torch, np, attn, k1_rows, dev, smi)
+    seconds = time.perf_counter() - t0
+    print(f"phase 18: {seconds:.1f} s, on {smi}", flush=True)
+    return dict(seconds=seconds, resumed=resumed, tp=distributed["tp_ckpt"], helpers=helped)
+
+
 def _profile_step(torch, step, request, gt, step_ms):
     """torch.profiler over one warm train step: its device time and the
     device's idle share of the median step."""
@@ -5257,6 +5630,8 @@ def main(argv=None) -> int:
         matching = match_phase(torch, np, counters, dev, smi)
         phase16 = train_extract_phase(torch, np, F, attn, counters, dev, smi)
         phase17 = lines_pipelines_phase(torch, np, counters, dev, smi)
+        phase18 = resume_phase(torch, np, tcfg, geom, models, training, serialization, attn, cfg,
+                               model, counters, checked["K1"], distributed, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5420,6 +5795,13 @@ def main(argv=None) -> int:
                       for k, v in phase17["depth"].items())
           + f"; pipelines (h5py {phase17['h5py']}): {piped or 'file round trip not run'}",
           flush=True)
+    a, c = phase18["resumed"], phase18["helpers"]
+    print(f"phase 18: {phase18['seconds']:.1f} s; the JAX layout's checkpoint {a['bytes']} bytes, "
+          f"written {a['write_s']:.1f} s, restored {a['read_s']:.1f} s, the restored step's loss "
+          f"|diff| {a['loss_gap']:.3e} (spread {a['loss_spread']:.3e}); TP checkpoint "
+          f"{phase18['tp'][0]['bytes']} bytes, saved {phase18['tp'][0]['save_s']:.1f} s; "
+          f"benchmark_model K1 {c['bench']['mean']:.4f} ms against {c['event_ms']:.4f} ms between "
+          f"events", flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -9,8 +9,9 @@ homography benchmark, the named experiments and their checkpoints; line
 detection (the LSD and DeepLSD stand-ins), wireframes and GlueStick; depth
 ground truth for points and lines; the cached-prediction evaluation
 pipelines (homography and relative pose), the feature cache and the viz
-drawing. The glue-factory tools, misc, image, inspect-frame and patch
-helpers are not ported yet (ROADMAP Queue 1 item 7f).
+drawing; glue-factory's harness helpers (metric accumulators, timing, host
+RNG state, batch plumbing, image loading, keypoint patches and the
+inspection frames).
 """
 
 from .registry import TwoViewPipeline, get_model, list_models, register_model
@@ -129,3 +130,31 @@ from .train import (
     make_homography_training_batch,
     matcher_nll_loss,
 )
+from .tools import (
+    AverageMetric,
+    FAverageMetric,
+    MedianMetric,
+    PRMetric,
+    QuantileMetric,
+    RecallMetric,
+    Timer,
+    benchmark_model,
+    fork_rng,
+    set_seed,
+)
+from .image import ImagePreprocessor, load_image, numpy_image_to_chw, read_image
+from .misc import (
+    batch_to_device,
+    batch_to_numpy,
+    get_twoview,
+    get_view,
+    index_batch,
+    map_tensor,
+    rbd,
+    stack_twoviews,
+    to_view,
+    unstack_twoviews,
+)
+from .inspect_frames import PLOT_REGISTRY, GlobalFrame, TwoViewFrame
+from .patches import batch_extract_patches, build_heatmap, draw_image_patches, extract_patches
+from .capture import apply_backspaces_and_linefeeds, capture_outputs

@@ -77,10 +77,13 @@ def image_gradients(gray: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def gradient_magnitude(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
-    """sqrt(gx^2 + gy^2) correctly rounded, as ``jnp.sqrt`` gives it: the
-    square root taken in f64 and rounded once (torch's f32 square root on
-    the CPU is 1 ulp off the correctly rounded one at some entries:
-    ``tools/torch_sqrt_probe.py``)."""
+    """sqrt(gx^2 + gy^2) correctly rounded, as ``jnp.sqrt`` gives it on the
+    CPU: the square root taken in f64 and rounded once. Measured on the
+    tests' 64 x 64 Sobel fields with torch 2.13.0+cpu (an MKL build) by
+    ``tools/torch_sqrt_probe.py`` (180 calls per method): ``torch.sqrt`` in
+    f32 at most 1 ulp from the correctly rounded root, ``jnp.sqrt`` and this
+    function 0 ulps; the tests hold this function to ``jnp.sqrt`` bit for
+    bit on the same gradients."""
     return torch.sqrt((gx * gx + gy * gy).double()).to(gx.dtype)
 
 

@@ -397,7 +397,8 @@ class ModelAxis:
 
 def tp_axis(param: torch.Tensor) -> Optional["ModelAxis"]:
     """The model axis a parameter is a shard over (``shard_params_tp`` marks
-    each shard), or None for a whole parameter."""
+    each shard, and its ``tp_dim``: the split dimension, None for an
+    in-projection split by head), or None for a whole parameter."""
     return getattr(param, "tp_axis", None)
 
 
@@ -407,27 +408,47 @@ def _head_rows(w: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     return torch.cat([axis.chunk(part, 0) for part in w.chunk(3, 0)], 0)
 
 
-def _local_part(whole: torch.Tensor, pname: str, dim: Optional[int],
-                axis: ModelAxis) -> torch.Tensor:
-    """This rank's part of parameter ``pname`` split along ``dim``: an
-    in-projection by head, any other weight in contiguous slices."""
-    if pname == "in_proj_weight":
+def _local_part(whole: torch.Tensor, dim: Optional[int], axis: ModelAxis) -> torch.Tensor:
+    """This rank's part of a tensor split along ``dim``, or, with ``dim``
+    None, of a packed in-projection by head."""
+    if dim is None:
         return _head_rows(whole, axis)
     return axis.chunk(whole, dim)
 
 
 @torch.no_grad()
+def local_part(param: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``whole``, a tensor shaped as the unsharded
+    parameter of which ``param`` is this rank's shard (the weight, its
+    gradient, an optimizer moment), in ``param``'s layout: ``whole`` itself
+    where ``param`` is not a shard."""
+    axis = tp_axis(param)
+    if axis is None:
+        return whole
+    return _local_part(whole, param.tp_dim, axis)
+
+
+@torch.no_grad()
+def whole_of(param: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`local_part`: the whole tensor of which ``part``
+    (shaped as ``param``) is this rank's share, gathered over ``param``'s
+    model group, so every rank of the group calls it in the same order;
+    ``part`` itself where ``param`` is not a shard."""
+    axis = tp_axis(param)
+    if axis is None:
+        return part
+    if param.tp_dim is not None:
+        return axis._all_gather(part, param.tp_dim)
+    ranks = axis._all_gather(part, 0).chunk(axis.size, 0)  # each rank's q, k and v rows
+    return torch.cat([torch.cat([r.chunk(3, 0)[i] for r in ranks], 0) for i in range(3)], 0)
+
+
 def shard_of(model: nn.Module, name: str, whole: torch.Tensor) -> torch.Tensor:
     """This rank's part of ``whole``, a tensor shaped as parameter ``name`` of
     the unsharded model (a weight, its gradient), in the layout
     :func:`shard_params_tp` gave ``model``'s parameter: ``whole`` itself
     where that parameter is not a shard."""
-    mod_name, _, pname = name.rpartition(".")
-    module = model.get_submodule(mod_name)
-    axis = tp_axis(getattr(module, pname))
-    if axis is None:
-        return whole
-    return _local_part(whole, pname, getattr(module, "tp_dim", None), axis)
+    return local_part(model.get_parameter(name), whole)
 
 
 @torch.no_grad()
@@ -458,12 +479,13 @@ def shard_params_tp(mesh, model: nn.Module) -> nn.Module:
             if pname == "in_proj_weight":
                 if module.num_heads % n:
                     continue
+                dim = None  # by head
             else:
                 module.tp_dim = dim
-            shard = _local_part(p, pname, dim, axis)
+            shard = _local_part(p, dim, axis)
             shard = nn.Parameter(shard.clone(memory_format=torch.contiguous_format),
                                  requires_grad=p.requires_grad)
-            shard.tp_axis = axis
+            shard.tp_axis, shard.tp_dim = axis, dim
             setattr(module, pname, shard)
             module.tp = axis
     return model

@@ -4,7 +4,7 @@ from .data_parallel import (
     start_metric_fetch,
 )
 from .loop import (
-    METRIC_FETCH_KEYS, build_train_step, build_windowed_train_step, eval_step, evaluate,
+    METRIC_FETCH_KEYS, build_eval_step, build_train_step, build_windowed_train_step, eval_step, evaluate,
     make_gt_cameras, metric_block,
 )
 from .optim import (

@@ -80,6 +80,18 @@ def eval_step(model: COMET, cfg: CometConfig, images: torch.Tensor, queries: tor
     }
 
 
+def build_eval_step(model: COMET, cfg: CometConfig) -> Callable:
+    """:func:`eval_step` bound to ``model`` and ``cfg``, without autograd:
+    ``step(images, queries, gt_cams)``. JAX's step also takes the
+    parameters first; here the model holds them."""
+
+    @torch.no_grad()
+    def step(images: torch.Tensor, queries: torch.Tensor, gt_cams: CameraSet):
+        return eval_step(model, cfg, images, queries, gt_cams)
+
+    return step
+
+
 def build_train_step(model: COMET, cfg: CometConfig, optimizer: torch.optim.Optimizer,
                      scheduler) -> Callable:
     """The train step (``build_train_step``'s): forward, ``encode_gt``,

@@ -44,10 +44,11 @@ def is_msgpack(path: str) -> bool:
 def check_gathered(model: nn.Module) -> None:
     """Raise if tensor parallelism left ``model`` a shard of its weights
     (``parallel.shard_params_tp``): a file of one rank's shards is no
-    model's weights."""
+    model's weights. ``training.save_checkpoint`` gathers them."""
     if any(getattr(m, "tp", None) is not None for m in model.modules()):
         raise ValueError("the model holds tensor-parallel shards (parallel.shard_params_tp); "
-                         "gather the whole weights into an unsharded model first")
+                         "training.save_checkpoint gathers them whole, or gather the whole "
+                         "weights into an unsharded model first")
 
 
 def save_params(path: str, model: nn.Module) -> str:

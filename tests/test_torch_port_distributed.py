@@ -138,10 +138,11 @@ def _dataset(root, cfg):
                       use_augs=False)
 
 
-def _dp_steps(model, cfg, batch, rows, mesh=None):
+def _dp_steps(model, cfg, batch, rows, mesh=None, on_step=None):
     """STEPS train steps on ``rows`` of ``batch``: (losses, the trained
     parameters after, their gradients in the first step, as the optimizer
-    got them, and each step's global norm of the gradient)."""
+    got them, and each step's global norm of the gradient). ``on_step(i,
+    optimizer, scheduler)`` is called after step i."""
     from comet_tpu_torch.training import build_optimizer, build_train_step, camera_only_mask
     from comet_tpu_torch.training.data_parallel import replicate_train_state
 
@@ -157,16 +158,21 @@ def _dp_steps(model, cfg, batch, rows, mesh=None):
         if part == "optimizer":
             norms.append(float(optimizer.last_norm))
 
-    losses = [float(step(*_torch_rows(batch, rows), mark=mark)["loss"]) for _ in range(STEPS)]
+    losses = []
+    for i in range(STEPS):
+        losses.append(float(step(*_torch_rows(batch, rows), mark=mark)["loss"]))
+        if on_step is not None:
+            on_step(i, optimizer, scheduler)
     params = {n: p.detach().clone() for n, p in model.named_parameters() if mask[n]}
     return losses, params, grads, norms
 
 
-def _tp_steps(cfg, weights, mesh, batch):
+def _tp_steps(cfg, weights, mesh, batch, ckpt_dir=None):
     """:func:`_dp_steps` of a model that ``shard_params_tp`` sharded over
     ``mesh``'s model axis: each data rank trains on its rows of the global
     batch (all of it at data size 1), DDP over the data group. Its record,
-    with the frozen tensors that moved."""
+    with the frozen tensors that moved; with ``ckpt_dir``, also the
+    checkpoint after the first step (:func:`_tp_checkpoint`)."""
     model = _model(cfg, weights)
     parallel.shard_params_tp(mesh, model)
     laid_out = all(torch.equal(parallel.shard_of(model, n, weights[n].to(p.dtype)), p)
@@ -174,11 +180,60 @@ def _tp_steps(cfg, weights, mesh, batch):
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()}
     n_data, d = mesh.size(0), mesh.get_local_rank(parallel.DATA)
     rows = slice(0, len(batch[0])) if n_data == 1 else slice(d, d + 1)
-    losses, params, grads, norms = _dp_steps(model, cfg, batch, rows, mesh)
+    saved = {}
+
+    def on_step(i, optimizer, scheduler):
+        if ckpt_dir and i == 0:
+            saved.update(_save_tp_checkpoint(model, optimizer, scheduler, ckpt_dir))
+
+    losses, params, grads, norms = _dp_steps(model, cfg, batch, rows, mesh, on_step)
     moved = [n for n, p in model.named_parameters() if n not in params
              and not torch.equal(p, frozen[n])]
-    return dict(losses=losses, params=params, grads=grads, norms=norms, frozen_moved=moved,
-                shard_of_matches=laid_out, saving=_save_sharded(model))
+    rec = dict(losses=losses, params=params, grads=grads, norms=norms, frozen_moved=moved,
+               shard_of_matches=laid_out, saving=_save_sharded(model, weights))
+    if ckpt_dir:
+        rec["ckpt"] = _tp_checkpoint(cfg, mesh, batch, rows, model, saved)
+    return rec
+
+
+def _save_tp_checkpoint(model, optimizer, scheduler, ckpt_dir):
+    """The tensor-parallel checkpoint (every rank saves; rank 0 writes the
+    gathered state), and this rank's shards of the parameters and of the
+    Adam moments as they were saved."""
+    from comet_tpu_torch.training import save_checkpoint
+
+    path = save_checkpoint(ckpt_dir, 0, {"model": model, "optimizer": optimizer,
+                                         "scheduler": scheduler})
+    held = [p for g in optimizer.param_groups for p in g["params"]]
+    return dict(path=path, params={n: p.detach().clone() for n, p in model.named_parameters()},
+                moments=[{k: optimizer.state[p][k].clone() for k in ("exp_avg", "exp_avg_sq")}
+                         for p in held])
+
+
+def _tp_checkpoint(cfg, mesh, batch, rows, tp_model, saved):
+    """The checkpoint restored into a fresh sharded model of other weights:
+    whether its parameters and moments equal this rank's shards as saved,
+    and the loss and global norm of the second step taken from it."""
+    from comet_tpu_torch.models import build_comet
+    from comet_tpu_torch.training import build_optimizer, build_train_step, restore_checkpoint
+    from comet_tpu_torch.training.data_parallel import replicate_train_state
+
+    model = parallel.shard_params_tp(mesh, build_comet(cfg, device="cpu", seed=3))
+    optimizer, scheduler = build_optimizer(model, **_OPT)
+    restore_checkpoint(saved["path"], {"model": model, "optimizer": optimizer,
+                                       "scheduler": scheduler})
+    held = [p for g in optimizer.param_groups for p in g["params"]]
+    rec = dict(
+        path=saved["path"], shards=saved,
+        params_equal=all(torch.equal(p, saved["params"][n]) for n, p in model.named_parameters()),
+        moments_equal=all(torch.equal(optimizer.state[p][k], saved["moments"][i][k])
+                          for i, p in enumerate(held) for k in ("exp_avg", "exp_avg_sq")),
+        steps=sorted({float(optimizer.state[p]["step"]) for p in held}),
+        count=scheduler.last_epoch)
+    step = build_train_step(replicate_train_state(mesh, model, optimizer), cfg, optimizer, scheduler)
+    rec["loss"] = float(step(*_torch_rows(batch, rows))["loss"])
+    rec["norm"] = float(optimizer.last_norm)
+    return rec
 
 
 def _range_gaps(got, want):
@@ -207,9 +262,10 @@ def _tp_rounding(cfg, weights, mesh, batch):
     return _range_gaps(rep, want), _range_gaps(got, want)
 
 
-def _save_sharded(model):
+def _save_sharded(model, weights):
     """What saving a sharded model gives: each way's error message (or
-    "saved"), and the files it left."""
+    "saved"), the files it left in this rank's directory, and whether the
+    checkpoint (where this rank wrote one) holds the whole weights."""
     import tempfile
 
     from comet_tpu_torch.training import save_checkpoint
@@ -225,6 +281,11 @@ def _save_sharded(model):
             except ValueError as exc:
                 out[name] = str(exc)
         out["files"] = sorted(os.listdir(tmp))
+        state = os.path.join(tmp, "ckpt_000000", "state.pt")
+        if os.path.exists(state):
+            saved = torch.load(state)["model"]
+            out["whole"] = saved.keys() == weights.keys() and all(
+                saved[n].shape == w.shape for n, w in weights.items())
     return out
 
 
@@ -328,7 +389,8 @@ def worker_dp(rank, world, port, out):
     res["losses"], res["params"], res["grads"], _ = _dp_steps(
         _model(cfg, weights), cfg, _train_batch(cfg, world), slice(rank, rank + 1), mesh)
     tp_mesh = parallel.make_mesh(n_data=1, n_model=2, device="cpu")
-    res["tp_train"] = {(1, 2): _tp_steps(cfg, weights, tp_mesh, _train_batch(cfg, 2))}
+    res["tp_train"] = {(1, 2): _tp_steps(cfg, weights, tp_mesh, _train_batch(cfg, 2),
+                                         os.path.join(out, "tp_ckpt"))}
     res["tp_rounding"] = _tp_rounding(cfg, weights, tp_mesh, _train_batch(cfg, 2))
     res["fit_steps"], res["fit_params"] = _fit(_model(cfg, weights), cfg, out, 1, mesh)
     res["eval"] = _evaluate(_model(cfg, weights), cfg, out, mesh)
@@ -956,13 +1018,66 @@ def test_tp_bf16_adds_no_rounding_of_its_own(dp):
 
 
 def test_saving_a_sharded_model_raises(dp):
-    """Checkpoints of a tensor-parallel model are out of scope: saving its
-    weights or a checkpoint raises, saying to gather first, and writes
-    nothing."""
-    saving = dp[0]["tp_train"][(1, 2)]["saving"]
-    assert saving.pop("files") == []
-    for name, message in saving.items():
-        assert "gather" in message, name
+    """Saving a tensor-parallel model's weights alone (``save_params``)
+    still raises, saying that ``save_checkpoint`` gathers them, and writes
+    nothing; ``save_checkpoint``, called by every rank, writes the gathered
+    whole weights from rank 0 only."""
+    for rank in range(2):
+        saving = dict(dp[rank]["tp_train"][(1, 2)]["saving"])
+        assert "gather" in saving["save_params"] and "save_checkpoint" in saving["save_params"]
+        assert saving["save_checkpoint"] == "saved"
+        assert saving["files"] == (["ckpt_000000"] if rank == 0 else [])
+    assert dp[0]["tp_train"][(1, 2)]["saving"]["whole"] is True
+
+
+def _tp_ckpt(dp):
+    return [dp[r]["tp_train"][(1, 2)]["ckpt"] for r in range(2)]
+
+
+def test_tp_checkpoint_restores_into_tensor_parallelism(dp):
+    """A checkpoint saved after the first (data 1, model 2) step, restored
+    into a fresh sharded model of other weights: its parameters and Adam
+    moments equal each rank's shards as saved bit for bit, the step and the
+    schedule's count 1; the step taken from it matches the uninterrupted
+    second step at the TP steps' tolerance (loss within 1e-5 relative,
+    global norm within 1e-4)."""
+    for rank, rec in enumerate(_tp_ckpt(dp)):
+        assert rec["params_equal"] and rec["moments_equal"], rank
+        assert rec["steps"] == [1.0] and rec["count"] == 1, rank
+        run = dp[rank]["tp_train"][(1, 2)]
+        np.testing.assert_allclose(rec["loss"], run["losses"][1], rtol=1e-5)
+        np.testing.assert_allclose(rec["norm"], run["norms"][1], rtol=1e-4)
+
+
+def test_tp_checkpoint_restores_into_one_process(shared, dp):
+    """The same checkpoint restored into the unsharded model in one process:
+    every parameter and moment equal to the ranks' shards reassembled, bit
+    for bit; the step from it matches the uninterrupted tensor-parallel
+    second step (loss within 1e-5 relative, global norm within 1e-4)."""
+    from comet_tpu_torch.models import build_comet
+    from comet_tpu_torch.training import build_optimizer, build_train_step, restore_checkpoint
+
+    cfg, recs = shared["cfg"], _tp_ckpt(dp)
+    model = build_comet(cfg, device="cpu", seed=3)
+    optimizer, scheduler = build_optimizer(model, **_OPT)
+    restore_checkpoint(recs[0]["path"], {"model": model, "optimizer": optimizer,
+                                         "scheduler": scheduler})
+    for name, p in model.named_parameters():
+        whole = _whole(name, [rec["shards"]["params"][name] for rec in recs], p.shape)
+        assert torch.equal(p, whole), name
+    names = [n for n, _ in model.named_parameters()]
+    held = [p for g in optimizer.param_groups for p in g["params"]]
+    ids = {id(p): n for n, p in model.named_parameters()}
+    for i, p in enumerate(held):
+        for key in ("exp_avg", "exp_avg_sq"):
+            whole = _whole(ids[id(p)], [rec["shards"]["moments"][i][key] for rec in recs], p.shape)
+            assert torch.equal(optimizer.state[p][key], whole), (ids[id(p)], key)
+    assert len(held) < len(names) and scheduler.last_epoch == 1
+    aux = build_train_step(model, cfg, optimizer, scheduler)(
+        *_torch_rows(_train_batch(cfg, 2), slice(0, 2)))
+    run = dp[0]["tp_train"][(1, 2)]
+    np.testing.assert_allclose(float(aux["loss"]), run["losses"][1], rtol=1e-5)
+    np.testing.assert_allclose(float(optimizer.last_norm), run["norms"][1], rtol=1e-4)
 
 
 @pytest.mark.parametrize("mesh_shape", list(TP_TRAIN), ids=lambda s: f"data{s[0]}-model{s[1]}")

@@ -17,6 +17,7 @@ whole-forward tolerances, as the default route's tests in
 tests/test_torch_port_models.py.
 """
 
+import re
 from pathlib import Path
 
 import jax
@@ -335,10 +336,15 @@ def test_the_defaults_are_the_jax_defaults():
 
 
 def test_no_port_module_reads_the_environment_to_choose_a_kernel():
-    # the route is an argument; the nvcc lookup (CUDA_HOME) is the only read
+    # the route is an argument; the nvcc lookup (CUDA_HOME) is the only read;
+    # matching.tools.set_num_threads writes the thread-count variables, as
+    # the JAX package's does, and reads none
     root = Path(tblocks.__file__).resolve().parents[1]
     readers = sorted(
         str(p.relative_to(root)) for p in root.rglob("*.py")
         if "os.environ" in p.read_text() or "getenv" in p.read_text()
     )
-    assert readers == ["ops/kernels.py"]
+    assert readers == ["matching/tools.py", "ops/kernels.py"]
+    tools = (root / "matching" / "tools.py").read_text()
+    assert "getenv" not in tools
+    assert tools.count("os.environ") == len(re.findall(r"os\.environ\[\w+\] = ", tools)) == 1
