@@ -283,7 +283,29 @@ Phases, each of which makes the script exit nonzero when it fails:
    ``extract_patches`` and ``batch_extract_patches`` on the card equal to the
    CPU, ``matching.misc.batch_to_device`` of a nested batch, and
    ``matching.tools.benchmark_model`` of K1 at the ViT's shape beside phase
-   3's time between CUDA events.
+   3's time between CUDA events; and
+19. the reference's released checkpoints into the port without JAX
+   (``convert_phase``, ``comet_tpu_torch/utils/convert_torch_weights.py``):
+   (a) a full-width ``ours`` checkpoint in the reference's layout (phase 5's
+   weights from seed 0 with the trackers' coordinate updates held at 0,
+   DINOv2's ``pos_embed`` at its stored 37 x 37 grid, a ``module.`` prefix,
+   ``{"model": ...}``) written as a ``best.bin``,
+   converted by ``python -m comet_tpu_torch.utils.convert_torch_weights``
+   in a child process (its seconds and peak RSS), its stages timed again in
+   this process (``torch.load``, convert, write, read: the same bytes, the
+   read state dict the in-memory conversion bit for bit), loaded onto the
+   card by ``--checkpoint``'s path (bit for bit) and run on phase 5's first
+   request on both routes: phase 5's launches per forward, every output
+   within REF_RTOL of the same weights' f32 forward on the CPU (the scores,
+   which PyTorch's own bf16 on the CPU moves further, held to the CPU's bf16
+   trackers instead: ``CONVERT19_KNOWN_MISS``); (b) ``--self-test`` in a child
+   process beside (a)'s forwards on the CPU: the five presets at full width,
+   0 missing and 0 unmapped; (c) a ``superpoint_v1`` SuperPoint and an
+   official-layout LightGlue (depth 9, width 256, the release's names, no
+   ``input_proj``) converted, the SuperPoint's keypoints and the adaptive
+   LightGlue's matches on the card against the CPU as in phase 15 (a), the
+   LightGlue with biases that make it prune after layer 0 and stop after
+   layer 3: ``stop_layer``, ``prune0`` and ``prune1`` equal, points pruned.
 
 The script prints its total time; the line before the last holds the
 kernels' JSON record, and the last line
@@ -5464,6 +5486,444 @@ def resume_phase(torch, np, tcfg, geom, models, training, serialization, attn, c
     return dict(seconds=seconds, resumed=resumed, tp=distributed["tp_ckpt"], helpers=helped)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the reference's released checkpoints into the port without JAX
+# (comet_tpu_torch/utils/convert_torch_weights.py). (a) a full-width `ours`
+# checkpoint in the reference's layout (phase 5's weights from seed 0, the
+# trackers' coordinate updates held at 0, the DINOv2 pos_embed at its stored
+# 37 x 37 grid, a "module." prefix, wrapped in
+# {"model": ...}) converted by the module's command, loaded as `--checkpoint`
+# loads it and run on both routes against the CPU; (b) `--self-test` at full
+# width; (c) an official-layout LightGlue (the release's names, no
+# input_proj) and a superpoint_v1 SuperPoint converted, on the card against
+# the CPU, the LightGlue adaptive and pruning.
+# ---------------------------------------------------------------------------
+CONVERT19_GRID = 37
+CONVERT19_POS_STD = 0.02  # DINOv2's pos_embed init
+CONVERT19_TIMEOUT = 300
+CONVERT19_MODULE = "comet_tpu_torch.utils.convert_torch_weights"
+CONVERT19_OUTPUTS = ("coarse_track", "pred_track", "track_vis", "track_score", "pred_pose_enc")
+# (a): each output on the card in bf16 against the same weights' f32 forward
+# on the CPU, within REF_RTOL of the CPU's largest value. The checkpoint holds
+# the trackers' coordinate updates at 0 (``_still_tracks``, as phase 12 (e)
+# does): with them, the random trackers turned bf16 rounding into 5.4 % of the
+# coarse tracks' range, 16 % of the refined tracks' and 97 % of the scores'
+# (H100). The scores (the inverse spread of a softmax over random fine
+# features, normalized by its largest frame) still miss it: PyTorch's own
+# bf16 forward on the CPU moves them by 5.2 % of their range, the card by
+# 4.2 % (H100). An output in CONVERT19_KNOWN_MISS that misses is printed as
+# such and held instead to the CPU's bf16 trackers (``COMET._track``, the part
+# of the forward that makes the scores) within REF_RTOL; it fails where those
+# meet REF_RTOL against f32 (the miss would then be the card's own).
+CONVERT19_KNOWN_MISS = ("track_score",)
+# (c): the adaptive LightGlue (MATCH_ADAPTIVE) prunes after layer 0 and
+# stops after layer CONVERT19_STOP. Layer 0's token-confidence and
+# matchability biases put the thresholds in the widest gap between two
+# points' logits within the CONVERT19_SPLIT quantiles (measured on the CPU),
+# so no point sits within rounding of a threshold; the layers between take
+# -CONVERT19_FAR (no point confident: none pruned, no stop), layer
+# CONVERT19_STOP +CONVERT19_FAR (every point confident: the stop).
+CONVERT19_STOP = 3
+CONVERT19_SPLIT = (0.3, 0.7)
+CONVERT19_FAR = 12.0
+
+
+def _run_child(argv, timeout):
+    """``argv`` in a child process from the checkout's root: (exit code,
+    stdout, stderr, wall seconds, the child's peak resident bytes sampled
+    from /proc every 20 ms once it runs ``argv``, or None where /proc does
+    not show them). Neither the child's ``ru_maxrss`` nor its first samples
+    would do: until its exec the child counts the parent's pages."""
+    import os
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    page, peak, done = os.sysconf("SC_PAGE_SIZE"), [None], threading.Event()
+    own = ("\0".join(argv) + "\0").encode()
+
+    def sample():
+        while not done.is_set():
+            try:
+                with open(f"/proc/{proc.pid}/cmdline", "rb") as f:
+                    execed = f.read() == own
+                with open(f"/proc/{proc.pid}/statm") as f:
+                    resident = int(f.read().split()[1]) * page
+                if execed:
+                    peak[0] = max(peak[0] or 0, resident)
+            except (OSError, ValueError, IndexError):
+                pass
+            done.wait(0.02)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        err += f"\n(killed after {timeout} s)"
+    finally:
+        done.set()
+        sampler.join()
+    return proc.returncode, out, err, time.perf_counter() - t0, peak[0]
+
+
+def _in_gib(nbytes):
+    return None if nbytes is None else nbytes / 2 ** 30
+
+
+def convert19a(torch, np, tcfg, models, serialization, cfg, counters, dev, tmp, beside):
+    """Phase 19 (a): returns its record. ``beside()`` is called as the CPU's
+    forwards start (they take most of (a), on the host's cores)."""
+    import filecmp
+    import os
+
+    from comet_tpu_torch import cli
+    from comet_tpu_torch.utils import convert_torch_weights as conv
+    from comet_tpu_torch.weights import module_params_to_jax, params_from_jax
+
+    rec = {}
+    # the reference's layout of phase 5's weights: the mapping's inverse
+    t0 = time.perf_counter()
+    cpu_model = _still_tracks(torch, models.build_comet(cfg.replace(compute_dtype="float32"),
+                                                        device="cpu", seed=0))
+    flat = conv.flatten_params(module_params_to_jax(cpu_model)["params"])
+    mapping = conv.build_mapping(cfg)
+    rng = np.random.default_rng(0)
+    sd = {}
+    for path, value in flat.items():
+        key, tf = mapping[path]
+        if tf is conv.t_conv:
+            value = value.transpose(3, 2, 0, 1)
+        elif tf is conv.t_linear:
+            value = value.T
+        elif tf is not conv.t_none:  # the pos_embed, at DINOv2's stored grid
+            value = CONVERT19_POS_STD * rng.standard_normal(
+                (1, 1 + CONVERT19_GRID ** 2, value.shape[-1]), dtype=np.float32)
+        sd["module." + key] = torch.from_numpy(np.ascontiguousarray(value))
+    del flat
+    bin_path = os.path.join(tmp, "best.bin")
+    torch.save({"model": sd}, bin_path)
+    rec["parameters"] = sum(v.numel() for v in sd.values())
+    del sd
+    rec["make_s"], rec["bin_bytes"] = time.perf_counter() - t0, os.path.getsize(bin_path)
+
+    # the module's command, as a user runs it, beside its import alone (the
+    # resident floor of a process that imports torch)
+    rec["import_rss"] = _run_child([sys.executable, "-c", f"import {CONVERT19_MODULE}"],
+                                   CONVERT19_TIMEOUT)[4]
+    out_path = os.path.join(tmp, "best.msgpack")
+    rc, out, err, rec["command_s"], rec["command_rss"] = _run_child(
+        [sys.executable, "-m", CONVERT19_MODULE, "--bin", bin_path, "--out", out_path],
+        CONVERT19_TIMEOUT)
+    rec["command_out"] = out.strip()
+    if rc != 0 or rec["command_out"] != f"wrote {out_path} (0 missing, 0 unmapped)":
+        raise SmokeError(f"convert (a): the command exited {rc}: {out[-2000:]} {err[-2000:]}")
+    rec["msgpack_bytes"] = os.path.getsize(out_path)
+
+    # its stages in this process, each timed
+    t0 = time.perf_counter()
+    sd = conv.load_reference(bin_path)
+    rec["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree, missing, unmapped = conv.convert(sd, conv.comet_template(cfg), cfg)
+    rec["convert_s"] = time.perf_counter() - t0
+    del sd
+    again = os.path.join(tmp, "again.msgpack")
+    t0 = time.perf_counter()
+    serialization.save_params_msgpack(again, tree)
+    rec["write_s"] = time.perf_counter() - t0
+    rec["same_file"] = filecmp.cmp(out_path, again, shallow=False)
+    os.remove(again)
+    t0 = time.perf_counter()
+    from_file = serialization.load_params_msgpack(out_path, cfg)
+    rec["read_s"] = time.perf_counter() - t0
+    in_memory = params_from_jax(tree, cfg)
+    del tree
+    rec["bitwise"] = set(from_file) == set(in_memory) and all(
+        from_file[k].dtype == v.dtype and torch.equal(from_file[k], v)
+        for k, v in in_memory.items())
+    del in_memory
+
+    # `--checkpoint`'s path onto the card, and the same weights on the CPU
+    t0 = time.perf_counter()
+    card = cli._init_model(cfg, 0, out_path, inference=False, device=dev)
+    torch.cuda.synchronize()
+    rec["card_load_s"] = time.perf_counter() - t0
+    rec["card_bitwise"] = all(torch.equal(v.cpu(), from_file[k])
+                              for k, v in card.state_dict().items())
+    cpu_model.load_state_dict(from_file)
+    cpu_bf16 = models.build_comet(cfg, device="cpu", seed=0)
+    cpu_bf16.load_state_dict(from_file)
+    del from_file
+    images, queries = _request(torch, cfg, 100, dev)
+    beside()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = {k: v.float() for k, v in cpu_model(images.cpu(), queries.cpu()).items()}
+    rec["cpu_f32_s"] = time.perf_counter() - t0
+    # PyTorch's own bf16 of the outputs in CONVERT19_KNOWN_MISS: the
+    # trackers' part of the forward (``COMET._track``), without the camera's
+    t0 = time.perf_counter()
+    tracked = {}
+    with torch.inference_mode():
+        cpu_bf16._track(images.cpu(), queries.cpu(), tracked)
+    rec["cpu_bf16_s"] = time.perf_counter() - t0
+    del cpu_model, cpu_bf16
+    rec["routes"] = {}
+    for route_name, route in (("default", tcfg.KernelRoute()), ("fused", tcfg.FUSED_ROUTE)):
+        card.set_route(route)
+        _reset(counters)
+        with torch.inference_mode():
+            got = card(images, queries)
+        torch.cuda.synchronize()
+        gaps = {}
+        for key in CONVERT19_OUTPUTS:
+            g, w = got[key].float().cpu(), want[key]
+            gaps[key] = dict(err=(g - w).abs().max().item(), scale=w.abs().max().item(),
+                             finite=bool(torch.isfinite(g).all()))
+            if key in CONVERT19_KNOWN_MISS:
+                w16 = tracked[key].float()
+                gaps[key].update(err_bf16=(g - w16).abs().max().item(),
+                                 cpu_bf16_err=(w16 - w).abs().max().item())
+        rec["routes"][route_name] = dict(launches=_launches(counters), gaps=gaps)
+    del card
+    torch.cuda.empty_cache()
+    return rec
+
+
+def convert19b():
+    """Phase 19 (b): ``--self-test`` in a child process; returns its record."""
+    rc, out, err, seconds, rss = _run_child(
+        [sys.executable, "-m", CONVERT19_MODULE, "--self-test"], CONVERT19_TIMEOUT)
+    lines = [ln for ln in out.splitlines() if ln.startswith("self-test[")]
+    return dict(rc=rc, lines=lines, seconds=seconds, rss=rss, err=err[-2000:])
+
+
+def _widest_gap(np, logits):
+    """The middle of the widest gap between two sorted logits within the
+    CONVERT19_SPLIT quantiles, and the gap."""
+    v = np.sort(logits)
+    lo, hi = (int(q * (len(v) - 1)) for q in CONVERT19_SPLIT)
+    i = lo + int(np.argmax(np.diff(v[lo:hi + 1])))
+    return float(v[i] + v[i + 1]) / 2, float(v[i + 1] - v[i])
+
+
+def _pruning_biases(torch, np, m, args, valid):
+    """Token-confidence and matchability biases of ``m`` (in place) that make
+    it prune after layer 0 and stop after layer CONVERT19_STOP on these
+    inputs; returns the layer-0 gaps."""
+    k0, d0, k1, d1 = args
+    v0, v1 = valid["valid0"], valid["valid1"]
+    with torch.no_grad():
+        d0, d1 = m.transformers[0](m.input_proj(d0), m.input_proj(d1), m.posenc(k0),
+                                   m.posenc(k1), v0, v1)
+        gaps = {}
+        for name, lin, thr in (
+                ("confidence", m.token_confidence[0].token,
+                 math.log(0.9 / 0.1)),  # confidence_threshold(0, depth) = 0.9
+                ("matchability", m.log_assignment[0].matchability,
+                 math.log(0.01 / 0.99))):  # 1 - MATCH_ADAPTIVE's width confidence
+            logits = torch.cat([lin(d0)[:, 0][v0], lin(d1)[:, 0][v1]]).numpy()
+            mid, gaps[name] = _widest_gap(np, logits)
+            lin.bias.add_(thr - mid)
+        for i in range(1, CONVERT19_STOP + 1):
+            m.token_confidence[i].token.bias.fill_(
+                CONVERT19_FAR if i == CONVERT19_STOP else -CONVERT19_FAR)
+    return gaps
+
+
+def convert19c(torch, np, dev):
+    """Phase 19 (c): returns its records."""
+    import copy
+    import re
+
+    from comet_tpu_torch.matching import benchmarks, lightglue
+    from comet_tpu_torch.matching.extractors import build_superpoint
+    from comet_tpu_torch.models.blocks import init_params
+    from comet_tpu_torch.models.superpoint import SuperPointBackbone
+    from comet_tpu_torch.utils import convert_torch_weights as conv
+    from comet_tpu_torch.weights import module_params_from_jax, module_params_to_jax
+
+    records = []
+
+    def record(name, ok, **fields):
+        records.append(dict(name=name, ok=ok, **fields))
+        print(f"convert (c): {name}: {json.dumps(fields)}{'' if ok else ' FAILED'}", flush=True)
+
+    # SuperPoint: superpoint_v1.pth's layout (OIHW, no prefix) of seed 0's weights
+    flat = conv.flatten_params(module_params_to_jax(
+        build_superpoint(MATCH_KP, seed=0).backbone)["params"])
+    sp_sd = {}
+    for name in conv.SUPERPOINT_LAYERS:
+        sp_sd[f"{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(flat[f"{name}/kernel"].transpose(3, 2, 0, 1)))
+        sp_sd[f"{name}.bias"] = torch.from_numpy(flat[f"{name}/bias"])
+    sp = build_superpoint(MATCH_KP, seed=1)
+    sp.backbone.load_state_dict(module_params_from_jax(
+        conv.convert_superpoint(sp_sd, module_params_to_jax(SuperPointBackbone())), sp.backbone))
+    sp_card = copy.deepcopy(sp).to(dev)
+    img0, img1, _ = benchmarks.make_synthetic_pairs(1, (MATCH_IMG, MATCH_IMG), seed=0,
+                                                    device=torch.device("cpu"))[0]
+    feats = {}
+    with torch.no_grad():
+        for side, img in (("0", img0), ("1", img1)):
+            want, got = sp(img[..., 0]), sp_card(img[..., 0].to(dev))
+            feats[side] = want
+            wk, ws = want.keypoints.numpy(), want.scores.numpy()
+            gk, gs = got.keypoints.cpu().numpy(), got.scores.cpu().numpy()
+            diff, near, order = _keypoint_diffs(np, gk, gs, wk, ws, 2 * sp.nms_radius + 1)
+            same = (gk == wk).all(axis=1)
+            err_sc = _rel_err(np, gs, ws) if order == 0 else _rel_err(np, np.sort(gs), np.sort(ws))
+            err_d = _rel_err(np, got.descriptors.cpu().numpy()[same],
+                             want.descriptors.numpy()[same])
+            record(f"converted SuperPoint, image {side}", diff == near and err_sc <= MATCH_TOL
+                   and err_d <= MATCH_TOL, keypoints=MATCH_KP, zero_score=int((ws == 0).sum()),
+                   disagreements=diff, near_ties=near, slots_reordered=int(order),
+                   score_err=err_sc, descriptor_err=err_d, tol=MATCH_TOL)
+
+    def norm(k):
+        return k / (MATCH_IMG - 1.0) * 2.0 - 1.0
+
+    args = (norm(feats["0"].keypoints), feats["0"].descriptors,
+            norm(feats["1"].keypoints), feats["1"].descriptors)
+    valid = dict(valid0=feats["0"].scores > 0, valid1=feats["1"].scores > 0)
+    # LightGlue: the release's layout of seed 0's weights with the Identity
+    # input_proj and pruning biases
+    conf = dict(depth=9, dim=256, num_heads=4, filter_threshold=0.0,
+                depth_confidence=MATCH_ADAPTIVE[0], width_confidence=MATCH_ADAPTIVE[1])
+    src = lightglue.LightGlueMatcher(**conf)
+    init_params(src, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        src.input_proj.weight.copy_(torch.eye(conf["dim"]))
+        src.input_proj.bias.zero_()
+    gaps = _pruning_biases(torch, np, src, args, valid)
+    mapping = conv.build_lightglue_mapping(conf["depth"])
+    lg_sd = {}
+    for path, value in conv.flatten_params(module_params_to_jax(src)["params"]).items():
+        if path.startswith("input_proj/"):
+            continue
+        key, tf = mapping[path]
+        key = re.sub(r"^transformers\.(\d+)\.(self_attn|cross_attn)\.", r"\2.\1.", key)
+        lg_sd[key] = torch.from_numpy(np.ascontiguousarray(value.T if tf is conv.t_linear
+                                                           else value))
+    m = lightglue.LightGlueMatcher(**conf)
+    init_params(m, torch.Generator().manual_seed(1))
+    tree, missing, unmapped = conv.convert_lightglue(lg_sd, module_params_to_jax(m),
+                                                     depth=conf["depth"])
+    m.load_state_dict(module_params_from_jax(tree, m))
+    m.eval()
+    same_weights = all(torch.equal(v, src.state_dict()[k]) for k, v in m.state_dict().items())
+    with torch.no_grad():
+        want = m(*args, **valid)
+        got = copy.deepcopy(m).to(dev)(*(a.to(dev) for a in args),
+                                       **{k: v.to(dev) for k, v in valid.items()})
+    got = {k: v.cpu() for k, v in got.items()}
+    la_w, la_g = want["log_assignment"].numpy(), got["log_assignment"].numpy()
+    diff, near = _match_diffs(np, got["matches0"].numpy(), want["matches0"].numpy(),
+                              la_g[:-1, :-1], la_w[:-1, :-1])
+    rows, rows_near = _argmax_diffs(np, la_g[:-1, :-1], la_w[:-1, :-1])
+    same_adapt = all(torch.equal(got[k], want[k]) for k in ("stop_layer", "prune0", "prune1"))
+    stop = int(want["stop_layer"])
+    pruned = [int((want[f"prune{i}"] < stop).sum()) for i in (0, 1)]
+    err = _rel_err(np, la_g, la_w)
+    record("converted LightGlue depth 9, adaptive", diff == near and rows == rows_near
+           and same_adapt and err <= MATCH_TOL and sum(pruned) > 0 and stop < conf["depth"]
+           and not missing and not unmapped and same_weights,
+           release_keys=len(lg_sd), missing=len(missing), unmapped=len(unmapped),
+           weights_equal_source=same_weights, layer0_gaps=gaps,
+           matches=int((want["matches0"] >= 0).sum()), disagreements=diff, near_ties=near,
+           row_argmax_disagreements=rows, row_argmax_near_ties=rows_near, stop_layer=stop,
+           pruned0=pruned[0], pruned1=pruned[1], adaptive_equal=same_adapt,
+           log_assignment_err=err, tol=MATCH_TOL)
+    return records
+
+
+def convert_phase(torch, np, tcfg, models, serialization, cfg, counters, dev, smi):
+    """Phase 19: (a) ``convert19a``, (b) ``convert19b``, (c) ``convert19c``,
+    TF32 off for (c)'s comparisons; each part runs and prints before the
+    phase fails on a check (a failed conversion command fails it at once).
+    Returns the records and the phase's seconds."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SmokeError("phase 19: TF32 matmuls are on; the comparisons run in f32")
+    t_phase = time.perf_counter()
+    failures, self_test = [], []
+    with ThreadPoolExecutor(1) as pool, tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # (b)'s child runs beside (a)'s forwards on the CPU
+        a = convert19a(torch, np, tcfg, models, serialization, cfg, counters, dev, tmp,
+                       lambda: self_test.append(pool.submit(convert19b)))
+        a["seconds"] = time.perf_counter() - t0
+        b = self_test[0].result()
+    print(f"convert (a): a full-width 'ours' reference checkpoint of {a['parameters']} "
+          f"parameters, {a['bin_bytes']} bytes, made in {a['make_s']:.1f} s; the command "
+          f"'{a['command_out']}' in {a['command_s']:.1f} s, its peak RSS "
+          f"{_gib(_in_gib(a['command_rss']))} (importing the module alone "
+          f"{_gib(_in_gib(a['import_rss']))}); {a['msgpack_bytes']} bytes; in this process "
+          f"torch.load {a['load_s']:.1f} s, convert {a['convert_s']:.1f} s, write "
+          f"{a['write_s']:.1f} s (the same bytes as the command's: {a['same_file']}), read "
+          f"{a['read_s']:.1f} s (the in-memory conversion bit for bit: {a['bitwise']}); onto "
+          f"the card by --checkpoint's "
+          f"path in {a['card_load_s']:.1f} s (bit for bit: {a['card_bitwise']}); the CPU's "
+          f"forward in f32 {a['cpu_f32_s']:.1f} s, its trackers in bf16 {a['cpu_bf16_s']:.1f} s; "
+          f"on {smi}", flush=True)
+    if not (a["same_file"] and a["bitwise"] and a["card_bitwise"]):
+        failures.append("(a) the file, its read or the card's weights differ from the "
+                        "in-memory conversion")
+    for route_name, r in a["routes"].items():
+        ok, held = r["launches"] == PER_FORWARD[route_name], {}
+        for key, g in r["gaps"].items():
+            limit = REF_RTOL * g["scale"]
+            ok &= g["finite"]
+            if g["err"] <= limit:
+                continue
+            if key not in CONVERT19_KNOWN_MISS or g["cpu_bf16_err"] <= limit:
+                ok = False
+                continue
+            held[key] = dict(card_to_cpu_bf16=g["err_bf16"] / g["scale"],
+                             cpu_bf16_to_f32=g["cpu_bf16_err"] / g["scale"])
+            ok &= g["err_bf16"] <= limit
+
+        def ratios(field):
+            return json.dumps({k: float(f"{g[field] / max(g['scale'], 1e-12):.3e}")
+                               for k, g in r["gaps"].items() if field in g})
+        print(f"convert (a), {route_name} route: launches {r['launches']} (phase 5's "
+              f"{PER_FORWARD[route_name]}); max |card bf16 - CPU f32| / max |CPU f32| "
+              f"{ratios('err')} (limit {REF_RTOL}); max |CPU bf16 - CPU f32| / max |CPU f32| "
+              f"{ratios('cpu_bf16_err')}; missed and held to the CPU's bf16 trackers "
+              f"{json.dumps(held)}{'' if ok else ' FAILED'}", flush=True)
+        if not ok:
+            failures.append(f"(a) {route_name} route")
+    print(f"convert (b): --self-test (beside (a)'s CPU forwards) exited {b['rc']} in "
+          f"{b['seconds']:.1f} s, peak RSS {_gib(_in_gib(b['rss']))}: {' | '.join(b['lines'])}",
+          flush=True)
+    want_lines = [f"self-test[{p}]" for p in ("ours", "abl_all", "abl_track", "abl_time",
+                                              "abl_uvz")]
+    if b["rc"] != 0 or [ln.split(":")[0] for ln in b["lines"]] != want_lines or not all(
+            ln.endswith(" 0 missing, 0 unmapped") for ln in b["lines"]):
+        failures.append(f"(b) the self-test: {b['lines']} {b['err']}")
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        c = convert19c(torch, np, dev)
+        c_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    failures += [f"(c) {r['name']}" for r in c if not r["ok"]]
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 19: {seconds:.1f} s ((a) {a['seconds']:.1f} with (b) beside it, (c) "
+          f"{c_s:.1f}), on {smi}", flush=True)
+    if failures:
+        raise SmokeError(f"phase 19: {'; '.join(failures)}")
+    return dict(seconds=seconds, a=a, b=b, c=c)
+
+
 def _profile_step(torch, step, request, gt, step_ms):
     """torch.profiler over one warm train step: its device time and the
     device's idle share of the median step."""
@@ -5632,6 +6092,7 @@ def main(argv=None) -> int:
         phase17 = lines_pipelines_phase(torch, np, counters, dev, smi)
         phase18 = resume_phase(torch, np, tcfg, geom, models, training, serialization, attn, cfg,
                                model, counters, checked["K1"], distributed, dev, smi)
+        phase19 = convert_phase(torch, np, tcfg, models, serialization, cfg, counters, dev, smi)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5802,6 +6263,15 @@ def main(argv=None) -> int:
           f"{phase18['tp'][0]['bytes']} bytes, saved {phase18['tp'][0]['save_s']:.1f} s; "
           f"benchmark_model K1 {c['bench']['mean']:.4f} ms against {c['event_ms']:.4f} ms between "
           f"events", flush=True)
+    a = phase19["a"]
+    print(f"phase 19: {phase19['seconds']:.1f} s; the reference checkpoint {a['bin_bytes']} bytes "
+          f"-> {a['msgpack_bytes']} bytes of msgpack: the command {a['command_s']:.1f} s (peak "
+          f"RSS {_gib(_in_gib(a['command_rss']))}, its import alone "
+          f"{_gib(_in_gib(a['import_rss']))}), torch.load {a['load_s']:.1f} s, convert "
+          f"{a['convert_s']:.1f} s, write {a['write_s']:.1f} s, read {a['read_s']:.1f} s; "
+          f"--self-test {phase19['b']['seconds']:.1f} s; the converted LightGlue stops at layer "
+          f"{phase19['c'][-1]['stop_layer']} with {phase19['c'][-1]['pruned0']} + "
+          f"{phase19['c'][-1]['pruned1']} points pruned", flush=True)
     print(f"chip_smoke: total {time.perf_counter() - started:.1f} s after the imports", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

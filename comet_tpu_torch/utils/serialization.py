@@ -329,8 +329,8 @@ def msgpack_serialize(tree: Dict[str, Any]) -> bytes:
 def save_params_msgpack(path: str, params) -> str:
     """Write a flax tree, or a module's weights as the flax variables of its
     JAX counterpart (``weights.module_params_to_jax``), as the JAX package's
-    ``save_params_msgpack`` writes them (``flax.serialization.to_bytes``),
-    whole or not at all; returns the path."""
+    ``save_params_msgpack`` writes them (``flax.serialization.to_bytes``'s
+    bytes, streamed), whole or not at all; returns the path."""
     if isinstance(params, nn.Module):
         from ..weights import module_params_to_jax
 
@@ -339,9 +339,25 @@ def save_params_msgpack(path: str, params) -> str:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(msgpack_serialize(params))
+        _pack_value(_chunked(params), _FileSink(f))
     os.replace(tmp, path)
     return path
+
+
+class _FileSink:
+    """The ``+=`` and ``append`` of the packer's bytearray, onto a file: the
+    document streams out and is never held whole (a full-width COMET's is
+    1 GB)."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def __iadd__(self, data):
+        self.f.write(data)
+        return self
+
+    def append(self, byte: int) -> None:
+        self.f.write(bytes((byte,)))
 
 
 def _unchunk(tree: Any, what: str) -> Any:

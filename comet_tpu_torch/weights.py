@@ -150,8 +150,35 @@ def module_params_to_jax(module: torch.nn.Module,
     ``values`` (parameter name -> tensor of its shape, such as an optimizer's
     moments) puts those tensors in the parameters' places, and leaves the
     buffers out: the tree of an optax state over the parameters."""
+    leaves = list(_flax_leaves(module, values))
+    out: Dict[str, Dict] = {"params": {}}
+    for (section, comps, leaf, _, perm), arr in zip(
+            leaves, _host_arrays([t for *_, t, _ in leaves])):
+        if perm is not None:
+            arr = arr.transpose(perm)
+        # (ascontiguousarray makes a 0-d array 1-d)
+        _put(out, section, comps, leaf, np.array(arr, order="C"))
+    return _sorted(out)
+
+
+def flax_template(module: torch.nn.Module) -> Dict[str, Dict]:
+    """The paths, shapes and dtypes of :func:`module_params_to_jax`'s tree
+    without its values: each leaf a read-only array of zeros in the
+    parameter's dtype that holds no memory (``np.broadcast_to``). It reads
+    only shapes, so a ``device="meta"`` module gives a full-width template
+    for nothing; the checkpoint converters fill one."""
+    out: Dict[str, Dict] = {"params": {}}
+    for section, comps, leaf, t, perm in _flax_leaves(module, None):
+        shape = tuple(t.shape[i] for i in perm) if perm is not None else tuple(t.shape)
+        zero = np.zeros((), torch.empty((), dtype=t.dtype).numpy().dtype)
+        _put(out, section, comps, leaf, np.broadcast_to(zero, shape))
+    return _sorted(out)
+
+
+def _flax_leaves(module: torch.nn.Module, values: Optional[Mapping[str, torch.Tensor]]):
+    """(section, path components, leaf name, tensor, axis permutation into
+    flax's layout or None) of every leaf of ``module``'s flax variables."""
     norms = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
-    leaves = []  # (module name, module, leaf name, tensor)
     for mod_name, mod in module.named_modules():
         own = list(mod.named_parameters(recurse=False))
         if values is None:
@@ -160,23 +187,23 @@ def module_params_to_jax(module: torch.nn.Module,
         for leaf, value in own:
             if values is not None:
                 value = values[f"{mod_name}.{leaf}" if mod_name else leaf]
-            leaves.append((mod_name, mod, leaf, value))
-    out: Dict[str, Dict] = {"params": {}}
-    for (mod_name, mod, leaf, _), arr in zip(leaves, _host_arrays([v for *_, v in leaves])):
-        section = "params"
-        if leaf == "weight" and isinstance(mod, (nn.Linear, nn.Conv2d)):
-            arr, leaf = (arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)), "kernel"
-        elif leaf == "weight" and (isinstance(mod, norms) or _is_norm(mod)):
-            leaf = "scale"
-        elif leaf == "in_proj_weight":
-            arr, leaf = arr.T, "in_proj_kernel"
-        elif leaf in ("running_mean", "running_var"):
-            section, leaf = "batch_stats", leaf[len("running_"):]
-        node = out.setdefault(section, {})
-        for comp in _flax_components(mod_name):
-            node = node.setdefault(comp, {})
-        node[leaf] = np.array(arr, order="C")  # (ascontiguousarray makes a 0-d array 1-d)
-    return _sorted(out)
+            section, perm = "params", None
+            if leaf == "weight" and isinstance(mod, (nn.Linear, nn.Conv2d)):
+                perm, leaf = ((1, 0) if value.dim() == 2 else (2, 3, 1, 0)), "kernel"
+            elif leaf == "weight" and (isinstance(mod, norms) or _is_norm(mod)):
+                leaf = "scale"
+            elif leaf == "in_proj_weight":
+                perm, leaf = (1, 0), "in_proj_kernel"
+            elif leaf in ("running_mean", "running_var"):
+                section, leaf = "batch_stats", leaf[len("running_"):]
+            yield section, _flax_components(mod_name), leaf, value, perm
+
+
+def _put(tree: Dict, section: str, comps, leaf: str, arr) -> None:
+    node = tree.setdefault(section, {})
+    for comp in comps:
+        node = node.setdefault(comp, {})
+    node[leaf] = arr
 
 
 def _host_arrays(tensors):
