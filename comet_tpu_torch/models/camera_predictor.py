@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..geometry.embeddings import sincos_2d_pos_embed, sincos_time_embed
 from ..ops.bilinear import resize_bilinear_align_corners
+from ..utils.profiling import span
 from .blocks import AttnBlock, CrossAttnBlock, LayerNorm, Linear, Mlp, megatron_pair
 from .vit import DinoViT
 
@@ -166,7 +167,8 @@ class CameraPredictor(nn.Module):
         std = x.new_tensor(_RESNET_STD)
         x = (x - mean) / std  # second normalization, as in the reference
 
-        with torch.no_grad() if self.freeze_backbone else contextlib.nullcontext():
+        with span("camera.backbone"), (torch.no_grad() if self.freeze_backbone
+                                       else contextlib.nullcontext()):
             tokens = self.backbone(x.to(dt))  # [B*S, P, backbone_dim]
         tokens = self.norm2(self.input_transform(tokens))  # [B*S, P, C]
         p = tokens.shape[1]

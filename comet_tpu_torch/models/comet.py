@@ -26,6 +26,7 @@ from ..geometry.codecs import (
     encode_relative_xyz,
 )
 from ..ops.bilinear import resize_bilinear_align_corners
+from ..utils.profiling import span
 from .blocks import init_params, set_route
 from .camera_predictor import CameraPredictor
 from .encoders import BasicEncoder, ShallowEncoder
@@ -81,50 +82,55 @@ class COMET(nn.Module):
         images: torch.Tensor,  # [B, S, H, W, 3] ImageNet-normalized
         queries: torch.Tensor,  # [B, N, 2] frame-0 query points (pixels)
     ) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
-        out: Dict[str, torch.Tensor] = {}
-        pred_track = track_confidence = None
+        with span("forward"):
+            cfg = self.cfg
+            out: Dict[str, torch.Tensor] = {}
+            pred_track = track_confidence = None
 
-        if cfg.enable_track:
-            with torch.no_grad() if cfg.freeze_track else contextlib.nullcontext():
-                pred_track, track_confidence = self._track(images, queries, out)
+            if cfg.enable_track:
+                with span("tracker"), (torch.no_grad() if cfg.freeze_track
+                                       else contextlib.nullcontext()):
+                    pred_track, track_confidence = self._track(images, queries, out)
 
-        if cfg.enable_pose:
-            preds = self.camera_predictor(images, pred_track, track_confidence)
-            out["pred_pose_enc"] = preds.pred_pose_enc  # [B, S, 7]
-        return out
+            if cfg.enable_pose:
+                with span("camera"):
+                    preds = self.camera_predictor(images, pred_track, track_confidence)
+                out["pred_pose_enc"] = preds.pred_pose_enc  # [B, S, 7]
+            return out
 
     def _track(self, images, queries, out):
         """The coarse and fine trackers: (tracks, confidence), and their
         other outputs into ``out``."""
         cfg, tc, dtype = self.cfg, self.cfg.tracker, self.cfg.dtype
         b, s, h, w, _ = images.shape
-        imgs_flat = images.reshape(b * s, h, w, 3)
-        if tc.coarse_down_ratio > 1:
-            imgs_flat = resize_bilinear_align_corners(
-                imgs_flat, h // tc.coarse_down_ratio, w // tc.coarse_down_ratio
+        with span("tracker.coarse"):
+            imgs_flat = images.reshape(b * s, h, w, 3)
+            if tc.coarse_down_ratio > 1:
+                imgs_flat = resize_bilinear_align_corners(
+                    imgs_flat, h // tc.coarse_down_ratio, w // tc.coarse_down_ratio
+                )
+            fmaps = self.coarse_fnet(imgs_flat.to(dtype))
+            fmaps = fmaps.reshape(b, s, *fmaps.shape[1:])
+            coarse_out = self.coarse_tracker(
+                queries, fmaps, iters=tc.coarse_iters, down_ratio=tc.coarse_down_ratio
             )
-        fmaps = self.coarse_fnet(imgs_flat.to(dtype))
-        fmaps = fmaps.reshape(b, s, *fmaps.shape[1:])
-        coarse_out = self.coarse_tracker(
-            queries, fmaps, iters=tc.coarse_iters, down_ratio=tc.coarse_down_ratio
-        )
         coarse_pred = coarse_out.coord_preds[-1]  # [B, S, N, 2]
 
         if cfg.fine_tracker:
-            refined, score = refine_track(
-                images.to(dtype),
-                self.fine_fnet,
-                lambda q, f, iters: self.fine_tracker(q, f, iters=iters),
-                coarse_pred,
-                pradius=tc.fine_pradius,
-                sradius=tc.fine_sradius,
-                compute_score=True,
-                iters=tc.fine_iters,
-            )
-            # confidence = normalized inverse heatmap std
-            inv = 1.0 / (score + 1e-6)
-            track_confidence = inv / inv.amax(dim=1, keepdim=True)
+            with span("tracker.fine"):
+                refined, score = refine_track(
+                    images.to(dtype),
+                    self.fine_fnet,
+                    lambda q, f, iters: self.fine_tracker(q, f, iters=iters),
+                    coarse_pred,
+                    pradius=tc.fine_pradius,
+                    sradius=tc.fine_sradius,
+                    compute_score=True,
+                    iters=tc.fine_iters,
+                )
+                # confidence = normalized inverse heatmap std
+                inv = 1.0 / (score + 1e-6)
+                track_confidence = inv / inv.amax(dim=1, keepdim=True)
         else:
             refined = coarse_pred
             track_confidence = torch.ones_like(coarse_out.vis)

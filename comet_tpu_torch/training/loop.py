@@ -31,6 +31,7 @@ from ..metrics import (
     relative_frame_errors,
 )
 from ..models.comet import COMET, decode_predictions, encode_gt, pose_loss
+from ..utils.profiling import span
 from .stats import RunningStats
 
 
@@ -109,27 +110,34 @@ def build_train_step(model: COMET, cfg: CometConfig, optimizer: torch.optim.Opti
     (``pred_pose_enc``, ``gt_pose_enc``, ``pred_q``, ``pred_t``, ``loss``,
     ``loss_trans``, ``loss_rot``), detached; it does not synchronize.
     ``step(..., mark=f)``, for measurement: ``f`` is called with "forward",
-    "backward" and "optimizer" as each part of the step has been issued."""
+    "backward" and "optimizer" as each part of the step has been issued.
+    Under ``utils.profiling.recording`` the step and its parts are the spans
+    ``train.step``, ``train.forward``, ``train.backward``, ``train.optimizer``
+    and ``train.decode``."""
 
     def step(images: torch.Tensor, queries: torch.Tensor, gt_cams: CameraSet,
              mark: Callable[[str], None] = lambda name: None) -> Dict[str, torch.Tensor]:
-        gt_cams = cameras_to(gt_cams, images.device)
-        optimizer.zero_grad(set_to_none=True)
-        out = model(images, queries)
-        gt_enc = encode_gt(cfg, gt_cams)
-        gt_enc_b = gt_enc if gt_enc.dim() == 3 else gt_enc[None]
-        losses = pose_loss(cfg, out["pred_pose_enc"], gt_enc_b)
-        mark("forward")
-        losses["loss"].backward()
-        mark("backward")
-        optimizer.step()
-        scheduler.step()
-        mark("optimizer")
-        pred = out["pred_pose_enc"].detach()
-        with torch.no_grad():
-            q_abs, t_abs = decode_predictions(cfg, pred, gt_cams)
-        return {"pred_pose_enc": pred, "gt_pose_enc": gt_enc, "pred_q": q_abs, "pred_t": t_abs,
-                **{k: v.detach() for k, v in losses.items()}}
+        with span("train.step"):
+            gt_cams = cameras_to(gt_cams, images.device)
+            optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                out = model(images, queries)
+                gt_enc = encode_gt(cfg, gt_cams)
+                gt_enc_b = gt_enc if gt_enc.dim() == 3 else gt_enc[None]
+                losses = pose_loss(cfg, out["pred_pose_enc"], gt_enc_b)
+            mark("forward")
+            with span("train.backward"):
+                losses["loss"].backward()
+            mark("backward")
+            with span("train.optimizer"):
+                optimizer.step()
+                scheduler.step()
+            mark("optimizer")
+            pred = out["pred_pose_enc"].detach()
+            with span("train.decode"), torch.no_grad():
+                q_abs, t_abs = decode_predictions(cfg, pred, gt_cams)
+            return {"pred_pose_enc": pred, "gt_pose_enc": gt_enc, "pred_q": q_abs,
+                    "pred_t": t_abs, **{k: v.detach() for k, v in losses.items()}}
 
     return step
 

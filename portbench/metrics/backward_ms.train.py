@@ -1,0 +1,9 @@
+"""Card milliseconds per train step inside the program's span
+``train.backward``: the loss's backward, the operators' registered
+backwards included (``r.program``: ``portbench.spans.ProgramReading``)."""
+
+
+def read(r):
+    p = getattr(r, "program", None)
+    s = None if p is None else p.span_device_s("train.backward")
+    return None if s is None or not r.units else s * 1e3 / r.units

@@ -1,0 +1,9 @@
+"""Card milliseconds per sequence inside the program's span
+``tracker.fine``: the fine encoder and tracker, the score and the
+confidence (``r.program``: ``portbench.spans.ProgramReading``)."""
+
+
+def read(r):
+    p = getattr(r, "program", None)
+    s = None if p is None else p.span_device_s("tracker.fine")
+    return None if s is None or not r.sequences else s * 1e3 / r.sequences
